@@ -1,0 +1,639 @@
+#!/usr/bin/env python3
+"""On-card check of the PyTorch + CUDA port (omni_recall_tpu_torch) on one
+NVIDIA H100: ``python3 chip_smoke.py [--seed N]`` from the repository root.
+
+Phases, one JSON line each:
+
+1. ``env``      torch / CUDA / nvcc versions, the card's name and power limit,
+                and the build of every CUDA kernel from omni_recall_tpu_torch/csrc.
+2. ``kernel``   per kernel (K1 coarse scan in both extraction modes, K2 DD
+                cosine, K4 fused scan, K5 keyword scan), at the serving shapes
+                (N = 2^20 rows, d = 768, 1024 bloom bits, B = 448 queries;
+                K2 at 32 candidates per query): the kernel against its plain
+                PyTorch version on the same inputs on the card — bitwise, K2's
+                sabs within SABS_REL — and the median of 5 CUDA-event timed
+                runs of each, beside the least time the card could take.
+3. ``server``   the app of ``python -m omni_recall_tpu_torch.server`` in
+                process on the card (Backend=pallas, int8, Refine=false,
+                DirectSelect=true, Hash embeddings): three uploads, five
+                searches, each equal to the oracle-backend response.
+4. ``serve``    a 2^20 x 768 clustered corpus bulk-loaded into
+                DeviceIndex(scan_dtype="int8", refine=False, exact_cos=True),
+                served in batches of 448 through RecallEngine.search_batch
+                and again through search_batches_pipelined; a sample of every
+                batch is checked against the exact float64 host scan
+                (DTO-identical). Then one batch in which one query in eight
+                is keyword-led (its certificate misses, so the rescue loop's
+                K4 serves it), one with the coarse prepass off (K4 serves
+                every query) and one of empty-vector queries (K5).
+5. ``kernels``  per kernel: its parity and times, and its launches on each
+                serving path (the server of phase 3 and each path of phase 4;
+                the counts are zeroed just before a path and read just after
+                it, and each path must launch its kernels).
+
+The last line is {"ok": true, "device": {...}}. Any failure raises and the
+script exits non-zero; it needs CUDA and the repository beside it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import datetime
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+import warnings
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+N_ROWS = 1 << 20
+DIM = 768
+BITS = 1024
+BATCH = 448
+DD_T = 32
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+INT8_OPS_PER_S = 1.979e15     # dense int8 tensor-core peak
+F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, runs: int = 5) -> float:
+    """Median of ``runs`` CUDA-event timings of fn() after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bitwise(a, b) -> bool:
+    import torch
+
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def bound_ms(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, str]:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------- phase 2
+
+
+def kernel_phase(seed: int) -> dict:
+    """Each kernel against its plain version at the serving shapes."""
+    import torch
+
+    from omni_recall_tpu_torch.ops import exact_cos, scorer
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def ri(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).to(dtype)
+
+    def rf(shape, scale=1.0, offset=0.0):
+        return torch.rand(shape, generator=g, device=dev) * scale + offset
+
+    n, d, b, w = N_ROWS, DIM, BATCH, BITS // 8
+    emb8 = ri(-127, 128, (n, d), torch.int8)
+    q8 = ri(-127, 128, (b, d), torch.int8)
+    bloom = ri(0, 256, (n, w), torch.uint8)
+    kw_w8 = torch.where(rf((b, 8 * w)) < 0.03, ri(1, 128, (b, 8 * w), torch.int8),
+                        torch.zeros((), dtype=torch.int8, device=dev))
+    kw_b = rf((b, 1), 0.05)
+    add_row = rf((1, n), 0.1)
+    add_row[0, rf((n,)) < 0.01] = -1e30  # tombstones
+    scale_row = rf((1, n), 1e-3, 1e-3)
+    q_scale = rf((b, 1), 1e-3, 1e-3)
+    q_bias = rf((b, 1), 0.01)
+    results = {}
+
+    def scan_line(name, replaces, kern, plain, bytes_moved, ops):
+        kv, ki = kern()
+        pv, pi = plain()
+        torch.cuda.synchronize()
+        ok = bitwise(kv, pv) and bitwise(ki, pi)
+        err = float((kv - pv).abs().max())
+        ms = time_ms(kern)
+        plain_ms = time_ms(plain)
+        bms, by = bound_ms(bytes_moved, ops, INT8_OPS_PER_S)
+        line = dict(name=name, replaces=replaces, shape=list(kv.shape),
+                    bitwise=ok, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bms, bound_by=by, library_ms=None)
+        emit({"phase": "kernel", **line})
+        if not ok:
+            raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        return line
+
+    out_bytes = lambda t1, sub: b * (n // sub) * t1 * 8  # noqa: E731
+    # K1 in the serving layout (sub 1024, t 2 -> packed keys), and its
+    # two-reduce mode (t 1 -> t1 = 2) at the same shapes
+    for mode, sub, t, replaces in (("packed", 1024, 2, 628), ("two_reduce", 1024, 1, 679)):
+        t1 = t + 1
+        results[f"coarse_{mode}"] = scan_line(
+            f"coarse_scan[{mode}]",
+            f"omni_recall_tpu/ops/pallas_scorer.py:{replaces}",
+            lambda: scorer.block_topt_int8_coarse(
+                emb8, q8, add_row, scale_row, q_scale, q_bias, t=t, sub=sub),
+            lambda: scorer.block_topt_int8_coarse_plain(
+                emb8, q8, add_row, scale_row, q_scale, q_bias, t=t, sub=sub),
+            n * d + b * d + 8 * n + 8 * b + out_bytes(t1, sub),
+            2.0 * n * d * b,
+        )
+    # K4 at the rescue layout (_select_scorer: sub 512, t 4)
+    results["fused"] = scan_line(
+        "fused_scan", "omni_recall_tpu/ops/pallas_scorer.py:824",
+        lambda: scorer.block_topt_int8(
+            emb8, bloom, q8, kw_w8, kw_b, add_row, scale_row, q_scale, q_bias, t=4, sub=512),
+        lambda: scorer.block_topt_int8_plain(
+            emb8, bloom, q8, kw_w8, kw_b, add_row, scale_row, q_scale, q_bias, t=4, sub=512),
+        n * d + n * w + b * d + b * 8 * w + 8 * n + 12 * b + out_bytes(5, 512),
+        2.0 * n * b * (d + 8 * w),
+    )
+    # K5 at the keyword-scan layout (_coarse_layout: sub 1024, t 4)
+    results["kw"] = scan_line(
+        "kw_scan", "omni_recall_tpu/ops/pallas_scorer.py:519",
+        lambda: scorer.block_topt_kw_only(bloom, kw_w8, kw_b, add_row, t=4, sub=1024),
+        lambda: scorer.block_topt_kw_only_plain(bloom, kw_w8, kw_b, add_row, t=4, sub=1024),
+        n * w + b * 8 * w + 4 * n + 4 * b + out_bytes(5, 1024),
+        2.0 * n * b * 8 * w,
+    )
+    del emb8, bloom
+    torch.cuda.empty_cache()
+
+    # K2 at the serving selection width (t_out = 32) over the raw f32 plane
+    raw = torch.randn((n, d), generator=g, device=dev) / d ** 0.5
+    q_raw = torch.randn((b, d), generator=g, device=dev) / d ** 0.5
+    rows = ri(-1, n, (b, DD_T), torch.int32)
+    kern = lambda: exact_cos.exact_cos_rows(raw, rows, q_raw)  # noqa: E731
+    plain = lambda: exact_cos.exact_cos_rows_plain(raw, rows, q_raw)  # noqa: E731
+    kh, kl, ks = kern()
+    ph, pl, ps = plain()
+    torch.cuda.synchronize()
+    sabs_rel = float(((ks - ps).abs() / ps.abs().clamp_min(1e-30)).max())
+    ok = bitwise(kh, ph) and bitwise(kl, pl) and sabs_rel <= exact_cos.SABS_REL
+    err = max(float((kh - ph).abs().max()), float((kl - pl).abs().max()),
+              float((ks - ps).abs().max()))
+    p2 = 1 << (d - 1).bit_length()
+    pairs = b * DD_T
+    bms, by = bound_ms(
+        pairs * d * 4 + b * d * 4 + pairs * 4 + 3 * pairs * 4,
+        pairs * (2 * d + 14 * (p2 - 1)), F32_OPS_PER_S,
+    )
+    line = dict(name="dd_rows", replaces="omni_recall_tpu/ops/exact_cos.py:171",
+                shape=[b, DD_T, d], bitwise=ok, sabs_rel_err=sabs_rel,
+                max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain),
+                bound_ms=bms, bound_by=by, library_ms=None)
+    emit({"phase": "kernel", **line})
+    if not ok:
+        raise AssertionError("dd_rows: kernel disagrees with its plain version")
+    results["dd"] = line
+    del raw, q_raw
+    torch.cuda.empty_cache()
+    return results
+
+
+# ---------------------------------------------------------------- phase 3
+
+
+DOCS = {
+    "gpu-notes.md": "# Hopper notes\nThe H100 streams device memory at terabytes per "
+    "second. Tensor cores multiply int8 tiles; shared memory holds the working set of a "
+    "block. Kernels written by hand control every rounding.",
+    "recall.txt": "Certified exact recall ranks chunks by cosine similarity, keyword "
+    "overlap and recency. The certificate compares the kth exact score with the largest "
+    "upper bound of every excluded chunk.",
+    "garden.txt": "Tomatoes need sun and steady water. Basil grows well beside them, and "
+    "marigolds keep pests away from the garden beds in early summer.",
+}
+QUERIES = ["tensor cores int8", "exact certificate upper bound", "garden water basil",
+           "recency keyword cosine", "shared memory block rounding"]
+
+
+def server_phase() -> dict:
+    from omni_recall_tpu_torch.config import load_config
+
+    config = load_config(settings_file=None, env={}, overrides={
+        "Engine:Backend": "pallas", "Engine:ScanDtype": "int8", "Engine:Refine": "false",
+        "Engine:DirectSelect": "true", "Engine:DeviceExactCos": "true",
+        "Engine:EmbeddingDim": DIM, "Engine:BloomBits": BITS,
+        "Embeddings:Provider": "Hash", "Embeddings:Dim": DIM,
+    })
+    with fixed_clock():  # the app's and the oracle's recency, to the bit
+        return _server_checks(config)
+
+
+@contextlib.contextmanager
+def fixed_clock():
+    """One fixed clock for ingest and search (the port's own modules), so
+    two searches made a moment apart score recency identically."""
+    import omni_recall_tpu_torch.ingest.service as ingest_mod
+    import omni_recall_tpu_torch.search.engine as engine_mod
+
+    real = datetime.datetime
+
+    class FixedClock(real):
+        @classmethod
+        def now(cls, tz=None):
+            return real(2026, 9, 1, 12, 0, tzinfo=datetime.timezone.utc)
+
+    ingest_mod.datetime = engine_mod.datetime = FixedClock
+    try:
+        yield
+    finally:
+        ingest_mod.datetime = engine_mod.datetime = real
+
+
+def _server_checks(config) -> dict:
+    from omni_recall_tpu_torch.config import EngineOptions
+    from omni_recall_tpu_torch.contracts import to_wire
+    from omni_recall_tpu_torch.search.engine import RecallEngine
+    from omni_recall_tpu_torch.search.service import RecallSearchService
+    from omni_recall_tpu_torch.server.app import build_app
+    from omni_recall_tpu_torch.server.testing import TestClient
+
+    app = build_app(config)  # device defaults to cuda
+    client = TestClient(app)
+    for name, text in DOCS.items():
+        resp = client.upload("/api/documents/upload", filename=name, data=text.encode())
+        if resp.status != 201:
+            raise AssertionError(f"upload {name}: HTTP {resp.status}")
+    oracle = RecallSearchService(
+        RecallEngine(app.store, None, EngineOptions(
+            backend="oracle", recent_window=config.engine.recent_window)),
+        app.embedding_client,
+    )
+    citations = 0
+    for q in QUERIES:
+        resp = client.post("/api/recall/search", json_body={"query": q, "topK": 3})
+        if resp.status != 200:
+            raise AssertionError(f"search {q!r}: HTTP {resp.status}")
+        got = resp.json()
+        want = json.loads(json.dumps(to_wire(oracle.search(q, 3))))
+        if got != want:
+            raise AssertionError(f"search {q!r}: {got} != oracle {want}")
+        citations += len(got["citations"])
+    health = client.get("/health")
+    line = {"phase": "server", "documents": len(DOCS), "searches": len(QUERIES),
+            "citations": citations, "oracle_identical": True,
+            "health": health.json()["status"],
+            "device_index_rows": app.engine.device_index.n_rows}
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------- phase 4
+
+
+def build_corpus(seed: int, n: int, d: int):
+    """Clustered corpus at serving scale (the recipe of the repository's
+    end-to-end bench, rebuilt here): 64 rows per cluster spread across the
+    index, unit rows = normalize(center + noise), cluster-token contents
+    whose bloom signatures are the real ones, created days spread over a
+    year. Returns (emb, assign, contents, created_days, centers)."""
+    import numpy as np
+    import torch
+
+    n_clusters = max(4096, n // 64)
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    centers = torch.randn((n_clusters, d), generator=g, device=dev)
+    centers /= centers.norm(dim=1, keepdim=True)
+    noise_k = 4096
+    noise = torch.randn((noise_k, d), generator=g, device=dev) * (2.0 / d ** 0.5)
+    rows = np.arange(n, dtype=np.int64)
+    assign = (rows * 40503 + seed) % n_clusters
+    emb = np.empty((n, d), dtype=np.float32)
+    slab = 1 << 18
+    for s0 in range(0, n, slab):
+        cid = torch.from_numpy(assign[s0:s0 + slab]).to(dev)
+        nid = torch.from_numpy(rows[s0:s0 + slab] % noise_k).to(dev)
+        e = centers[cid] + noise[nid]
+        e /= e.norm(dim=1, keepdim=True)
+        emb[s0:s0 + slab] = e.cpu().numpy()
+    contents = [f"topic c{c:05d}x synthetic chunk" for c in range(n_clusters)]
+    created_days = np.round(np.linspace(0.0, 365.0, n), 3).astype(np.float32)
+    return emb, assign, contents, created_days, centers.cpu().numpy()
+
+
+# kernels each serving path must launch (the counts are zeroed just before
+# a path and read just after it)
+PATH_KERNELS = {
+    "server": ("coarse_scan", "dd_rows"),
+    "embedding_batches": ("coarse_scan", "dd_rows"),
+    "keyword_led_batch": ("coarse_scan", "fused_scan"),
+    "prepass_off_batch": ("fused_scan",),
+    "empty_vector_batch": ("kw_scan",),
+}
+# the path whose launches a kernel's entry in the kernels line reports
+HOME_PATH = {"coarse_scan": "embedding_batches", "dd_rows": "embedding_batches",
+             "fused_scan": "keyword_led_batch", "kw_scan": "empty_vector_batch"}
+KEYWORD_LED_EVERY = 8  # one query in 8 of the keyword-led batch
+
+
+def run_path(paths: dict, name: str, batches: int, fn, stats=None):
+    """Run one serving path with every launch count zeroed just before it
+    and read just after; record its launches (and the engine's stats delta)
+    under ``paths[name]``. Raises if a kernel of the path never launched."""
+    from omni_recall_tpu_torch.ops import cuda
+
+    s0 = dict(stats) if stats is not None else None
+    cuda.reset_launches()
+    out = fn()
+    launches = dict(cuda.LAUNCHES)
+    rec = {"batches": batches, "launches": launches}
+    if stats is not None:
+        rec["stats"] = {k: v - s0.get(k, 0) for k, v in stats.items() if v != s0.get(k, 0)}
+    paths[name] = rec
+    missing = [k for k in PATH_KERNELS[name] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"path {name}: kernels never launched: {missing} ({rec})")
+    return out
+
+
+def serve_phase(seed: int, paths: dict, n_batches: int = 4, sample: int = 8) -> dict:
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    from omni_recall_tpu_torch.config import EngineOptions
+    from omni_recall_tpu_torch.index.device_index import EPOCH, to_micros
+    from omni_recall_tpu_torch.index.records import ChunkRecord
+    from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
+    from omni_recall_tpu_torch.ops import hashing, native
+    from omni_recall_tpu_torch.search.engine import RecallEngine
+
+    t0 = time.perf_counter()
+    n, d = N_ROWS, DIM
+    emb, assign, contents, created_days, centers = build_corpus(seed, n, d)
+    opts = EngineOptions(
+        backend="pallas", embedding_dim=d, recent_window=0, candidate_m=128,
+        bloom_bits=BITS, scan_dtype="int8", capacity_block=max(8192, n // 64),
+        device_exact_cos=True, direct_select=True, refine=False,
+        coarse_sub=1024, coarse_t=2,  # the bench's serving layout at 1M rows
+    )
+    engine = RecallEngine(InMemoryIngestionStore(), options=opts)
+    # the host finalize (keyword rescore, hybrid rescore) must run in the
+    # native library, not its pure-Python fallback, or the times below
+    # measure the fallback
+    if not (native.native_available() and native.rescore_available()):
+        raise AssertionError("the native keyword library did not build or load")
+    dix = engine.device_index
+    sigs = hashing.chunk_signatures_batch(
+        [c.lower() for c in contents], dix.bloom_bits, dix.ngram, dix.bloom_hashes)
+    bloom = sigs[assign]
+    day_cache: dict = {}
+    meta = []
+    for i in range(n):
+        day = float(created_days[i])
+        when = day_cache.get(day)
+        if when is None:
+            when = day_cache[day] = EPOCH + timedelta(days=round(day, 3))
+        meta.append(ChunkRecord(
+            id=f"s:{i}", document_id="synthetic", chunk_index=i,
+            content=contents[assign[i]], embedding=emb[i], created_at_utc=when, seq=i,
+        ))
+    millidays = np.round(created_days.astype(np.float64) * 1000.0).astype(np.int64)
+    us = to_micros(EPOCH) + millidays * 86_400_000
+    fixed = np.array(contents, dtype="S")
+    aux = {
+        "created_us": us, "created_ts": us.astype(np.float64) / 1e6,
+        "seqs": np.arange(n, dtype=np.int64),
+        "lower_arena": fixed[assign].tobytes(),
+        "lower_off": np.arange(n + 1, dtype=np.int64) * fixed.dtype.itemsize,
+    }
+    dix.bulk_load(emb, bloom, created_days, meta, aux=aux)
+    dev = dix.device_arrays()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    resident = {k: round(getattr(dev, k).numel() * getattr(dev, k).element_size() / 2**30, 3)
+                for k in ("emb", "raw", "bloom")}
+    now = EPOCH + timedelta(days=365.0)
+    n_clusters = len(contents)
+
+    def make_requests(rseed: int, empty: bool = False, keyword_led: int = 0):
+        """One batch: each query near a cluster center, its text the
+        cluster's token. ``keyword_led``: every such query's vector points
+        nowhere near any cluster (a random direction), so only its words
+        match — the cosine-only coarse certificate cannot hold for it."""
+        r = np.random.default_rng(rseed)
+        reqs = []
+        for i in range(BATCH):
+            c = int(r.integers(n_clusters))
+            qn = r.standard_normal(d).astype(np.float32)
+            if keyword_led and i % keyword_led == 0:
+                q = qn
+            else:
+                q = centers[c] + 0.2 * qn / np.linalg.norm(qn)
+            q = (q / np.linalg.norm(q)).astype(np.float32)
+            reqs.append((f"c{c:05d}x", [] if empty else q, 10))
+        return reqs
+
+    def dto(hits):
+        return [(h.chunk.id, round(h.score, 4)) for h in hits]
+
+    checked = 0
+
+    def check(reqs, results, positions=None):
+        nonlocal checked
+        for i in (range(sample) if positions is None else positions):
+            q, e, k = reqs[i]
+            want = engine._search_full_host(q, e, k, 0, now)
+            if dto(results[i]) != dto(want):
+                raise AssertionError(f"query {q!r}: {dto(results[i])} != oracle {dto(want)}")
+            checked += 1
+
+    batches = [make_requests(seed + i) for i in range(n_batches)]
+    timing: dict = {}
+
+    def embedding_batches():
+        engine.search_batch(make_requests(seed + 1000), now=now)  # warm-up
+        # serial batches timed back to back (the oracle checks come after,
+        # so their host work does not sit between the timed batches)
+        lat, serial = [], []
+        for reqs in batches:
+            t = time.perf_counter()
+            serial.append(engine.search_batch(reqs, now=now))
+            lat.append(time.perf_counter() - t)
+        timing["lat"] = lat
+        # the same batches through the pipelined executor (one batch's host
+        # finalize overlaps the next batch's dispatch and scans)
+        t = time.perf_counter()
+        piped = engine.search_batches_pipelined(batches, now=now)
+        timing["pipelined_s"] = time.perf_counter() - t
+        for reqs, res, res_p in zip(batches, serial, piped):
+            check(reqs, res)
+            if [dto(h) for h in res_p] != [dto(h) for h in res]:
+                raise AssertionError("pipelined results differ from search_batch")
+        # where one batch's time goes: host dispatch (query prep, launches),
+        # the wait for the device queue, host finalize (certification,
+        # rescue). The dispatch must not wait for the device: count the
+        # synchronizing CUDA calls one dispatch makes with PyTorch's sync
+        # debug mode, on its own batch, since the mode slows the host.
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ctx = engine._dispatch_device_batch(make_requests(seed + 401), 0, now)
+        torch.cuda.set_sync_debug_mode(0)
+        dispatch_syncs = sum("synchronizing" in str(w.message) for w in caught)
+        engine._finalize_device_batch(ctx)
+        reqs = make_requests(seed + 400)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ctx = engine._dispatch_device_batch(reqs, 0, now)
+        t_dispatch = time.perf_counter()
+        torch.cuda.synchronize()
+        t_device = time.perf_counter()
+        res = engine._finalize_device_batch(ctx)
+        t_final = time.perf_counter()
+        check(reqs, res)
+        timing["breakdown"] = {"dispatch_sync_calls": dispatch_syncs,
+                               "dispatch_host_ms": (t_dispatch - t) * 1e3,
+                               "device_wait_ms": (t_device - t_dispatch) * 1e3,
+                               "finalize_host_ms": (t_final - t_device) * 1e3}
+
+    def one_batch(key, reqs, positions=None):
+        def go():
+            t = time.perf_counter()
+            res = engine.search_batch(reqs, now=now)
+            timing[key] = (time.perf_counter() - t) * 1e3
+            check(reqs, res, positions)
+        return go
+
+    # warm-up + serial + pipelined + the two breakdown batches
+    run_path(paths, "embedding_batches", 1 + 2 * n_batches + 2, embedding_batches,
+             engine.stats)
+    # the main path's misses: keyword-led queries fail the coarse
+    # certificate, the wide rescue cannot resolve them (their rows are not
+    # among the cosine candidates), and the rescue loop's fused scan (K4)
+    # serves them
+    every = KEYWORD_LED_EVERY
+    reqs = make_requests(seed + 700, keyword_led=every)
+    led = list(range(0, BATCH, every))
+    # oracle sample: keyword-led queries and the queries just after them
+    run_path(paths, "keyword_led_batch", 1, one_batch(
+        "keyword_led_batch_ms", reqs, led[:sample] + [i + 1 for i in led[:sample]]),
+        engine.stats)
+    # the fused scan (K4) serves a full batch when the prepass is off
+    engine.options.coarse_prepass = False
+    run_path(paths, "prepass_off_batch", 1,
+             one_batch("prepass_off_batch_ms", make_requests(seed + 500)), engine.stats)
+    engine.options.coarse_prepass = True
+    # empty query vectors: the keyword-only scan (K5)
+    run_path(paths, "empty_vector_batch", 1,
+             one_batch("empty_vector_batch_ms", make_requests(seed + 600, empty=True)),
+             engine.stats)
+    lat = timing.pop("lat")
+    line = {
+        "phase": "serve", "rows": n, "dim": d, "bloom_bits": BITS, "batch": BATCH,
+        "resident_gib": resident, "build_s": build_s, "native_finalize": True,
+        "batches": n_batches, "certified_qps": n_batches * BATCH / sum(lat),
+        "pipelined_qps": n_batches * BATCH / timing.pop("pipelined_s"),
+        "p50_batch_ms": statistics.median(lat) * 1e3,
+        "batch_ms": [x * 1e3 for x in lat], **timing,
+        "keyword_led_queries": len(led),
+        "oracle_checked": checked, "oracle_per_batch": sample,
+        "paths": {k: v for k, v in paths.items() if k != "server"},
+    }
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------- main
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this check needs an "
+              "NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    from omni_recall_tpu_torch.ops import cuda
+
+    smi = nvidia_smi()
+    nvcc = subprocess.run([cuda.nvcc_path(), "--version"], check=True,
+                          capture_output=True, text=True).stdout.strip().splitlines()[-1]
+    build_s = cuda.build_all(force=True)
+    emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
+          "nvcc": nvcc, "gpu": smi, "kernel_build_s": build_s,
+          "device": torch.cuda.get_device_name(0)})
+
+    k = kernel_phase(args.seed)
+
+    paths: dict = {}
+    run_path(paths, "server", len(QUERIES), server_phase)
+    serve_phase(args.seed, paths)
+
+    def entry(name, route_key, source, line, extra=None):
+        home = paths[HOME_PATH[route_key]]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": line["replaces"], "launches": home["launches"][route_key],
+                "path": HOME_PATH[route_key],
+                "launches_per_batch": home["launches"][route_key] / home["batches"],
+                "launches_by_path": {p: v["launches"][route_key] for p, v in paths.items()},
+                "max_abs_err": line["max_abs_err"], "ms": line["ms"],
+                "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
+                "bound_by": line["bound_by"], "library_ms": None,
+                "parity": "bitwise" if line["bitwise"] else "FAILED", **(extra or {})}
+
+    two = k["coarse_two_reduce"]
+    kernels = [
+        entry("coarse_scan", "coarse_scan", "omni_recall_tpu_torch/csrc/scan.cu",
+              k["coarse_packed"], {"two_reduce_mode": {
+                  "replaces": two["replaces"],
+                  "parity": "bitwise" if two["bitwise"] else "FAILED",
+                  "ms": two["ms"], "plain_ms": two["plain_ms"],
+                  "bound_ms": two["bound_ms"]}}),
+        entry("dd_rows", "dd_rows", "omni_recall_tpu_torch/csrc/dd_rows.cu", k["dd"],
+              {"sabs_rel_err": k["dd"]["sabs_rel_err"]}),
+        entry("fused_scan", "fused_scan", "omni_recall_tpu_torch/csrc/scan.cu", k["fused"]),
+        entry("kw_scan", "kw_scan", "omni_recall_tpu_torch/csrc/scan.cu", k["kw"]),
+    ]
+    emit({"kernels": kernels})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,182 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+Each source under ``omni_recall_tpu_torch/csrc/`` compiles with ``nvcc``
+into a shared library with a plain C interface (no PyTorch headers, so a
+build takes seconds, not minutes) and is loaded with ``ctypes``. Builds run
+at first use, all sources at once (one ``nvcc`` process each), into the
+git-ignored ``omni_recall_tpu_torch/_build/`` directory; a library is
+rebuilt when its source is newer. Nothing here runs at import time: the CPU
+tests import every module of the port on a machine without ``nvcc``.
+
+Flags: ``sm_90a`` (Hopper) and ``-fmad=false`` — the kernels reproduce the
+JAX graphs' f32 arithmetic bit for bit, so no multiply-add may contract.
+
+``LAUNCHES`` counts, per kernel, the launches its wrapper made. A wrapper
+adds one exactly where it launches its kernel and nowhere else, so a run
+that zeroes the counts, drives the serving path and reads them back shows
+which kernels that path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# kernel library name -> source file
+SOURCES = {"scan": "scan.cu", "dd_rows": "dd_rows.cu"}
+
+NVCC_FLAGS = [
+    "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+]
+
+# launches per kernel (see module docstring); keys are the kernel names
+# chip_smoke.py reports
+LAUNCHES: dict[str, int] = {
+    "coarse_scan": 0,   # K1 (+ its pair-emit mode K7a): coarse int8 scan
+    "fused_scan": 0,    # K4: full fused int8 + keyword scan
+    "kw_scan": 0,       # K5: keyword-only bloom scan
+    "dd_rows": 0,       # K2: double-float cosine over gathered rows
+}
+
+# shared memory one block may use on Hopper (bytes; opt-in above 48 KB)
+MAX_SMEM = 232448
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one to ``LAUNCHES[name]`` (under a lock: the pipelined executor
+    launches from two threads)."""
+    with _count_lock:
+        LAUNCHES[name] += 1
+
+
+def reset_launches() -> None:
+    with _count_lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in (
+        os.path.join(cuda_home, "bin", "nvcc") if cuda_home else None,
+        "/usr/local/cuda/bin/nvcc",
+        shutil.which("nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "are built from omni_recall_tpu_torch/csrc at first use")
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    src = CSRC / SOURCES[name]
+    return not lib.is_file() or lib.stat().st_mtime < src.stat().st_mtime
+
+
+def build_all(force: bool = False) -> float:
+    """Compile every stale kernel library, all ``nvcc`` processes started
+    together. Returns the wall seconds spent (0.0 when nothing was stale).
+    Raises with the compiler's output when a build fails."""
+    with _lock:
+        names = [n for n in SOURCES if force or _stale(n)]
+        if not names:
+            return 0.0
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = nvcc_path()
+        t0 = time.perf_counter()
+        procs = []
+        for name in names:
+            tmp = BUILD_DIR / f"lib{name}.tmp{os.getpid()}.so"
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+            procs.append((name, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            )))
+        errors = []
+        for name, tmp, proc in procs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(f"{SOURCES[name]}:\n{out.decode(errors='replace')}")
+            else:
+                os.replace(tmp, _lib_path(name))
+        if errors:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+        return time.perf_counter() - t0
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = {
+    "scan": ("omni_scan_topt", [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,   # emb8 bloom q8 kw_w8 kw_b add scale qs qb
+        _P, _P,                               # out vals, out idxs
+        _I, _I, _I, _I, _I, _I, _I, _I,       # n d w b sub t1 mode packed
+        _P,                                   # stream
+    ]),
+    "dd_rows": ("omni_dd_rows", [
+        _P, _P, _P, _P, _P, _P,               # raw rows q hi lo sabs
+        _I, _I, _I, _I,                       # n d b t
+        _P,                                   # stream
+    ]),
+}
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``name`` (built first if stale)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all()
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            fn_name, argtypes = _ARGTYPES[name]
+            fn = getattr(lib, fn_name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
+            _libs[name] = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise for a launcher's non-zero return: a CUDA error code from
+    ``cudaGetLastError`` right after the launch, or -1 for a shape the
+    kernel does not take (the wrapper checks shapes first, so -1 means the
+    two disagree)."""
+    if rc == 0:
+        return
+    if rc == -1:
+        raise ValueError(f"{what}: shape not supported by the CUDA kernel")
+    fn = lib.omni_cuda_error_string
+    fn.restype = ctypes.c_char_p
+    fn.argtypes = [ctypes.c_int]
+    raise RuntimeError(
+        f"{what}: CUDA launch failed: {fn(rc).decode(errors='replace')} ({rc})"
+    )
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

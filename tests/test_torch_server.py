@@ -1,0 +1,151 @@
+"""The port's app (omni_recall_tpu_torch/server) in process on the CPU,
+against the JAX app on the same inputs.
+
+Both apps embed with the Hash provider and serve certified-exact search
+over an int8 index (the JAX one runs its Pallas kernels in interpret mode).
+Responses must be equal up to generated ids and timestamps, which each app
+draws itself; ids are compared through a per-app renaming, so references
+between responses (a citation's documentId, a chunk's id) must line up too.
+Both apps read one fixed clock on the ingest and search paths, so recency
+scores are the same to the bit.
+"""
+
+import re
+from datetime import datetime, timezone
+
+import pytest
+
+import omni_recall_tpu.ingest.service as jingest
+import omni_recall_tpu.search.engine as jengine
+import omni_recall_tpu_torch.ingest.service as tingest
+import omni_recall_tpu_torch.search.engine as tengine
+
+from omni_recall_tpu.config import load_config as jload
+from omni_recall_tpu.server.app import build_app as jbuild
+from omni_recall_tpu.server.testing import TestClient as JClient
+from omni_recall_tpu_torch.config import load_config as tload
+from omni_recall_tpu_torch.server.app import build_app as tbuild
+from omni_recall_tpu_torch.server.testing import TestClient as TClient
+
+OVERRIDES = {
+    "Embeddings:Provider": "Hash", "Embeddings:Dim": 64, "Engine:EmbeddingDim": 64,
+    "Engine:Backend": "pallas", "Engine:ScanDtype": "int8", "Engine:Refine": "false",
+    "Engine:DirectSelect": "true", "Engine:DeviceExactCos": "true",
+    "Engine:CapacityBlock": 128, "Engine:BloomBits": 1024,
+    "Ingestion:ChunkSizeWords": 20, "Ingestion:ChunkOverlapWords": 4,
+}
+DOCS = [
+    ("hopper.md", b"# Hopper\nThe H100 reads device memory at terabytes per second. "
+     b"Tensor cores multiply int8 tiles and shared memory holds the working set of "
+     b"one block. Kernels written by hand control every rounding step and every load."),
+    ("recall.txt", b"Certified exact recall ranks chunks by cosine similarity, keyword "
+     b"overlap and recency. The certificate compares the kth exact score with the "
+     b"largest upper bound of every excluded chunk, and widens the candidates when "
+     b"it fails."),
+    ("garden.txt", b"Tomatoes need sun and steady water. Basil grows beside them and "
+     b"marigolds keep pests away from the beds in early summer; mulch keeps the soil "
+     b"moist through August."),
+]
+QUERIES = ["tensor cores int8 tiles", "certificate upper bound candidates",
+           "basil tomatoes water", "shared memory rounding", "recency keyword cosine"]
+_ID_KEY = re.compile(r"(^id$|Id$)")
+_TIME_KEY = re.compile(r"(At|AtUtc|Utc)$")
+
+
+class _Renamer:
+    def __init__(self):
+        self.names: dict[str, str] = {}
+
+    def __call__(self, value):
+        return self.names.setdefault(value, f"id{len(self.names)}")
+
+
+def _normalize(obj, rename):
+    if isinstance(obj, dict):
+        out = {}
+        for k, v in obj.items():
+            if _TIME_KEY.search(k):
+                out[k] = "<time>" if v is not None else None
+            elif _ID_KEY.search(k) and isinstance(v, str):
+                out[k] = rename(v)
+            else:
+                out[k] = _normalize(v, rename)
+        return out
+    if isinstance(obj, list):
+        return [_normalize(v, rename) for v in obj]
+    return obj
+
+
+def _run(client, rename):
+    """Drive one app; returns the normalized (status, body) transcript."""
+    log = []
+
+    def record(resp):
+        body = resp.json() if resp.body else None
+        log.append((resp.status, _normalize(body, rename)))
+        return body
+
+    doc_ids = []
+    for name, data in DOCS:
+        doc_ids.append(record(client.upload("/api/documents/upload", filename=name,
+                                            data=data))["documentId"])
+    for q in QUERIES:
+        record(client.post("/api/recall/search", json_body={"query": q, "topK": 4}))
+    record(client.get("/api/documents"))
+    for doc_id in doc_ids:
+        record(client.get(f"/api/documents/{doc_id}"))
+        record(client.get(f"/api/documents/{doc_id}/chunks"))
+    record(client.delete(f"/api/documents/{doc_ids[1]}"))
+    for q in QUERIES[:3]:
+        record(client.post("/api/recall/search", json_body={"query": q, "topK": 10}))
+    # probes
+    record(client.post("/api/recall/search", json_body={"query": "  "}))           # 400
+    record(client.post("/api/recall/search", body=b"{not json",
+                       headers={"content-type": "application/json"}))          # 400
+    record(client.get(f"/api/documents/{doc_ids[1]}"))                          # 404
+    record(client.get("/api/recall/search"))                                     # 405
+    record(client.upload("/api/documents/upload", filename="x.exe", data=b"MZ"))  # 415
+    return log
+
+
+class _FixedClock(datetime):
+    @classmethod
+    def now(cls, tz=None):
+        return datetime(2026, 9, 1, 12, 0, tzinfo=timezone.utc)
+
+
+@pytest.fixture(scope="module")
+def transcripts():
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (jingest, jengine, tingest, tengine):
+            mp.setattr(module, "datetime", _FixedClock)
+        japp = jbuild(jload(settings_file=None, env={}, overrides=OVERRIDES))
+        tapp = tbuild(tload(settings_file=None, env={}, overrides=OVERRIDES), device="cpu")
+        yield _run(JClient(japp), _Renamer()), _run(TClient(tapp), _Renamer()), tapp
+
+
+def test_responses_equal_the_jax_app(transcripts):
+    jlog, tlog, _ = transcripts
+    assert len(jlog) == len(tlog)
+    for (js, jb), (ts, tb) in zip(jlog, tlog):
+        assert ts == js
+        assert tb == jb
+
+
+def test_probe_status_codes(transcripts):
+    _, tlog, _ = transcripts
+    assert [s for s, _ in tlog[-5:]] == [400, 400, 404, 405, 415]
+    assert [s for s, _ in tlog[:3]] == [201, 201, 201]
+
+
+def test_searches_return_citations_and_metrics(transcripts):
+    _, tlog, tapp = transcripts
+    searches = [b for s, b in tlog[3:3 + len(QUERIES)]]
+    assert all(b["citations"] for b in searches)
+    assert tapp.engine.stats["searches_total"] == len(QUERIES) + 3
+    client = TClient(tapp)
+    metrics = client.get("/metrics")
+    assert metrics.status == 200
+    assert f"omni_searches_total {len(QUERIES) + 3}" in metrics.body.decode()
+    health = client.get("/health").json()
+    assert any(d["name"] == "tpu-engine" for d in health["dependencies"])
