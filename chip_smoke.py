@@ -6,26 +6,34 @@ Phases, one JSON line each:
 
 1. ``env``      torch / CUDA / nvcc versions, the card's name and power limit,
                 and the build of every CUDA kernel from omni_recall_tpu_torch/csrc.
-2. ``kernel``   per kernel (K1 coarse scan in both extraction modes, K2 DD
-                cosine, K4 fused scan, K5 keyword scan), at the serving shapes
-                (N = 2^20 rows, d = 768, 1024 bloom bits, B = 448 queries;
-                K2 at 32 candidates per query): the kernel against its plain
-                PyTorch version on the same inputs on the card — bitwise, K2's
-                sabs within SABS_REL — and the median of 5 CUDA-event timed
-                runs of each, beside the least time the card could take.
+2. ``kernel``   per kernel (K1 coarse scan and its pair mode K7a, K2 DD
+                cosine, K3 refine, K4 fused scan, K5 keyword scan), at the
+                serving shapes (N = 2^20 rows, d = 768, 1024 bloom bits,
+                B = 448 queries; K2 at 32 candidates per query; K3 at 64 per
+                query, the select stage, and at 64 x 2048, the rescue stage):
+                the kernel against its plain PyTorch version on the same
+                inputs on the card — bitwise, K2's sabs within SABS_REL — and
+                the median of 5 CUDA-event timed runs of each, beside the
+                least time the card could take.
 3. ``server``   the app of ``python -m omni_recall_tpu_torch.server`` in
-                process on the card (Backend=pallas, int8, Refine=false,
+                process on the card (Backend=pallas, int8, Refine=true,
                 DirectSelect=true, Hash embeddings): three uploads, five
                 searches, each equal to the oracle-backend response.
-4. ``serve``    a 2^20 x 768 clustered corpus bulk-loaded into
-                DeviceIndex(scan_dtype="int8", refine=False, exact_cos=True),
+4. ``serve``    a 2^20 x 768 clustered corpus bulk-loaded into the headline
+                index, DeviceIndex(scan_dtype="int8", refine=True,
+                exact_cos=True) — the repository bench's configuration —
                 served in batches of 448 through RecallEngine.search_batch
                 and again through search_batches_pipelined; a sample of every
                 batch is checked against the exact float64 host scan
-                (DTO-identical). Then one batch in which one query in eight
-                is keyword-led (its certificate misses, so the rescue loop's
-                K4 serves it), one with the coarse prepass off (K4 serves
-                every query) and one of empty-vector queries (K5).
+                (DTO-identical). Then batches with the refine selection
+                (DirectSelect off: K3 every batch), one in which one query in
+                eight is keyword-led (its certificate misses, so the rescue
+                loop's K4 and K3 serve it), one in K1's pair mode (K7a), one
+                with the coarse prepass off (K4 + K3 serve every query) and
+                one of empty-vector queries (K5). Last, the same corpus in an
+                index without the residual planes (refine=False, the capacity
+                configuration) serves a keyword-led batch: its rescue runs
+                without K3.
 5. ``kernels``  per kernel: its parity and times, and its launches on each
                 serving path (the server of phase 3 and each path of phase 4;
                 the counts are zeroed just before a path and read just after
@@ -72,8 +80,12 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, runs: int = 5) -> float:
-    """Median of ``runs`` CUDA-event timings of fn() after one warm-up."""
+def time_ms(fn, runs: int = 5, device_only: bool = False) -> float:
+    """Median of ``runs`` CUDA-event timings of fn() after one warm-up.
+    ``device_only``: a 10 ms device sleep is queued first, so fn's launches
+    are all queued before its events start and the time is the device's
+    alone; without it a launch that takes less time on the device than on
+    the host is timed at its host launch overhead."""
     import torch
 
     fn()
@@ -82,6 +94,8 @@ def time_ms(fn, runs: int = 5) -> float:
     for _ in range(runs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if device_only:
+            torch.cuda._sleep(20_000_000)  # ~10 ms of clock cycles
         start.record()
         fn()
         end.record()
@@ -144,7 +158,7 @@ def kernel_phase(seed: int) -> dict:
         torch.cuda.synchronize()
         ok = bitwise(kv, pv) and bitwise(ki, pi)
         err = float((kv - pv).abs().max())
-        ms = time_ms(kern)
+        ms = time_ms(kern, device_only=True)
         plain_ms = time_ms(plain)
         bms, by = bound_ms(bytes_moved, ops, INT8_OPS_PER_S)
         line = dict(name=name, replaces=replaces, shape=list(kv.shape),
@@ -188,6 +202,7 @@ def kernel_phase(seed: int) -> dict:
         n * w + b * 8 * w + 4 * n + 4 * b + out_bytes(5, 1024),
         2.0 * n * b * 8 * w,
     )
+    results.update(refine_lines(g, emb8, bloom, kw_w8, kw_b[:, 0], scale_row[0]))
     del emb8, bloom
     torch.cuda.empty_cache()
 
@@ -212,7 +227,7 @@ def kernel_phase(seed: int) -> dict:
     )
     line = dict(name="dd_rows", replaces="omni_recall_tpu/ops/exact_cos.py:171",
                 shape=[b, DD_T, d], bitwise=ok, sabs_rel_err=sabs_rel,
-                max_abs_err=err, ms=time_ms(kern), plain_ms=time_ms(plain),
+                max_abs_err=err, ms=time_ms(kern, device_only=True), plain_ms=time_ms(plain),
                 bound_ms=bms, bound_by=by, library_ms=None)
     emit({"phase": "kernel", **line})
     if not ok:
@@ -221,6 +236,66 @@ def kernel_phase(seed: int) -> dict:
     del raw, q_raw
     torch.cuda.empty_cache()
     return results
+
+
+REFINE_SHAPES = {"select": (BATCH, 64), "rescue": (64, 2048)}
+
+
+def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1) -> dict:
+    """K3 at the select stage's [448, 64] and the rescue stage's [64, 2048]
+    candidate shapes over the 2^20-row planes: bitwise against its plain
+    version; card ms (the kernel alone, given the recency term), wrapper ms
+    (the recency term + the launch, as the engine calls it) and plain ms."""
+    import torch
+
+    from omni_recall_tpu_torch.ops import refine
+
+    dev = emb1.device
+    n, d = emb1.shape
+    w = bloom.shape[1]
+    emb2 = torch.randint(-127, 128, (n, d), generator=g, device=dev).to(torch.int8)
+    scale2 = torch.rand((n,), generator=g, device=dev) * 1e-4
+    err2 = torch.rand((n,), generator=g, device=dev) * 4e-5
+    created = torch.rand((n,), generator=g, device=dev) * 400.0
+    valid = torch.rand((n,), generator=g, device=dev) > 0.01
+    out = {}
+    for stage, (b, m) in REFINE_SHAPES.items():
+        q = torch.randn((b, d), generator=g, device=dev)
+        q /= q.norm(dim=1, keepdim=True)
+        rows = torch.randint(-1, n, (b, m), generator=g, device=dev).to(torch.int32)
+        vals = torch.randn((b, m), generator=g, device=dev)
+        vals[torch.rand((b, m), generator=g, device=dev) < 0.01] = float("-inf")
+        planes = (emb1, scale1, emb2, scale2, err2, bloom)
+        args = (*planes, created, valid, q, kw_w8[:b], kw_b[:b], 365.0, rows, vals)
+        rec = refine.recency_term(created, 365.0, rows)
+        kern = lambda: refine.refine_bounds_cuda(  # noqa: E731
+            *planes, valid, q, kw_w8[:b], kw_b[:b], rows, vals, rec)
+        plain = lambda: refine.refine_bounds_plain(*args)  # noqa: E731
+        wrapper = lambda: refine._refine_dispatch(*args)  # noqa: E731
+        got, want, via = kern(), plain(), wrapper()
+        torch.cuda.synchronize()
+        ok = bitwise(got, want) and bitwise(via, want)
+        fin = torch.isfinite(want)
+        err = float((got[fin] - want[fin]).abs().max())
+        # bytes: each distinct candidate row's two int8 rows, bloom row and
+        # three f32 sidecars once; per slot its row id, add term and output;
+        # per query its two int8 planes, keyword weights and five scalars
+        uniq = int(torch.unique(rows.clamp_min(0)).numel())
+        slots = b * m
+        bms, by = bound_ms(uniq * (2 * d + w + 12) + slots * 12 + b * (2 * d + 8 * w + 20),
+                           slots * (8.0 * d + 16.0 * w), INT8_OPS_PER_S)
+        line = dict(name=f"refine[{stage}]", replaces="omni_recall_tpu/ops/refine.py:467",
+                    shape=[b, m, d], bitwise=ok, max_abs_err=err, unique_rows=uniq,
+                    neg_inf=int((~fin).sum()), ms=time_ms(kern, device_only=True),
+                    wrapper_ms=time_ms(wrapper),
+                    plain_ms=time_ms(plain), bound_ms=bms, bound_by=by, library_ms=None)
+        emit({"phase": "kernel", **line})
+        if not ok:
+            raise AssertionError(f"refine[{stage}]: kernel disagrees with its plain version")
+        out[f"refine_{stage}"] = line
+    del emb2
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -244,7 +319,7 @@ def server_phase() -> dict:
     from omni_recall_tpu_torch.config import load_config
 
     config = load_config(settings_file=None, env={}, overrides={
-        "Engine:Backend": "pallas", "Engine:ScanDtype": "int8", "Engine:Refine": "false",
+        "Engine:Backend": "pallas", "Engine:ScanDtype": "int8", "Engine:Refine": "true",
         "Engine:DirectSelect": "true", "Engine:DeviceExactCos": "true",
         "Engine:EmbeddingDim": DIM, "Engine:BloomBits": BITS,
         "Embeddings:Provider": "Hash", "Embeddings:Dim": DIM,
@@ -347,24 +422,30 @@ def build_corpus(seed: int, n: int, d: int):
 
 
 # kernels each serving path must launch (the counts are zeroed just before
-# a path and read just after it)
+# a path and read just after it), and kernels it must not launch
 PATH_KERNELS = {
     "server": ("coarse_scan", "dd_rows"),
     "embedding_batches": ("coarse_scan", "dd_rows"),
-    "keyword_led_batch": ("coarse_scan", "fused_scan"),
-    "prepass_off_batch": ("fused_scan",),
+    "refine_select_batches": ("coarse_scan", "refine", "dd_rows"),
+    "keyword_led_refine_batch": ("coarse_scan", "fused_scan", "refine"),
+    "pair_emit_batch": ("coarse_pair",),
+    "prepass_off_batch": ("fused_scan", "refine"),
     "empty_vector_batch": ("kw_scan",),
+    "keyword_led_batch": ("coarse_scan", "fused_scan"),
 }
+PATH_FORBIDS = {"keyword_led_batch": ("refine",), "pair_emit_batch": ("coarse_scan",)}
 # the path whose launches a kernel's entry in the kernels line reports
-HOME_PATH = {"coarse_scan": "embedding_batches", "dd_rows": "embedding_batches",
-             "fused_scan": "keyword_led_batch", "kw_scan": "empty_vector_batch"}
+HOME_PATH = {"coarse_scan": "embedding_batches", "coarse_pair": "pair_emit_batch",
+             "dd_rows": "embedding_batches", "refine": "refine_select_batches",
+             "fused_scan": "keyword_led_refine_batch", "kw_scan": "empty_vector_batch"}
 KEYWORD_LED_EVERY = 8  # one query in 8 of the keyword-led batch
 
 
 def run_path(paths: dict, name: str, batches: int, fn, stats=None):
     """Run one serving path with every launch count zeroed just before it
     and read just after; record its launches (and the engine's stats delta)
-    under ``paths[name]``. Raises if a kernel of the path never launched."""
+    under ``paths[name]``. Raises if a kernel of the path never launched, or
+    one it must not use did."""
     from omni_recall_tpu_torch.ops import cuda
 
     s0 = dict(stats) if stats is not None else None
@@ -378,41 +459,28 @@ def run_path(paths: dict, name: str, batches: int, fn, stats=None):
     missing = [k for k in PATH_KERNELS[name] if launches[k] == 0]
     if missing:
         raise AssertionError(f"path {name}: kernels never launched: {missing} ({rec})")
+    extra = [k for k in PATH_FORBIDS.get(name, ()) if launches[k]]
+    if extra:
+        raise AssertionError(f"path {name}: launched kernels it must not: {extra} ({rec})")
     return out
 
 
-def serve_phase(seed: int, paths: dict, n_batches: int = 4, sample: int = 8) -> dict:
+def load_index(engine, emb, assign, contents, created_days):
+    """Bulk-load the corpus into ``engine``'s device index (real bloom
+    signatures, exact created micros, contents arena) and upload it."""
     from datetime import timedelta
 
     import numpy as np
     import torch
 
-    from omni_recall_tpu_torch.config import EngineOptions
     from omni_recall_tpu_torch.index.device_index import EPOCH, to_micros
     from omni_recall_tpu_torch.index.records import ChunkRecord
-    from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
-    from omni_recall_tpu_torch.ops import hashing, native
-    from omni_recall_tpu_torch.search.engine import RecallEngine
+    from omni_recall_tpu_torch.ops import hashing
 
-    t0 = time.perf_counter()
-    n, d = N_ROWS, DIM
-    emb, assign, contents, created_days, centers = build_corpus(seed, n, d)
-    opts = EngineOptions(
-        backend="pallas", embedding_dim=d, recent_window=0, candidate_m=128,
-        bloom_bits=BITS, scan_dtype="int8", capacity_block=max(8192, n // 64),
-        device_exact_cos=True, direct_select=True, refine=False,
-        coarse_sub=1024, coarse_t=2,  # the bench's serving layout at 1M rows
-    )
-    engine = RecallEngine(InMemoryIngestionStore(), options=opts)
-    # the host finalize (keyword rescore, hybrid rescore) must run in the
-    # native library, not its pure-Python fallback, or the times below
-    # measure the fallback
-    if not (native.native_available() and native.rescore_available()):
-        raise AssertionError("the native keyword library did not build or load")
+    n = emb.shape[0]
     dix = engine.device_index
     sigs = hashing.chunk_signatures_batch(
         [c.lower() for c in contents], dix.bloom_bits, dix.ngram, dix.bloom_hashes)
-    bloom = sigs[assign]
     day_cache: dict = {}
     meta = []
     for i in range(n):
@@ -433,12 +501,50 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, sample: int = 8) -> 
         "lower_arena": fixed[assign].tobytes(),
         "lower_off": np.arange(n + 1, dtype=np.int64) * fixed.dtype.itemsize,
     }
-    dix.bulk_load(emb, bloom, created_days, meta, aux=aux)
+    dix.bulk_load(emb, sigs[assign], created_days, meta, aux=aux)
     dev = dix.device_arrays()
     torch.cuda.synchronize()
+    return {k: round(getattr(dev, k).numel() * getattr(dev, k).element_size() / 2**30, 3)
+            for k in ("emb", "emb2", "raw", "bloom") if getattr(dev, k) is not None}
+
+
+def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
+                sample: int = 8) -> dict:
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    from omni_recall_tpu_torch.config import EngineOptions
+    from omni_recall_tpu_torch.index.device_index import EPOCH
+    from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
+    from omni_recall_tpu_torch.ops import native
+    from omni_recall_tpu_torch.search.engine import RecallEngine
+
+    t0 = time.perf_counter()
+    n, d = N_ROWS, DIM
+    emb, assign, contents, created_days, centers = build_corpus(seed, n, d)
+    corpus_s = time.perf_counter() - t0
+
+    def engine_for(refine: bool):
+        # the bench's headline options (bench.py:392-417), its serving
+        # layout at 1M rows; refine=False is the capacity configuration
+        return RecallEngine(InMemoryIngestionStore(), options=EngineOptions(
+            backend="pallas", embedding_dim=d, recent_window=0, candidate_m=128,
+            bloom_bits=BITS, scan_dtype="int8", capacity_block=max(8192, n // 64),
+            device_exact_cos=True, direct_select=True, refine=refine,
+            coarse_sub=1024, coarse_t=2,
+        ))
+
+    t0 = time.perf_counter()
+    engine = engine_for(True)
+    # the host finalize (keyword rescore, hybrid rescore) must run in the
+    # native library, not its pure-Python fallback, or the times below
+    # measure the fallback
+    if not (native.native_available() and native.rescore_available()):
+        raise AssertionError("the native keyword library did not build or load")
+    resident = {"refine": load_index(engine, emb, assign, contents, created_days)}
     build_s = time.perf_counter() - t0
-    resident = {k: round(getattr(dev, k).numel() * getattr(dev, k).element_size() / 2**30, 3)
-                for k in ("emb", "raw", "bloom")}
     now = EPOCH + timedelta(days=365.0)
     n_clusters = len(contents)
 
@@ -465,11 +571,11 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, sample: int = 8) -> 
 
     checked = 0
 
-    def check(reqs, results, positions=None):
+    def check(eng, reqs, results, positions=None):
         nonlocal checked
         for i in (range(sample) if positions is None else positions):
             q, e, k = reqs[i]
-            want = engine._search_full_host(q, e, k, 0, now)
+            want = eng._search_full_host(q, e, k, 0, now)
             if dto(results[i]) != dto(want):
                 raise AssertionError(f"query {q!r}: {dto(results[i])} != oracle {dto(want)}")
             checked += 1
@@ -493,7 +599,7 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, sample: int = 8) -> 
         piped = engine.search_batches_pipelined(batches, now=now)
         timing["pipelined_s"] = time.perf_counter() - t
         for reqs, res, res_p in zip(batches, serial, piped):
-            check(reqs, res)
+            check(engine, reqs, res)
             if [dto(h) for h in res_p] != [dto(h) for h in res]:
                 raise AssertionError("pipelined results differ from search_batch")
         # where one batch's time goes: host dispatch (query prep, launches),
@@ -501,15 +607,17 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, sample: int = 8) -> 
         # rescue). The dispatch must not wait for the device: count the
         # synchronizing CUDA calls one dispatch makes with PyTorch's sync
         # debug mode, on its own batch, since the mode slows the host.
+        timing["breakdown"] = breakdown(make_requests(seed + 401), make_requests(seed + 400))
+
+    def breakdown(probe, reqs):
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("warn")
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            ctx = engine._dispatch_device_batch(make_requests(seed + 401), 0, now)
+            ctx = engine._dispatch_device_batch(probe, 0, now)
         torch.cuda.set_sync_debug_mode(0)
         dispatch_syncs = sum("synchronizing" in str(w.message) for w in caught)
         engine._finalize_device_batch(ctx)
-        reqs = make_requests(seed + 400)
         torch.cuda.synchronize()
         t = time.perf_counter()
         ctx = engine._dispatch_device_batch(reqs, 0, now)
@@ -518,52 +626,115 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, sample: int = 8) -> 
         t_device = time.perf_counter()
         res = engine._finalize_device_batch(ctx)
         t_final = time.perf_counter()
-        check(reqs, res)
-        timing["breakdown"] = {"dispatch_sync_calls": dispatch_syncs,
-                               "dispatch_host_ms": (t_dispatch - t) * 1e3,
-                               "device_wait_ms": (t_device - t_dispatch) * 1e3,
-                               "finalize_host_ms": (t_final - t_device) * 1e3}
+        check(engine, reqs, res)
+        return {"dispatch_sync_calls": dispatch_syncs,
+                "dispatch_host_ms": (t_dispatch - t) * 1e3,
+                "device_wait_ms": (t_device - t_dispatch) * 1e3,
+                "finalize_host_ms": (t_final - t_device) * 1e3}
 
-    def one_batch(key, reqs, positions=None):
+    def refine_select_batches():
+        """DirectSelect off, the reference's own selection: K3 refines the
+        top-r scan candidates of every batch, then compact_select."""
+        engine.options.direct_select = False
+        try:
+            reqs_all = [make_requests(seed + 200 + i) for i in range(n_refine)]
+            lat, res_all = [], []
+            for reqs in reqs_all:
+                t = time.perf_counter()
+                res_all.append(engine.search_batch(reqs, now=now))
+                lat.append(time.perf_counter() - t)
+            for reqs, res in zip(reqs_all, res_all):
+                check(engine, reqs, res)
+            timing["refine_select"] = {
+                "certified_qps": n_refine * BATCH / sum(lat),
+                "p50_batch_ms": statistics.median(lat) * 1e3,
+                "batch_ms": [x * 1e3 for x in lat],
+                "breakdown": breakdown(make_requests(seed + 301), make_requests(seed + 300)),
+            }
+        finally:
+            engine.options.direct_select = True
+
+    def one_batch(eng, key, reqs, positions=None):
         def go():
             t = time.perf_counter()
-            res = engine.search_batch(reqs, now=now)
+            res = eng.search_batch(reqs, now=now)
             timing[key] = (time.perf_counter() - t) * 1e3
-            check(reqs, res, positions)
+            check(eng, reqs, res, positions)
         return go
 
-    # warm-up + serial + pipelined + the two breakdown batches
+    # the main path: warm-up + serial + pipelined + the two breakdown batches
     run_path(paths, "embedding_batches", 1 + 2 * n_batches + 2, embedding_batches,
+             engine.stats)
+    run_path(paths, "refine_select_batches", n_refine + 2, refine_select_batches,
              engine.stats)
     # the main path's misses: keyword-led queries fail the coarse
     # certificate, the wide rescue cannot resolve them (their rows are not
     # among the cosine candidates), and the rescue loop's fused scan (K4)
-    # serves them
+    # serves them, K3 refining its candidates. Their misses close the direct
+    # gate, so the batches after it take the refine selection.
     every = KEYWORD_LED_EVERY
-    reqs = make_requests(seed + 700, keyword_led=every)
     led = list(range(0, BATCH, every))
     # oracle sample: keyword-led queries and the queries just after them
-    run_path(paths, "keyword_led_batch", 1, one_batch(
-        "keyword_led_batch_ms", reqs, led[:sample] + [i + 1 for i in led[:sample]]),
-        engine.stats)
-    # the fused scan (K4) serves a full batch when the prepass is off
+    led_sample = led[:sample] + [i + 1 for i in led[:sample]]
+    run_path(paths, "keyword_led_refine_batch", 1, one_batch(
+        engine, "keyword_led_refine_batch_ms", make_requests(seed + 700, keyword_led=every),
+        led_sample), engine.stats)
+    # the rescue loop's own K3 share: one launch for each fused rescue scan,
+    # besides the selection's one launch when the gate was closed
+    led_path = paths["keyword_led_refine_batch"]
+    led_path["rescue_refine"] = (led_path["launches"]["refine"]
+                                 - (0 if engine._last_select_direct else 1))
+    if led_path["rescue_refine"] != led_path["launches"]["fused_scan"]:
+        raise AssertionError(f"keyword_led_refine_batch: the rescue loop did not refine "
+                             f"each fused rescue scan ({led_path})")
+    # K1's value/index pair mode (K7a): a coarse layout at t = 1
+    engine.options.coarse_sub, engine.options.coarse_t = 512, 1
+    run_path(paths, "pair_emit_batch", 1,
+             one_batch(engine, "pair_emit_batch_ms", make_requests(seed + 800)), engine.stats)
+    engine.options.coarse_sub, engine.options.coarse_t = 1024, 2
+    # the fused scan (K4, its candidates refined by K3) serves a full batch
+    # when the prepass is off
     engine.options.coarse_prepass = False
     run_path(paths, "prepass_off_batch", 1,
-             one_batch("prepass_off_batch_ms", make_requests(seed + 500)), engine.stats)
+             one_batch(engine, "prepass_off_batch_ms", make_requests(seed + 500)),
+             engine.stats)
     engine.options.coarse_prepass = True
     # empty query vectors: the keyword-only scan (K5)
-    run_path(paths, "empty_vector_batch", 1,
-             one_batch("empty_vector_batch_ms", make_requests(seed + 600, empty=True)),
-             engine.stats)
+    run_path(paths, "empty_vector_batch", 1, one_batch(
+        engine, "empty_vector_batch_ms", make_requests(seed + 600, empty=True)), engine.stats)
+    direct_gate = {"select_direct_last": engine._last_select_direct,
+                   "query_count": engine._direct_query_count,
+                   "skip_until": engine._direct_skip_until}
+    del engine
+    torch.cuda.empty_cache()
+
+    # the capacity configuration: no residual planes, so the keyword-led
+    # misses rescue through K4 alone
+    t0 = time.perf_counter()
+    capacity = engine_for(False)
+    resident["no_refine"] = load_index(capacity, emb, assign, contents, created_days)
+    capacity_build_s = time.perf_counter() - t0
+    run_path(paths, "keyword_led_batch", 1, one_batch(
+        capacity, "keyword_led_batch_ms", make_requests(seed + 700, keyword_led=every),
+        led_sample), capacity.stats)
+    del capacity
+    torch.cuda.empty_cache()
+
     lat = timing.pop("lat")
     line = {
         "phase": "serve", "rows": n, "dim": d, "bloom_bits": BITS, "batch": BATCH,
-        "resident_gib": resident, "build_s": build_s, "native_finalize": True,
+        "config": "refine=True, direct_select=True, coarse (1024, 2), candidate_m=128",
+        "resident_gib": resident, "corpus_s": corpus_s, "build_s": build_s,
+        "capacity_build_s": capacity_build_s, "native_finalize": True,
         "batches": n_batches, "certified_qps": n_batches * BATCH / sum(lat),
         "pipelined_qps": n_batches * BATCH / timing.pop("pipelined_s"),
         "p50_batch_ms": statistics.median(lat) * 1e3,
         "batch_ms": [x * 1e3 for x in lat], **timing,
         "keyword_led_queries": len(led),
+        "keyword_led_host_scans": {
+            k: paths[k]["stats"].get("host_fallbacks_total", 0)
+            for k in ("keyword_led_refine_batch", "keyword_led_batch")},
+        "direct_gate": direct_gate,
         "oracle_checked": checked, "oracle_per_batch": sample,
         "paths": {k: v for k, v in paths.items() if k != "server"},
     }
@@ -614,18 +785,22 @@ def main() -> int:
                 "bound_by": line["bound_by"], "library_ms": None,
                 "parity": "bitwise" if line["bitwise"] else "FAILED", **(extra or {})}
 
-    two = k["coarse_two_reduce"]
+    scan_src = "omni_recall_tpu_torch/csrc/scan.cu"
+    rescue = k["refine_rescue"]
     kernels = [
-        entry("coarse_scan", "coarse_scan", "omni_recall_tpu_torch/csrc/scan.cu",
-              k["coarse_packed"], {"two_reduce_mode": {
-                  "replaces": two["replaces"],
-                  "parity": "bitwise" if two["bitwise"] else "FAILED",
-                  "ms": two["ms"], "plain_ms": two["plain_ms"],
-                  "bound_ms": two["bound_ms"]}}),
-        entry("dd_rows", "dd_rows", "omni_recall_tpu_torch/csrc/dd_rows.cu", k["dd"],
+        entry("K1 coarse_scan", "coarse_scan", scan_src, k["coarse_packed"]),
+        entry("K7a coarse_scan pair mode", "coarse_pair", scan_src, k["coarse_two_reduce"]),
+        entry("K2 dd_rows", "dd_rows", "omni_recall_tpu_torch/csrc/dd_rows.cu", k["dd"],
               {"sabs_rel_err": k["dd"]["sabs_rel_err"]}),
-        entry("fused_scan", "fused_scan", "omni_recall_tpu_torch/csrc/scan.cu", k["fused"]),
-        entry("kw_scan", "kw_scan", "omni_recall_tpu_torch/csrc/scan.cu", k["kw"]),
+        entry("K3 refine", "refine", "omni_recall_tpu_torch/csrc/refine.cu",
+              k["refine_select"], {
+                  "shape": k["refine_select"]["shape"],
+                  "wrapper_ms": k["refine_select"]["wrapper_ms"],
+                  "rescue_shape": {key: rescue[key] for key in (
+                      "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
+                      "max_abs_err")}}),
+        entry("K4 fused_scan", "fused_scan", scan_src, k["fused"]),
+        entry("K5 kw_scan", "kw_scan", scan_src, k["kw"]),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

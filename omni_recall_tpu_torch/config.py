@@ -18,15 +18,15 @@ them exactly as in the reference.
 New (device engine) section: ``Engine`` configures the device index and
 kernels. This is the PyTorch port's copy of omni_recall_tpu/config.py: the
 same keys (``OMNI__Engine__Backend`` etc.) bind the same fields, so
-configurations carry over. Five ``Engine`` defaults differ, set to the one
+configurations carry over. Four ``Engine`` defaults differ, set to the
 configuration this port serves end to end (certified-exact hybrid search
 over an int8 index with direct selection and the device-exact cosine):
 ``backend="pallas"`` (the name of the hand-written-kernel backend),
-``scan_dtype="int8"``, ``refine=False``, ``direct_select=True`` and
-``device_exact_cos=True``. Settings the port cannot serve yet (backend xla,
-f32/bf16 scan storage, the residual refine stage, sharding) raise when the
-engine is built (search/engine.py check_options), naming their ROADMAP.md
-item; nothing is silently substituted.
+``scan_dtype="int8"``, ``direct_select=True`` and ``device_exact_cos=True``;
+``refine`` has the reference's default (True: the residual refine planes).
+Settings the port cannot serve yet (backend xla, f32/bf16 scan storage,
+sharding) raise when the engine is built (search/engine.py check_options),
+naming their ROADMAP.md item by title; nothing is silently substituted.
 """
 
 from __future__ import annotations
@@ -251,8 +251,8 @@ class EngineOptions:
     # cosine + bloom keyword + recency — sound upper bounds ~50x tighter
     # than the scan's (ops/refine.py) — so the host float64 rescore prunes
     # to ~k pairs per query instead of ~33. Costs a second int8 copy of the
-    # index in HBM (+d bytes/row).
-    refine: bool = False
+    # index in HBM (+d bytes/row). The refine kernel is K3 (csrc/refine.cu).
+    refine: bool = True
     # phase-1 width when refined device bounds are available (the bounds are
     # within ~1e-4 of truth, so barely more than k candidates can survive)
     rescore_phase1_refined: int = 12

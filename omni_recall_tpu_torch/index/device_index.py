@@ -12,6 +12,11 @@ Per row the device holds (``DeviceArrays``):
                             without a usable embedding),
 - ``scale``   f32[cap]      per-row dequantization scale,
 - ``err``     f32[cap]      sound bound on the quantization error norm,
+- ``emb2``, ``scale2``, ``err2``  the residual int8 plane, its scale and
+                            its error bound (only with ``refine``: the
+                            refine stage, K3, ops/refine.py):
+                            emb ~= emb*scale + emb2*scale2,
+                            ||resid|| <= err2,
 - ``raw``     f32[cap, d]   bitwise copy of the raw embedding (only with
                             ``exact_cos``: the device-exact cosine, K2),
 - ``bloom``   u8[cap, W]    char-n-gram bloom signature (ops/hashing.py),
@@ -23,8 +28,8 @@ grows in ``capacity_block`` row blocks; a capacity change re-uploads
 everything (new tensors — searches in flight keep the old ones), otherwise
 dirty capacity blocks are copied in place into the device planes
 (``Tensor.copy_``, ordered on the current stream after any scan already
-queued). Not in this port yet: the residual refine planes, f32/bf16 scan
-storage, snapshot restore, compact bulk indexes and the sharded mesh.
+queued). Not in this port yet: f32/bf16 scan storage, snapshot restore,
+compact bulk indexes and the sharded mesh.
 
 The entry point runs on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -42,7 +47,11 @@ import torch
 from omni_recall_tpu_torch.device import resolve_device
 from omni_recall_tpu_torch.index.records import ChunkRecord
 from omni_recall_tpu_torch.ops import hashing, oracle
-from omni_recall_tpu_torch.ops.quantize import quantize_rows_int8
+from omni_recall_tpu_torch.ops.quantize import (
+    quantize_rows_int8,
+    quantize_rows_int8_residual,
+)
+from omni_recall_tpu_torch.ops.refine import _int8_plane
 from omni_recall_tpu_torch.ops.scorer import _fma32, row_norm
 
 EPOCH = datetime(2024, 1, 1, tzinfo=timezone.utc)
@@ -78,33 +87,37 @@ def to_days(dt: datetime | None) -> float:
     return (dt - EPOCH).total_seconds() / 86400.0
 
 
-def device_quantize(x: torch.Tensor, slab_rows: int = 1 << 18) -> dict[str, torch.Tensor]:
-    """int8 quantization ON DEVICE (device_index.py _device_quantize_impl,
-    refine=False), slab by slab to bound the temporaries. The operations are
-    those of the JAX graph as its jit compiles it (a multiply by fl32(1/127)
-    for the scale, fused multiply-adds for the residual and the bound), so
-    emb and scale are bitwise equal to it; err can differ in its last bit
-    where XLA orders the sum of squares otherwise. Soundness of the
-    f32-evaluated error norm: the residual elements carry <= u*|x| absolute
-    representation error and the f32 norm <= d*u relative error, so
+def device_quantize(x: torch.Tensor, refine: bool = False,
+                    slab_rows: int = 1 << 18) -> dict[str, torch.Tensor]:
+    """int8 (+ residual) quantization ON DEVICE (device_index.py
+    _device_quantize_impl), slab by slab to bound the temporaries. The
+    operations are those of the JAX graph as its jit compiles it (a
+    multiply by fl32(1/127) for each scale, fused multiply-adds for the
+    residuals and the bounds), so emb, scale, emb2 and scale2 are bitwise
+    equal to it; err and err2 can differ in their last bit where XLA orders
+    the sum of squares otherwise. Soundness of the f32-evaluated error
+    norms: the residual elements carry <= u*|x| absolute representation
+    error and the f32 norm <= d*u relative error, so
     ``norm * (1 + 1e-4) + 3e-7`` is >= the true residual norm (the same
     constants as the host quantizer, ops/quantize.py)."""
     n = x.shape[0]
-    emb = torch.empty(x.shape, dtype=torch.int8, device=x.device)
-    scale = torch.empty(n, dtype=torch.float32, device=x.device)
-    err = torch.empty(n, dtype=torch.float32, device=x.device)
+    suffixes = ("", "2") if refine else ("",)  # plane 1, then the residual plane
+    out = {}
+    for sfx in suffixes:
+        out["emb" + sfx] = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        out["scale" + sfx] = torch.empty(n, dtype=torch.float32, device=x.device)
+        out["err" + sfx] = torch.empty(n, dtype=torch.float32, device=x.device)
     for lo in range(0, n, slab_rows):
-        v = x[lo:lo + slab_rows]
-        am = v.abs().amax(dim=1, keepdim=True)
-        s = am * (1.0 / 127.0)  # XLA's jit form of `am / 127.0`
-        safe = torch.where(s > 0, s, torch.ones_like(s))
-        q = torch.clamp(torch.round(v / safe), -127, 127).to(torch.int8)
-        # residual and bound in the form XLA's jit contracts them into
-        r1 = _fma32(-q.to(torch.float32), s, v)
-        emb[lo:lo + slab_rows] = q
-        scale[lo:lo + slab_rows] = s[:, 0]
-        err[lo:lo + slab_rows] = _fma32(row_norm(r1), 1.0 + 1e-4, 3e-7)
-    return {"emb": emb, "scale": scale, "err": err}
+        hi = lo + slab_rows
+        r = x[lo:hi]
+        for suffix in suffixes:
+            q, s = _int8_plane(r)
+            # the residual and its bound in the form XLA's jit contracts
+            r = _fma32(-q.to(torch.float32), s, r)
+            out["emb" + suffix][lo:hi] = q
+            out["scale" + suffix][lo:hi] = s[:, 0]
+            out["err" + suffix][lo:hi] = _fma32(row_norm(r), 1.0 + 1e-4, 3e-7)
+    return out
 
 
 @dataclass
@@ -115,11 +128,18 @@ class DeviceArrays:
     valid: torch.Tensor
     scale: torch.Tensor          # per-row dequant scale
     err: torch.Tensor            # per-row quantization error norm bound
+    # residual int8 plane for the refine stage (ops/refine.py, refine=True)
+    emb2: torch.Tensor | None = None
+    scale2: torch.Tensor | None = None
+    err2: torch.Tensor | None = None
     raw: torch.Tensor | None = None  # raw f32 rows (exact_cos)
 
 
 # planes the int8 layout carries (from_numpy_planes' keys)
-PLANES = ("emb", "bloom", "created", "valid", "scale", "err", "raw")
+PLANES = ("emb", "bloom", "created", "valid", "scale", "err",
+          "emb2", "scale2", "err2", "raw")
+# the planes the row quantizer writes (with refine: the residual ones too)
+_QUANT_PLANES = ("emb", "scale", "err", "emb2", "scale2", "err2")
 
 
 class DeviceIndex:
@@ -140,18 +160,14 @@ class DeviceIndex:
             raise ValueError("bloom_bits must be a multiple of 8")
         if scan_dtype != "int8":
             raise NotImplementedError(
-                f"scan_dtype={scan_dtype!r} needs the f32/bf16 scan kernel (K6), "
-                "not ported yet (ROADMAP.md Queue 2); use scan_dtype='int8'"
-            )
-        if refine:
-            raise NotImplementedError(
-                "refine=True needs the residual planes and the refine kernel "
-                "(K3), not ported yet (ROADMAP.md Queue 2); use refine=False"
+                f"scan_dtype={scan_dtype!r} needs the f32/bf16 scan kernel, not "
+                'ported yet (ROADMAP.md, "K6: f32/bf16 scan storage"); use '
+                "scan_dtype='int8'"
             )
         self.device = resolve_device(device)
         self.dim = dim
         self.scan_dtype = scan_dtype
-        self.refine = False
+        self.refine = bool(refine)  # keep the residual int8 plane (K3)
         self.exact_cos = bool(exact_cos)
         self.capacity_block = max(128, capacity_block)
         self.bloom_bits = bloom_bits
@@ -496,6 +512,7 @@ class DeviceIndex:
             dim, capacity_block=capacity_block,
             bloom_bits=bloom_bits if bloom_bits is not None else 8 * w,
             ngram=ngram, bloom_hashes=bloom_hashes, scan_dtype="int8",
+            refine=planes.get("emb2") is not None,
             exact_cos=planes.get("raw") is not None, device=device,
         )
         if index.bloom_bits // 8 != w:
@@ -553,11 +570,7 @@ class DeviceIndex:
                 a = planes.get(name)
                 return None if a is None else torch.tensor(np.asarray(a), device=dev)
 
-            index._device = DeviceArrays(
-                emb=put("emb"), bloom=put("bloom"), created=put("created"),
-                valid=put("valid"), scale=put("scale"), err=put("err"),
-                raw=put("raw"),
-            )
+            index._device = DeviceArrays(**{k: put(k) for k in PLANES})
             index._device_cap = cap
             index._dirty_blocks.clear()
         return index
@@ -650,24 +663,28 @@ class DeviceIndex:
                 self._sync_dirty()
             return self._device
 
+    def _quantize_host(self, rows: np.ndarray) -> dict[str, np.ndarray]:
+        """Host f32 rows -> the int8 planes (+ the residual plane with
+        refine), device_index.py _convert_emb."""
+        if self.refine:
+            return dict(zip(_QUANT_PLANES, quantize_rows_int8_residual(rows)))
+        return dict(zip(_QUANT_PLANES, quantize_rows_int8(rows)))
+
     def _full_upload(self) -> None:
         raw_dev = None
         if self._cap >= self._DEVICE_QUANTIZE_MIN_ROWS:
             up = self._put(self.emb)
-            converted = device_quantize(up)
+            converted = device_quantize(up, refine=self.refine)
             if self.exact_cos:
                 raw_dev = up if self._raw_aliased else self._put(self.raw_emb)
             del up
         else:
-            q, scale, err = quantize_rows_int8(self.emb)
-            converted = {"emb": self._put(q), "scale": self._put(scale),
-                         "err": self._put(err)}
+            converted = {k: self._put(v) for k, v in self._quantize_host(self.emb).items()}
             if self.exact_cos:
                 raw_dev = self._put(self.raw_emb)
         self._device = DeviceArrays(
-            emb=converted["emb"], bloom=self._put(self.bloom),
-            created=self._put(self.created), valid=self._put(self.valid),
-            scale=converted["scale"], err=converted["err"], raw=raw_dev,
+            bloom=self._put(self.bloom), created=self._put(self.created),
+            valid=self._put(self.valid), raw=raw_dev, **converted,
         )
         self._device_cap = self._cap
         self._dirty_blocks.clear()
@@ -680,10 +697,8 @@ class DeviceIndex:
             if lo >= self._cap:
                 continue
             hi = min(lo + block, self._cap)
-            q, scale, err = quantize_rows_int8(self.emb[lo:hi])
-            dev.emb[lo:hi].copy_(torch.from_numpy(q))
-            dev.scale[lo:hi].copy_(torch.from_numpy(scale))
-            dev.err[lo:hi].copy_(torch.from_numpy(err))
+            for name, plane in self._quantize_host(self.emb[lo:hi]).items():
+                getattr(dev, name)[lo:hi].copy_(torch.from_numpy(plane))
             dev.bloom[lo:hi].copy_(torch.from_numpy(self.bloom[lo:hi]))
             dev.created[lo:hi].copy_(torch.from_numpy(self.created[lo:hi]))
             dev.valid[lo:hi].copy_(torch.from_numpy(self.valid[lo:hi]))

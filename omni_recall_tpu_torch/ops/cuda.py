@@ -32,7 +32,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel library name -> source file
-SOURCES = {"scan": "scan.cu", "dd_rows": "dd_rows.cu"}
+SOURCES = {"scan": "scan.cu", "dd_rows": "dd_rows.cu", "refine": "refine.cu"}
 
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,10 +42,12 @@ NVCC_FLAGS = [
 # launches per kernel (see module docstring); keys are the kernel names
 # chip_smoke.py reports
 LAUNCHES: dict[str, int] = {
-    "coarse_scan": 0,   # K1 (+ its pair-emit mode K7a): coarse int8 scan
+    "coarse_scan": 0,   # K1: coarse int8 scan, packed-key extraction
+    "coarse_pair": 0,   # K7a: the same scan in its value/index pair mode
     "fused_scan": 0,    # K4: full fused int8 + keyword scan
     "kw_scan": 0,       # K5: keyword-only bloom scan
     "dd_rows": 0,       # K2: double-float cosine over gathered rows
+    "refine": 0,        # K3: residual two-plane refine over candidate rows
 }
 
 # shared memory one block may use on Hopper (bytes; opt-in above 48 KB)
@@ -136,6 +138,14 @@ _ARGTYPES = {
     "dd_rows": ("omni_dd_rows", [
         _P, _P, _P, _P, _P, _P,               # raw rows q hi lo sabs
         _I, _I, _I, _I,                       # n d b t
+        _P,                                   # stream
+    ]),
+    "refine": ("omni_refine", [
+        _P, _P, _P, _P, _P, _P, _P,           # emb1 emb2 bloom scale1 scale2 err2 valid
+        _P, _P, _P,                           # q kw_w8 kw_b
+        _P, _P, _P,                           # rows vals rec
+        _P,                                   # out
+        _I, _I, _I, _I, _I,                   # n d w b m
         _P,                                   # stream
     ]),
 }

@@ -1,15 +1,267 @@
-"""Compact candidate selection straight from the scan (port of
-omni_recall_tpu/ops/refine.py ``direct_select_from_scan``).
+"""Device-assisted exact rescore: tight sound bounds for scan candidates
+(port of omni_recall_tpu/ops/refine.py).
 
-The residual-int8 refine stage of the JAX module (the K3 TPU kernel) needs
-the residual planes, which this port's index does not hold yet; direct
-selection is the only compact path here, exactly as for the JAX package's
-``DeviceIndex(refine=False)`` indexes.
+The int8 scan's upper bounds are ~4e-3 loose, so the host float64 rescore
+must score ~33 candidates per query before its two-phase prune can cut the
+tail. This stage re-scores the top candidate ROWS on the device with bounds
+~50x tighter (the JAX module's docstring has the derivation, unchanged):
+
+- **cosine** — two-plane residual int8 (ops/quantize.py
+  quantize_rows_int8_residual, ``DeviceIndex(refine=True)``):
+  c ~= c1*s1 + c2*s2 and q ~= q1*t1 + q2*t2, so q.c comes from FOUR exact
+  integer dot products, plus the residual term
+  ``delta = eq2*(1 + ec2) + |q|*ec2``;
+- **keyword** — the bloom upper-bound dot of the fused scan,
+  ``min(kwd/127 + bias, 1)`` over ceil-quantized weights;
+- **recency** — f32 exp over f32 created-days;
+
+    refined_ub = 0.7*(q_hat.c_hat + delta) + 0.2*kw_ub + 0.1*rec + REFINE_EPS
+
+REFINE_EPS covers the f32 combine's rounding in ANY order, the f32 day
+rounding of the recency term and the normalized-vs-oracle cosine gap.
+
+The refine kernel (K3) is the hand-written CUDA kernel csrc/refine.cu,
+replacing the TPU kernel ``_make_refine_kernel_full`` (launched through
+``_refine_bounds_fused``). A CUDA tensor launches it at every width; a CPU
+tensor takes ``refine_bounds_plain``, the same function in PyTorch. There
+is no fallback from one to the other. The kernel quantizes each query
+itself (quantize_queries_int8_residual's operations, bit for bit); only the
+recency term's exp is computed outside it, by the same PyTorch code for
+both (``recency_term``). Both evaluate the f32 combine in the TPU kernel's
+order (its per-row scale products last), with the multiply-adds
+contracted exactly where XLA's CPU compiler contracts the interpret-mode
+kernel (found by comparing against ``_refine_bounds_fused(interpret=True)``):
+
+    cos   = fma(s1, fma(t1, d11, t2*d21), s2*fma(t1, d12, t2*d22))
+    delta = fma(qn, ec2, eq2*(1 + ec2))
+    kw    = min(fma(kwd, 1/127, kw_bias), 1)
+    add   = fma(0.1, rec, REFINE_EPS), or -1e30 where the slot holds no
+            live candidate
+    out   = fma(0.2, kw, 0.7*(cos + delta)) + add
+
+The JAX engine on a CPU serves ``refine_ub`` instead (scale products
+first); the two orders differ by f32 rounding only, inside REFINE_EPS.
+
+The TPU kernel's shape gate (``_fused_ok``) is a Mosaic limit and is not
+carried over; the engine keeps its refine ceiling (``_REFINE_MAX_M``) and
+its width rounding ``r = ((r + 7) // 8) * 8``, because ``r`` decides the
+certificate bound (``vals_full[:, r]`` in ``compact_select``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from omni_recall_tpu_torch.ops import cuda
+from omni_recall_tpu_torch.ops.merge import top_k_with_payload
+from omni_recall_tpu_torch.ops.oracle import (
+    COSINE_WEIGHT,
+    KEYWORD_WEIGHT,
+    RECENCY_HALF_LIFE_DAYS,
+    RECENCY_WEIGHT,
+)
+from omni_recall_tpu_torch.ops.scorer import (
+    _bloom_bits,
+    _check_cuda_operands,
+    _fma32,
+    _no_tf32,
+    quantize_kw_weights,
+    row_norm,
+)
+
+_NEG_INF = -1e30  # finite mask value of the add row; mapped to -inf outside
+
+# f32 combine rounding (~1e-6) + normalized-vs-oracle cosine gap (~3e-7)
+# + f32 recency-day rounding (~3e-6 on the weighted term) + exp ulp, with
+# ~5x headroom (the JAX module's constant)
+REFINE_EPS = 3e-5
+
+
+def _int8_plane(x: torch.Tensor):
+    """Symmetric per-row int8 plane (q8, scale [R, 1]). The scale is
+    ``absmax * fl32(1/127)``: XLA's jit rewrites the JAX graph's division by
+    the constant 127 into that multiply."""
+    absmax = x.abs().amax(dim=1, keepdim=True)
+    scale = absmax * (1.0 / 127.0)
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return torch.clamp(torch.round(x / safe), -127, 127).to(torch.int8), scale
+
+
+def quantize_queries_int8_residual(q: torch.Tensor):
+    """Two-plane residual int8 query quantization (refine.py
+    quantize_queries_int8_residual). Returns (q1 i8[B, d], t1 f32[B, 1],
+    q2 i8[B, d], t2 f32[B, 1], eq2 f32[B, 1]) with
+    ||q - q1*t1 - q2*t2|| <= eq2. The residuals and the bound take the
+    fused multiply-add forms XLA's jit contracts them into, so q1, t1, q2
+    and t2 are bitwise the JAX graph's; eq2 may differ in its last bit
+    where XLA orders the sum of squares otherwise (sound either way: the
+    (1 + 1e-4) / 3e-7 slack covers f32 rounding)."""
+    q1, t1 = _int8_plane(q)
+    resid = _fma32(-q1.to(torch.float32), t1, q)
+    q2, t2 = _int8_plane(resid)
+    resid2 = _fma32(-q2.to(torch.float32), t2, resid)
+    eq2 = _fma32(row_norm(resid2)[:, None], 1.0 + 1e-4, 3e-7)
+    return q1, t1, q2, t2, eq2
+
+
+def recency_term(created, now_days, rows) -> torch.Tensor:
+    """exp(min(created - now, 0) / 30) of each candidate row [B, m] — the one
+    part of the refined bound computed outside K3 (as JAX computes it outside
+    its kernel, refine.py _refine_bounds_fused), by the same PyTorch code for
+    the kernel and its plain version, so the two share its bits. XLA's jit
+    form of the division by the half-life is a reciprocal multiply."""
+    days = created[rows.clamp_min(0).long()]
+    return torch.exp(torch.clamp_max(days - now_days, 0.0) * (1.0 / RECENCY_HALF_LIFE_DAYS))
+
+
+def _combine(d11, d12, d21, d22, kwd, s1, s2, ec2, live, rec, t1, t2, eq2, qn, kw_b):
+    """The f32 combine in the kernel's order (module docstring), [B, m];
+    the per-query operands are [B, 1]. ``live`` marks slots holding a live
+    candidate; the others get the add term -1e30 and come out -inf."""
+    a = _fma32(t1, d11, t2 * d21)
+    b = _fma32(t1, d12, t2 * d22)
+    cos = _fma32(s1, a, s2 * b)
+    delta = _fma32(qn, ec2, eq2 * (1.0 + ec2))
+    kw = torch.clamp_max(_fma32(kwd, 1.0 / 127.0, kw_b), 1.0)
+    add = _fma32(RECENCY_WEIGHT, rec, REFINE_EPS)  # contracted, as in XLA
+    add = torch.where(live, add, torch.full_like(add, _NEG_INF))
+    out = _fma32(KEYWORD_WEIGHT, kw, COSINE_WEIGHT * (cos + delta)) + add
+    return torch.where(out <= _NEG_INF * 0.5, torch.full_like(out, float("-inf")), out)
+
+
+def _bdot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Exact integer dots a[B, K] . c[B, m, K] -> f32 [B, m]: f32 (f64 once
+    K*127^2 reaches 2^24) products and sums of small integers are exact in
+    any order, so this batched matmul stands in for the int32 one."""
+    k = a.shape[1]
+    dt = torch.float32 if k * 127 * 127 < 2**24 else torch.float64
+    with _no_tf32():
+        return torch.bmm(c.to(dt), a.to(dt)[:, :, None])[:, :, 0].to(torch.float32)
+
+
+def refine_bounds_plain(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
+                        q, kw_w8, kw_bias, now_days, rows, vals):
+    """Plain PyTorch K3: refined bounds [B, m] for the candidate ``rows``
+    (the contract of refine.py _refine_bounds_fused / refine_ub, with
+    pre-quantized keyword weights; -inf where the slot is a sentinel
+    (row < 0), the row is invalid or the scan bound is -inf)."""
+    q1, t1, q2, t2, eq2 = quantize_queries_int8_residual(q)
+    qn = (row_norm(q) * (1.0 + 1e-6))[:, None]
+    safe = rows.clamp_min(0).long()
+    c1, c2 = emb1[safe], emb2[safe]  # [B, m, d]
+    d11, d21 = _bdot(q1, c1), _bdot(q2, c1)
+    d12, d22 = _bdot(q1, c2), _bdot(q2, c2)
+    kwd = _bdot(kw_w8, _bloom_bits(bloom[safe].reshape(-1, bloom.shape[1]))
+                .reshape(*rows.shape, -1))
+    live = (rows >= 0) & valid[safe] & (vals > float("-inf"))
+    return _combine(d11, d12, d21, d22, kwd, scale1[safe], scale2[safe], err2[safe], live,
+                    recency_term(created, now_days, rows), t1, t2, eq2, qn,
+                    kw_bias.to(torch.float32).reshape(-1, 1))
+
+
+def refine_bounds_cuda(emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8, kw_bias,
+                       rows, vals, rec):
+    """Launch csrc/refine.cu (K3) on the current stream: the kernel
+    quantizes each query itself and reads each candidate row straight from
+    the index planes by index, so no [B, m, d] gather is materialized and
+    the only operand prepared outside it is the recency term ``rec``
+    (recency_term). Never synchronizes."""
+    n, d = emb1.shape
+    b, m = rows.shape
+    w = bloom.shape[1]
+    dev = emb1.device
+    if d % 16:
+        raise ValueError(f"the CUDA refine kernel needs d % 16 == 0, got d={d}")
+    f32 = torch.float32
+    kw_bias = kw_bias.to(f32).reshape(-1)
+    _check_cuda_operands(
+        dev, emb1=(emb1, torch.int8, (n, d)), emb2=(emb2, torch.int8, (n, d)),
+        bloom=(bloom, torch.uint8, (n, w)), scale1=(scale1, f32, (n,)),
+        scale2=(scale2, f32, (n,)), err2=(err2, f32, (n,)), valid=(valid, torch.bool, (n,)),
+        q=(q, f32, (b, d)), kw_w8=(kw_w8, torch.int8, (b, 8 * w)), kw_bias=(kw_bias, f32, (b,)),
+        rows=(rows, torch.int32, (b, m)), vals=(vals, f32, (b, m)), rec=(rec, f32, (b, m)),
+    )
+    out = torch.empty((b, m), dtype=f32, device=dev)
+    lib = cuda.library("refine")
+    rc = lib.omni_refine(
+        emb1.data_ptr(), emb2.data_ptr(), bloom.data_ptr(), scale1.data_ptr(),
+        scale2.data_ptr(), err2.data_ptr(), valid.data_ptr(), q.data_ptr(),
+        kw_w8.data_ptr(), kw_bias.data_ptr(), rows.data_ptr(), vals.data_ptr(),
+        rec.data_ptr(), out.data_ptr(), n, d, w, b, m, cuda.stream_ptr(dev),
+    )
+    cuda.check(lib, rc, "refine")
+    cuda.count_launch("refine")
+    return out
+
+
+def _refine_dispatch(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
+                     q, kw_w8, kw_bias, now_days, rows, vals):
+    """Refined bounds [B, m]: K3 for CUDA tensors (any m), the plain
+    version for CPU tensors."""
+    if emb1.is_cuda:
+        return refine_bounds_cuda(emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8,
+                                  kw_bias, rows, vals, recency_term(created, now_days, rows))
+    if emb1.device.type != "cpu":
+        raise ValueError(f"no kernel for device {emb1.device}")
+    return refine_bounds_plain(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
+                               q, kw_w8, kw_bias, now_days, rows, vals)
+
+
+def refine_ub_from_scan(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
+                        q, kw_weights, kw_bias, now_days, vals_full, idxs_full):
+    """Engine entry: the scan/merge output [B, m+1] (entry m is the
+    certificate boundary, not a candidate) + f32 keyword weights -> refined
+    bounds [B, m], queued after the scan on the same stream."""
+    return _refine_dispatch(
+        emb1, scale1, emb2, scale2, err2, bloom, created, valid, q,
+        quantize_kw_weights(kw_weights), kw_bias, now_days,
+        idxs_full[:, :-1].contiguous(), vals_full[:, :-1].contiguous(),
+    )
+
+
+def refine_select_from_scan(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
+                            q, kw_weights, kw_bias, now_days, vals_full, idxs_full,
+                            t_out: int = 32, r: int | None = None):
+    """Refine the top-``r`` scan candidates and select on device: returns
+    (rows [B, k], ubs [B, k], bound [B]), k = min(t_out, r), with
+
+        bound = max(scan boundary,            # rows the scan excluded
+                    (r+1)-th scan bound,      # candidates refine skipped
+                    (t_out+1)-th refined)     # candidates select dropped
+
+    a sound upper bound on EVERY row not in the slice (refine.py
+    refine_select_from_scan)."""
+    m = vals_full.shape[1] - 1
+    r = m if r is None else max(1, min(r, m))
+    refined = _refine_dispatch(
+        emb1, scale1, emb2, scale2, err2, bloom, created, valid, q,
+        quantize_kw_weights(kw_weights), kw_bias, now_days,
+        idxs_full[:, :r].contiguous(), vals_full[:, :r].contiguous(),
+    )
+    return compact_select(vals_full, idxs_full, refined, t_out, r)
+
+
+def compact_select(vals_full, idxs_full, refined, t_out: int, r: int):
+    """Co-sort the top-``r`` scan candidates by min(scan bound, refined
+    bound) and return the top-t_out slice plus the single certificate
+    bound (refine.py compact_select: every dropped row stays covered by one
+    of the three max'ed bounds)."""
+    b, m1 = vals_full.shape
+    m = m1 - 1
+    rows = idxs_full[:, :r]
+    ubs = torch.minimum(vals_full[:, :r], refined)  # min of sound bounds
+    k = min(t_out, r)
+    top_v, top_i = top_k_with_payload(ubs, rows, min(t_out + 1, r))
+    if top_v.shape[1] > k:
+        tail = top_v[:, k]
+    else:
+        tail = torch.full((b,), float("-inf"), dtype=top_v.dtype, device=top_v.device)
+    bound = torch.maximum(vals_full[:, -1], tail)
+    if r < m:
+        # first refine-skipped candidate: sound over positions r..m-1
+        # (sorted descending)
+        bound = torch.maximum(bound, vals_full[:, r])
+    return top_i[:, :k].contiguous(), top_v[:, :k], bound
 
 
 def direct_select_from_scan(vals_full: torch.Tensor, idxs_full: torch.Tensor, t_out: int):
@@ -20,8 +272,10 @@ def direct_select_from_scan(vals_full: torch.Tensor, idxs_full: torch.Tensor, t_
                     (t_out+1)-th scan bound)  # candidates the slice dropped
 
     so every row not in the slice has a sound upper bound <= ``bound``; the
-    engine's certificate check is unchanged. Returns (rows [B, k],
-    ubs [B, k], bound [B]), k = min(t_out, m)."""
+    engine's certificate check is unchanged. The Engine:DirectSelect fast
+    path: no refine, at the price of a bound ~4e-3 looser; also the only
+    compact path for an index without residual planes. Returns
+    (rows [B, k], ubs [B, k], bound [B]), k = min(t_out, m)."""
     b, m1 = vals_full.shape
     m = m1 - 1
     k = min(t_out, m)

@@ -40,6 +40,8 @@ ceil-quantized, the per-row / per-query quantization error is folded into
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -204,16 +206,27 @@ def make_add_row(created, valid, now_days, window_start, row_offset=0,
 # ---- plain versions (from the JAX graphs) ----
 
 
+@contextlib.contextmanager
+def _no_tf32():
+    """f32 matmuls on the card in full f32 for the block (TF32 would round
+    the int8 operands' products); the caller's setting is restored after."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def _int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact integer dot products a[M, K] . b[N, K] -> f32[M, N], as the
     TPU's int32 MXU accumulation gives them. f32 (or, for K*127^2 >= 2^24,
     f64) products and partial sums of int8 values are exact integers, in
     any summation order, so this matmul stands in for the int32 one."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     k = a.shape[1]
     dt = torch.float32 if k * 127 * 127 < 2**24 else torch.float64
-    return (a.to(dt) @ b.to(dt).T).to(torch.float32)
+    with _no_tf32():
+        return (a.to(dt) @ b.to(dt).T).to(torch.float32)
 
 
 def _bloom_bits(bloom: torch.Tensor) -> torch.Tensor:
@@ -429,7 +442,8 @@ def _scan_cuda(mode: int, n: int, b: int, sub: int, t1: int, *, emb8=None,
         n, d, w, b, sub, t1, mode, int(_packed_mode(sub, t1)), cuda.stream_ptr(dev),
     )
     cuda.check(lib, rc, _KERNEL_NAME[mode])
-    cuda.count_launch(_KERNEL_NAME[mode])
+    pair = mode == _MODE_COARSE and not _packed_mode(sub, t1)
+    cuda.count_launch("coarse_pair" if pair else _KERNEL_NAME[mode])
     return vals, idxs
 
 

@@ -3,20 +3,22 @@ omni_recall_tpu/search/engine.py, single-device path).
 
 The device computes a *sound upper bound* per chunk with the int8 scans
 (ops/scorer.py: K1 coarse, K4 fused, K5 keyword-only — CUDA kernels) and
-returns the top-M candidate rows; the host exact-rescores only those
-candidates (float64, substring keyword semantics) — or, with the
-device-exact cosine (ops/exact_cos.py, K2), scores keyword + recency on the
-host and certifies the device double-float cosines — and verifies a
-certificate:
+returns the top-M candidate rows, optionally re-bounded tighter by the
+residual refine stage (ops/refine.py, K3, on indexes with the residual
+planes); the host exact-rescores only those candidates (float64, substring
+keyword semantics) — or, with the device-exact cosine (ops/exact_cos.py,
+K2), scores keyword + recency on the host and certifies the device
+double-float cosines — and verifies a certificate:
 
     exact_score(k-th hit)  >  max upper bound over all excluded rows
 
 If it fails, the candidate set widens (wide rescue, then the fused rescue
-scan with M x4) until it covers the whole window, at which point the result
-is trivially exact; queries still open at the escalation ceiling go to the
-exact host scan. The returned ranking is identical to scoring every chunk
-exactly. Final ordering: score desc, created_at desc
-(RecallSearchService.cs:34-35), insertion seq desc.
+scan with M x4, its candidates refined by K3 where the planes exist) until
+it covers the whole window, at which point the result is trivially exact;
+queries still open at the escalation ceiling go to the exact host scan.
+The returned ranking is identical to scoring every chunk exactly. Final
+ordering: score desc, created_at desc (RecallSearchService.cs:34-35),
+insertion seq desc.
 
 A batch is split into ``_dispatch_device_batch`` (index snapshot, query
 operands, the prepass scans queued on the device, non-blocking copies of
@@ -26,13 +28,13 @@ their compact results into pinned host memory) and
 batch's device work.
 
 Backends: ``pallas`` (the hand-written-kernel backend; the name is kept so
-configurations carry over) and ``oracle`` (host float64 only). ``xla`` and
-the residual refine stage wait for later slices (ROADMAP.md Queue 2) and
-raise at construction.
+configurations carry over) and ``oracle`` (host float64 only). ``xla``,
+f32/bf16 scan storage and the sharded index wait for later slices and raise
+at construction, naming their ROADMAP.md item.
 
 Invariants this port preserves, word for word from the repository's working
-notes ("Invariants to preserve"; the sharded, compact and residual paths
-they name are not in this port):
+notes ("Invariants to preserve"; the sharded and compact paths they name
+are not in this port):
 
 - Exactness = runtime certificate (`exact kth > max excluded upper bound`);
   any device-side approximation MUST keep scores sound UPPER bounds (see
@@ -94,8 +96,7 @@ from omni_recall_tpu_torch.device import resolve_device
 from omni_recall_tpu_torch.index.device_index import DeviceIndex, to_days, to_micros
 from omni_recall_tpu_torch.index.records import ChunkRecord
 from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
-from omni_recall_tpu_torch.ops import exact_cos, hashing, native, oracle, scorer
-from omni_recall_tpu_torch.ops.refine import direct_select_from_scan
+from omni_recall_tpu_torch.ops import exact_cos, hashing, native, oracle, refine, scorer
 
 
 class _HostCopy:
@@ -240,27 +241,24 @@ def _sort_key(hit: SearchHit):
 
 def check_options(options: EngineOptions) -> None:
     """Raise for configurations this port cannot serve yet: no silent
-    substitution of another backend or layout."""
+    substitution of another backend or layout. Each message names its
+    ROADMAP.md item by title."""
     if options.backend not in ("pallas", "oracle"):
         raise NotImplementedError(
-            f"Engine:Backend={options.backend!r} is not ported yet: the plain "
-            "PyTorch twin of xla_scorer.score_topm is ROADMAP.md Queue 2 "
-            "item 2; use Backend=pallas (the CUDA kernels) or oracle"
+            f"Engine:Backend={options.backend!r} is not ported yet "
+            '(ROADMAP.md, "The plain-torch twin of ops/xla_scorer.py"); use '
+            "Backend=pallas (the CUDA kernels) or oracle"
         )
     if options.backend == "pallas" and options.scan_dtype != "int8":
         raise NotImplementedError(
             f"Engine:ScanDtype={options.scan_dtype!r} needs the f32/bf16 scan "
-            "kernel K6, ROADMAP.md Queue 2 item 3; use ScanDtype=int8"
+            'kernel (ROADMAP.md, "K6: f32/bf16 scan storage"); use ScanDtype=int8'
         )
     if options.shards > 0:
         raise NotImplementedError(
             "Engine:Shards > 0 (the row-sharded multi-card index) is not "
-            "ported yet, ROADMAP.md Queue 2 (parallel/); use Shards=0"
-        )
-    if options.backend == "pallas" and options.refine:
-        raise NotImplementedError(
-            "Engine:Refine=true needs the residual planes and the refine "
-            "kernel K3, ROADMAP.md Queue 2 item 1; use Refine=false"
+            'ported yet (ROADMAP.md, "Row sharding over GPUs (parallel/)"); '
+            "use Shards=0"
         )
 
 
@@ -288,6 +286,7 @@ class RecallEngine:
                 ngram=self.options.ngram,
                 bloom_hashes=self.options.bloom_hashes,
                 scan_dtype=self.options.scan_dtype,
+                refine=self.options.refine,
                 exact_cos=self.options.device_exact_cos,
                 device=self.device,
             )
@@ -317,6 +316,16 @@ class RecallEngine:
         self._coarse_skip_until = 0
         self._coarse_query_count = 0
         self._coarse_gate_lock = threading.Lock()
+        # adaptive DIRECT-SELECT gate (search/engine.py, same lock): the
+        # direct selection's certificate bound is the (t_out+1)-th scan
+        # bound; while it keeps missing, fall back to the refine selection
+        # and re-probe later, with an exponential backoff of the horizon.
+        # Exactness is identical either way — this gates throughput only.
+        self._direct_outcomes: list[int] = []
+        self._direct_skip_until = 0
+        self._direct_query_count = 0
+        self._direct_skip_h = 2048
+        self._last_select_direct: bool | None = None
         # serializes index mutation (append/update/delete); searches never
         # take it
         self.mutation_lock = threading.RLock()
@@ -338,27 +347,64 @@ class RecallEngine:
             if self.device_index is not None:
                 self.device_index.delete_document(document_id)
 
+    # refine width ceiling: the refine gather grows with m, and beyond this
+    # width the escalation path is rare anyway (search/engine.py)
+    _REFINE_MAX_M = 2048
     # certificate-escalation ceiling for the device loop
     _ESCALATION_MAX_M = 2048
 
-    def _select_call(self, vals_d, idxs_d, m: int, max_k: int):
-        """Compact selection straight from the scan (ops/refine.py
-        direct_select_from_scan): the (rows, ubs, bound) device triple, or
-        None when Engine:DirectSelect is off (the certificate then runs at
-        the full scan width on the host). Without residual planes there is
-        no refine selection to fall back to."""
-        if not self.options.direct_select:
+    def _refine_call(self, dev, q_dev, w_dev, bias_dev, now_dev, vals_d, idxs_d, m):
+        """The [B, m] refined bounds of the scan's candidate rows (K3,
+        ops/refine.py refine_ub_from_scan), queued on the same stream, or
+        None without residual planes or above the refine ceiling."""
+        if dev.emb2 is None or m > self._REFINE_MAX_M:
             return None
+        return refine.refine_ub_from_scan(
+            dev.emb, dev.scale, dev.emb2, dev.scale2, dev.err2, dev.bloom,
+            dev.created, dev.valid, q_dev, w_dev, bias_dev, now_dev, vals_d, idxs_d,
+        )
+
+    def _refine_select_call(self, dev, q_dev, w_dev, bias_dev, now_dev,
+                            vals_d, idxs_d, m: int, max_k: int):
+        """The compact (rows, ubs, bound) device triple: the direct
+        selection straight from the scan bounds when Engine:DirectSelect is
+        on and its gate is open (or refine is impossible), else the refine
+        selection (K3 + ops/refine.py compact_select); None when neither
+        applies (the certificate then runs at the full scan width on the
+        host). Records which selection it took in ``_last_select_direct``
+        (None without Engine:DirectSelect)."""
+        # t_out covers the largest requested k with phase-2 headroom, a
+        # power of two
         t_base = self.options.select_t_out
         if t_base:
             t_out = max(t_base, max_k + 4)
         else:
             t_out = max(32, self.options.rescore_phase1_refined + 4, max_k + 8)
         t_out = 1 << (t_out - 1).bit_length()
-        rows, ubs, bound = direct_select_from_scan(
-            vals_d, idxs_d, min(t_out, max(1, m - 1))
+        direct_opt = self.options.direct_select
+        use_direct = direct_opt and (
+            dev.emb2 is None or m > self._REFINE_MAX_M or self._direct_gate_open()
         )
-        return rows.contiguous(), ubs, bound
+        self._last_select_direct = use_direct if direct_opt else None
+        if use_direct:
+            rows, ubs, bound = refine.direct_select_from_scan(
+                vals_d, idxs_d, min(t_out, max(1, m - 1))
+            )
+            return rows.contiguous(), ubs, bound
+        if dev.emb2 is None or m > self._REFINE_MAX_M:
+            return None
+        # refine width: only the top-r scan candidates are refined; the
+        # (r+1)-th scan bound joins the certificate bound. The rounding to
+        # a multiple of 8 (the TPU kernel's shape rule) is kept: r decides
+        # that bound, so it decides results.
+        r = self.options.refine_width or m
+        r = max(t_out, min(r, m))
+        r = ((r + 7) // 8) * 8
+        return refine.refine_select_from_scan(
+            dev.emb, dev.scale, dev.emb2, dev.scale2, dev.err2, dev.bloom,
+            dev.created, dev.valid, q_dev, w_dev, bias_dev, now_dev, vals_d, idxs_d,
+            t_out=t_out, r=min(r, m),
+        )
 
     # -- search --
 
@@ -466,6 +512,36 @@ class RecallEngine:
             ):
                 self._coarse_skip_until = self._coarse_query_count + 2048
                 self._coarse_outcomes = []
+
+    def _direct_gate_open(self) -> bool:
+        with self._coarse_gate_lock:
+            return self._direct_query_count >= self._direct_skip_until
+
+    def _direct_gate_advance(self, attempted: int) -> None:
+        with self._coarse_gate_lock:
+            self._direct_query_count += attempted
+
+    def _direct_gate_record(self, resolved: int, attempted: int) -> None:
+        """Compact-certificate outcomes under DIRECT selection: close the
+        gate (fall back to the refine selection) when the rolling
+        resolution drops below 0.9; each consecutive closing doubles the
+        skip horizon, a healthy window resets it."""
+        with self._coarse_gate_lock:
+            self._direct_query_count += attempted
+            self._direct_outcomes.extend(
+                [1] * resolved + [0] * (attempted - resolved)
+            )
+            if len(self._direct_outcomes) > 128:
+                self._direct_outcomes = self._direct_outcomes[-128:]
+            if (
+                len(self._direct_outcomes) >= 32
+                and sum(self._direct_outcomes) / len(self._direct_outcomes) < 0.9
+            ):
+                self._direct_skip_until = self._direct_query_count + self._direct_skip_h
+                self._direct_skip_h = min(self._direct_skip_h * 2, 1 << 18)
+                self._direct_outcomes = []
+            elif len(self._direct_outcomes) >= 32:
+                self._direct_skip_h = 2048  # healthy window: reset backoff
 
     def _select_coarse_scorer(self, m: int, n_rows_padded: int):
         """Cosine-only int8 prepass scorer (K1), or None when unavailable
@@ -1000,7 +1076,12 @@ class RecallEngine:
             kw_scorer = self._select_kw_scorer(m, int(dev.emb.shape[0]))
             if kw_scorer is not None:
                 k_vals, k_idxs = kw_scorer(dev, w_dev, bias_dev, now_dev, r0, m)
-                sel = self._select_call(k_vals, k_idxs, m, max(ks))
+                sel = self._refine_select_call(
+                    dev, q_dev, w_dev, bias_dev, now_dev, k_vals, k_idxs, m, max(ks),
+                )
+                # which selection the direct gate chose: the keyword batch's
+                # compact outcomes feed the direct gate too
+                ctx["kw_select_direct"] = self._last_select_direct
                 if sel is not None:
                     ctx["kw_dd"] = chain_dd(sel, zero=True)
                     ctx["kw_scan"] = ("compact", kw_only, _HostCopy(sel))
@@ -1008,6 +1089,10 @@ class RecallEngine:
                     # wide rescue
                     ctx["kw_full"] = (k_vals, k_idxs)
                 else:
+                    # no compact selection only where refine is impossible
+                    # too (no residual planes, or m above the refine
+                    # ceiling): the full-width certificate has scan bounds
+                    # alone
                     ctx["kw_scan"] = ("full", kw_only, _HostCopy((k_vals, k_idxs)))
 
         # coarse prepass (K1): cosine-only scan with a sound per-query
@@ -1020,8 +1105,12 @@ class RecallEngine:
             coarse = self._select_coarse_scorer(m, int(dev.emb.shape[0]))
             if coarse is not None:
                 c_vals, c_idxs = coarse(dev, q_dev, w_dev, bias_dev, now_dev, r0, m)
-                sel = self._select_call(c_vals, c_idxs, m, max(ks))
-                ctx["select_direct"] = sel is not None
+                sel = self._refine_select_call(
+                    dev, q_dev, w_dev, bias_dev, now_dev, c_vals, c_idxs, m, max(ks),
+                )
+                # which selection the direct gate chose for THIS batch (the
+                # finalize attributes the compact outcomes to the gate)
+                ctx["select_direct"] = self._last_select_direct
                 if sel is not None:
                     ctx["coarse_dd"] = chain_dd(sel)
                     ctx["coarse_scan"] = ("compact", prepass, _HostCopy(sel))
@@ -1099,15 +1188,22 @@ class RecallEngine:
                 term_lists=[ctx["terms"][i] for i in pending],
             )
 
-        def rescore_and_certify(pending, all_vals, all_idxs, m):
+        def rescore_and_certify(pending, all_vals, all_idxs, m, all_ref=None):
             """Exact-rescore pending queries' [B, m+1] scan candidates and
-            certify against the scan boundary (entry m)."""
+            certify against the scan boundary (entry m). ``all_ref``
+            (optional [B, m]): the refined bounds of the same candidates;
+            candidates are then re-sorted by min(scan bound, refined bound)
+            and the two-phase prune runs at the narrow refined phase-1
+            width."""
             row_lists, ub_lists = [], []
             for i in pending:
                 vals, idxs = all_vals[i], all_idxs[i]
                 live = vals[:m] > -np.inf
                 rows = idxs[:m][live]
                 ubs = vals[:m][live]  # descending: the prune relies on it
+                if all_ref is not None:
+                    # min of two sound upper bounds is a sound upper bound
+                    ubs = np.minimum(ubs, all_ref[i][live])
                 keep = rows >= 0
                 rows, ubs = rows[keep], ubs[keep]
                 if len(rows):
@@ -1115,9 +1211,15 @@ class RecallEngine:
                     keep = dix.valid[rows]
                     if not keep.all():
                         rows, ubs = rows[keep], ubs[keep]
+                if all_ref is not None and len(rows):
+                    # restore the descending-bound order under the tightened
+                    # bounds (stable: scan order on ties)
+                    order = np.argsort(-ubs, kind="stable")
+                    rows, ubs = rows[order], ubs[order]
                 row_lists.append(rows.astype(np.int64))
                 ub_lists.append(ubs)
-            ranked = rescore(pending, row_lists, ub_lists, None)
+            ranked = rescore(pending, row_lists, ub_lists,
+                             None if all_ref is None else self.options.rescore_phase1_refined)
             return certify(
                 pending, ranked,
                 lambda i: all_vals[i][m] if all_vals[i].shape[0] > m else -np.inf,
@@ -1241,6 +1343,12 @@ class RecallEngine:
         if ctx["kw_scan"] is not None:
             kw_only, unresolved = consume_prepass(ctx["kw_scan"], ctx.get("kw_dd"))
             self.stats["kw_only_resolved_total"] += len(kw_only) - len(unresolved)
+            # keyword-batch compact outcomes feed the direct gate (never the
+            # coarse gate: these queries did not run the coarse scan)
+            if ctx.get("kw_select_direct"):
+                self._direct_gate_record(len(kw_only) - len(unresolved), len(kw_only))
+            elif ctx.get("kw_select_direct") is False:
+                self._direct_gate_advance(len(kw_only))
 
         self.last_coarse_resolved = 0
         if ctx["coarse_scan"] is not None:
@@ -1251,10 +1359,16 @@ class RecallEngine:
             self.stats["coarse_resolved_total"] += self.last_coarse_resolved
             if ctx.get("select_direct"):
                 # direct-selection misses must not poison the coarse gate
-                # (the looser (t_out+1)-th bound missed, not the scan)
+                # (the looser (t_out+1)-th bound missed, not the scan): they
+                # feed the direct gate instead
                 self._coarse_gate_advance(len(prepass))
+                self._direct_gate_record(self.last_coarse_resolved, len(prepass))
             else:
                 self._coarse_gate_record(self.last_coarse_resolved, len(prepass))
+                if ctx.get("select_direct") is False:
+                    # refine selection while the direct gate is closed:
+                    # advance its clock toward the re-probe horizon
+                    self._direct_gate_advance(len(prepass))
 
         def wide_rescue(full_key: str, scan_key: str) -> None:
             """Compact-prepass misses re-certified at the FULL scan width
@@ -1304,12 +1418,21 @@ class RecallEngine:
             else:
                 q_s, w_s, bias_s = q_dev, w_dev, bias_dev
             all_vals, all_idxs = scan(dev, q_s, w_s, bias_s, now_dev, r0, m)
+            # refine-assisted rescue: K3 re-bounds the scan's candidates
+            all_ref = (
+                self._refine_call(dev, q_s, w_s, bias_s, now_dev, all_vals, all_idxs, m)
+                if self.options.exact else None
+            )
             all_vals = all_vals.cpu().numpy()
             all_idxs = all_idxs.cpu().numpy()
+            if all_ref is not None:
+                all_ref = all_ref.cpu().numpy()
             if sliced:
                 all_vals, all_idxs = _rehome_rows(
                     b, pending, ((all_vals, -np.inf), (all_idxs, -1))
                 )
+                if all_ref is not None:
+                    (all_ref,) = _rehome_rows(b, pending, ((all_ref, -np.inf),))
 
             if not self.options.exact:
                 # approximate profile: rank by the device upper bound
@@ -1324,7 +1447,7 @@ class RecallEngine:
                     results[i] = hits[: ks[i]]
                 break
 
-            unresolved = rescore_and_certify(pending, all_vals, all_idxs, m)
+            unresolved = rescore_and_certify(pending, all_vals, all_idxs, m, all_ref)
             if m >= window_rows and not full_coverage:
                 # partial-coverage scan exhausted: exact host scan
                 oracle_fill(unresolved)

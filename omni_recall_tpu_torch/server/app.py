@@ -71,8 +71,8 @@ class OmniRecallApp(WsgiApp):
         self.config = config
         if (config.storage.snapshot_dir or "").strip():
             raise NotImplementedError(
-                "Storage:SnapshotDir (snapshot restore/save) is not ported yet, "
-                "ROADMAP.md Queue 1 item 1.6; leave it unset"
+                "Storage:SnapshotDir (snapshot restore/save) is not ported yet "
+                '(ROADMAP.md, "Snapshot, compact store and rebuild"); leave it unset'
             )
         self.store = store if store is not None else InMemoryIngestionStore()
 
@@ -94,7 +94,9 @@ class OmniRecallApp(WsgiApp):
             else:
                 raise NotImplementedError(
                     f"Embeddings:Provider={config.embeddings.provider!r} is not "
-                    "ported yet (ROADMAP.md Queue 1); use Hash or None"
+                    "ported yet (the remote clients: ROADMAP.md, "
+                    '"Host-only providers and routes"; the local encoder: '
+                    'ROADMAP.md, "Local models"); use Hash or None'
                 )
 
         if engine is not None:
@@ -130,7 +132,13 @@ class OmniRecallApp(WsgiApp):
         if pdf_extractor is not None:
             self.pdf_extractor = pdf_extractor
         else:
-            # the OCR providers are not ported yet: scanned PDFs yield no text
+            # the OCR providers are not ported yet: asking for one raises
+            # rather than silently extracting no text from scanned PDFs
+            if (config.ocr.provider or "").strip().lower() not in ("", "none"):
+                raise NotImplementedError(
+                    f"Ocr:Provider={config.ocr.provider!r} is not ported yet "
+                    '(ROADMAP.md, "Host-only providers and routes"); use None'
+                )
             self.pdf_extractor = PdfTextExtractor(
                 NoOpOcrTextExtractor(), config.ocr.pdf_text_min_chars
             )

@@ -2,14 +2,16 @@
 
 Marked ``cuda``: on a machine without a card every test here skips (the
 decision is taken in a fixture, so every worker collects the same tests).
-Run on the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
-Bitwise, except K2's sabs (any summation order, held to SABS_REL).
+Run on the card with ``python -m pytest -m cuda --noconftest
+tests/test_torch_cuda.py``. Bitwise, except K2's sabs (any summation
+order, held to SABS_REL).
 """
 
 import pytest
 import torch
 
-from omni_recall_tpu_torch.ops import cuda, exact_cos, scorer
+from omni_recall_tpu_torch.index.device_index import device_quantize
+from omni_recall_tpu_torch.ops import cuda, exact_cos, refine, scorer
 
 pytestmark = pytest.mark.cuda
 
@@ -55,10 +57,13 @@ def test_coarse_scan_kernel(dev, sub, t, d):
     """sub=2048 needs the 16-query shared-memory tile."""
     o = _operands(dev, 8192, d, 40, 128)
     args = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
-    before = cuda.LAUNCHES["coarse_scan"]
+    # the two-reduce (pair) extraction mode counts as K7a
+    key = ("coarse_scan" if scorer._packed_mode(*scorer._coarse_shape(8192, 40, t, sub, None))
+           else "coarse_pair")
+    before = cuda.LAUNCHES[key]
     kv, ki = scorer.block_topt_int8_coarse(*args, t=t, sub=sub)
     pv, pi = scorer.block_topt_int8_coarse_plain(*args, t=t, sub=sub)
-    assert cuda.LAUNCHES["coarse_scan"] == before + 1
+    assert cuda.LAUNCHES[key] == before + 1
     assert _same(kv, pv) and _same(ki, pi)
 
 
@@ -96,6 +101,42 @@ def test_dd_rows_kernel(dev, d):
     assert float(((s - ps).abs() / ps.abs()).max()) <= exact_cos.SABS_REL
 
 
+def _refine_inputs(dev, n, d, b, m, w, seed):
+    """Index planes + candidates at the chip shapes, with sentinel slots,
+    invalid rows and -inf scan bounds."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    emb = torch.randn((n, d), generator=g, device=dev)
+    emb /= emb.norm(dim=1, keepdim=True)
+    planes = device_quantize(emb, refine=True)
+    q = torch.randn((b, d), generator=g, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    rows = torch.randint(-1, n, (b, m), generator=g, device=dev).to(torch.int32)
+    vals = torch.randn((b, m), generator=g, device=dev)
+    vals[torch.rand((b, m), generator=g, device=dev) < 0.02] = float("-inf")
+    kw = torch.where(torch.rand((b, 8 * w), generator=g, device=dev) < 0.05,
+                     torch.rand((b, 8 * w), generator=g, device=dev) * 0.3,
+                     torch.zeros((), device=dev))
+    return (planes["emb"], planes["scale"], planes["emb2"], planes["scale2"], planes["err2"],
+            torch.randint(0, 256, (n, w), generator=g, device=dev).to(torch.uint8),
+            torch.rand((n,), generator=g, device=dev) * 400,
+            torch.rand((n,), generator=g, device=dev) > 0.1,
+            q, refine.quantize_kw_weights(kw), torch.rand((b,), generator=g, device=dev) * 0.1,
+            365.0, rows, vals)
+
+
+@pytest.mark.parametrize("b, m", [(448, 64), (64, 2048)])
+def test_refine_kernel(dev, b, m):
+    """K3 at the select stage's and the rescue stage's shapes (d = 768,
+    1024 bloom bits), bitwise against its plain version."""
+    args = _refine_inputs(dev, 1 << 16, 768, b, m, 128, seed=b + m)
+    before = cuda.LAUNCHES["refine"]
+    got = refine._refine_dispatch(*args)
+    want = refine.refine_bounds_plain(*args)
+    assert cuda.LAUNCHES["refine"] == before + 1
+    assert _same(got, want)
+    assert bool(torch.isneginf(got).any()) and bool(torch.isfinite(got).any())
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     o = _operands(dev, 4096, 72, 8, 16)  # d % 16 != 0
     args = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
@@ -105,3 +146,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="shared memory"):
         exact_cos.exact_cos_rows(raw, torch.zeros((1, 1), dtype=torch.int32, device=dev),
                                  torch.zeros((1, 1 << 15), device=dev))
+    args = list(_refine_inputs(dev, 4096, 768, 8, 16, 128, seed=4))
+    args[12] = args[12].to(torch.int64)  # rows must be int32
+    with pytest.raises(ValueError, match="rows"):
+        refine._refine_dispatch(*args)

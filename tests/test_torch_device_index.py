@@ -1,5 +1,6 @@
-"""The port's DeviceIndex against the JAX DeviceIndex (int8 layout, no
-residual planes, raw plane for the device-exact cosine), on the CPU."""
+"""The port's DeviceIndex against the JAX DeviceIndex (int8 layout, raw
+plane for the device-exact cosine; without and with the residual refine
+planes), on the CPU."""
 
 from datetime import datetime, timedelta, timezone
 
@@ -40,9 +41,9 @@ def _chunks(cls, rows):
                 created_at_utc=ts, seq=i) for i, (cid, doc, text, emb, ts) in enumerate(rows)]
 
 
-def _pair(capacity_block=256):
+def _pair(capacity_block=256, refine=False):
     kw = dict(capacity_block=capacity_block, bloom_bits=256, ngram=4, bloom_hashes=2,
-              scan_dtype="int8", refine=False, exact_cos=True)
+              scan_dtype="int8", refine=refine, exact_cos=True)
     return jdi.DeviceIndex(DIM, **kw), tdi.DeviceIndex(DIM, device="cpu", **kw)
 
 
@@ -53,7 +54,7 @@ def _planes_equal(jdev, tdev, err_ulps=0):
         if j is None:
             continue
         j, t = np.asarray(j), t.numpy()
-        if name == "err" and err_ulps:
+        if name in ("err", "err2") and err_ulps:
             assert np.all(np.abs(j - t) <= err_ulps * np.spacing(j)), name
         else:
             assert _eq(j, t), name
@@ -125,7 +126,8 @@ def test_from_numpy_planes_holds_the_same_bits():
     jix.append(jchunks)
     jix.delete_document("doc1")
     jdev = jix.device_arrays()
-    planes = {k: np.asarray(getattr(jdev, k)) for k in tdi.PLANES}
+    planes = {k: np.asarray(getattr(jdev, k)) for k in tdi.PLANES
+              if getattr(jdev, k) is not None}
     by_id = {c.id: c for c in _chunks(TChunk, rows)}
     meta = [None if m is None else by_id[m.id] for m in jix.meta]
     tix = tdi.DeviceIndex.from_numpy_planes(
@@ -170,4 +172,72 @@ def test_bulk_load_quantizes_on_device_above_threshold(monkeypatch):
                     embedding=emb[i], created_at_utc=T0, seq=i) for i in range(n)]
         ix.bulk_load(emb.copy(), bloom, created, meta)
         out.append(ix.device_arrays())
+    _planes_equal(*out, err_ulps=2)
+
+
+def test_refine_planes_follow_every_write_path():
+    """refine=True: the residual plane (emb2, scale2, err2) is installed by
+    the full upload, the dirty-block sync, update_embedding and deletes,
+    bit for bit the JAX index's (host quantizer below the device-quantize
+    threshold)."""
+    jix, tix = _pair(refine=True)
+    assert tix.refine
+    rows = _rows(11, 300)
+    jix.append(_chunks(JChunk, rows[:200]))
+    tix.append(_chunks(TChunk, rows[:200]))
+    tdev = tix.device_arrays()
+    assert tdev.emb2 is not None and tdev.emb2.dtype == torch.int8
+    _planes_equal(jix.device_arrays(), tdev)
+    jix.append(_chunks(JChunk, rows[200:]))  # grows capacity: full re-upload
+    tix.append(_chunks(TChunk, rows[200:]))
+    _planes_equal(jix.device_arrays(), tix.device_arrays())
+    more = _rows(12, 20, start=300)
+    jix.append(_chunks(JChunk, more))  # dirty-slab sync, in place
+    tix.append(_chunks(TChunk, more))
+    new = np.random.default_rng(13).standard_normal(DIM).astype(np.float32).tolist()
+    assert jix.update_embedding("c9", new) and tix.update_embedding("c9", new)
+    assert jix.delete_document("doc3") == tix.delete_document("doc3") > 0
+    tdev2 = tix.device_arrays()
+    assert tdev2.emb2 is tix.device_arrays().emb2
+    _planes_equal(jix.device_arrays(), tdev2)
+
+
+def test_from_numpy_planes_carries_the_residual_plane():
+    jix, _ = _pair(capacity_block=128, refine=True)
+    rows = _rows(14, 200)
+    jix.append(_chunks(JChunk, rows))
+    jdev = jix.device_arrays()
+    planes = {k: np.asarray(getattr(jdev, k)) for k in tdi.PLANES}
+    by_id = {c.id: c for c in _chunks(TChunk, rows)}
+    tix = tdi.DeviceIndex.from_numpy_planes(
+        planes, [by_id[m.id] for m in jix.meta], device="cpu", capacity_block=128,
+        bloom_bits=256, ngram=4, bloom_hashes=2)
+    assert tix.refine
+    _planes_equal(jdev, tix.device_arrays())
+    more = _rows(15, 10, start=200)
+    jix.append(_chunks(JChunk, more))
+    tix.append(_chunks(TChunk, more))
+    _planes_equal(jix.device_arrays(), tix.device_arrays())
+
+
+def test_bulk_load_quantizes_residual_plane_on_device(monkeypatch):
+    """refine=True full uploads at >= the threshold: device_quantize's
+    residual plane against _device_quantize_impl(refine=True)."""
+    monkeypatch.setattr(tdi.DeviceIndex, "_DEVICE_QUANTIZE_MIN_ROWS", 256)
+    monkeypatch.setattr(jdi.DeviceIndex, "_DEVICE_QUANTIZE_MIN_ROWS", 256)
+    rng = np.random.default_rng(16)
+    n = 512
+    emb = rng.standard_normal((n, DIM)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    bloom = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+    created = np.linspace(0, 30, n).astype(np.float32)
+    out = []
+    for mod, cls, kw in ((jdi, JChunk, {}), (tdi, TChunk, {"device": "cpu"})):
+        ix = mod.DeviceIndex(DIM, capacity_block=256, bloom_bits=256, scan_dtype="int8",
+                             refine=True, exact_cos=True, **kw)
+        meta = [cls(id=f"b{i}", document_id="b", chunk_index=i, content=f"row {i}",
+                    embedding=emb[i], created_at_utc=T0, seq=i) for i in range(n)]
+        ix.bulk_load(emb.copy(), bloom, created, meta)
+        out.append(ix.device_arrays())
+    assert out[1].emb2 is not None
     _planes_equal(*out, err_ulps=2)

@@ -1,21 +1,32 @@
 """The port's RecallEngine against the JAX RecallEngine and the oracle.
 
 Both engines serve the same index state: the JAX engine builds an int8
-``DeviceIndex(refine=False, exact_cos=True)`` from the records, and the
-port's index is made from that index's planes and records with
-``DeviceIndex.from_numpy_planes``. Both run the slice's configuration
-(``backend="pallas"``, int8 scan, coarse prepass, direct selection,
-device-exact cosine); on the CPU the JAX side runs its Pallas kernels in
-interpret mode and the port its plain PyTorch versions. Results must be
-DTO-identical — the same chunk ids in the same order with the same
-``round(score, 4)`` — to each other and to ``backend="oracle"``.
+``DeviceIndex(exact_cos=True)`` from the records, with or without the
+residual refine planes, and the port's index is made from that index's
+planes and records with ``DeviceIndex.from_numpy_planes``. Both run the
+port's configurations (``backend="pallas"``, int8 scan, coarse prepass,
+direct or refine selection, device-exact cosine); on the CPU the JAX side
+runs its Pallas kernels in interpret mode and the port its plain PyTorch
+versions. Results must be DTO-identical — the same chunk ids in the same
+order with the same ``round(score, 4)`` — to each other and to
+``backend="oracle"``.
+
+Refine order: on a CPU the JAX engine serves its refine stage with
+``refine_ub`` (scale products first), while the port's plain K3 follows
+the TPU kernel's order. The refine cases therefore route the JAX engine
+through the interpret-mode kernel (``_refine_bounds_fused(interpret=True)``,
+monkeypatched in this process only), so that both engines see the same
+refined bounds and their stats can be compared exactly.
 """
 
 import dataclasses
 import random
+import re
 import string
+from pathlib import Path
 from datetime import datetime, timedelta, timezone
 
+import jax
 import numpy as np
 import pytest
 
@@ -24,6 +35,7 @@ from omni_recall_tpu.index.device_index import DeviceIndex as JIndex
 from omni_recall_tpu.index.records import ChunkRecord as JChunk
 from omni_recall_tpu.index.records import DocumentRecord as JDoc
 from omni_recall_tpu.index.store import InMemoryIngestionStore as JStore
+from omni_recall_tpu.ops import refine as jrefine
 from omni_recall_tpu.search.engine import RecallEngine as JEngine
 from omni_recall_tpu_torch.config import EngineOptions as TOptions
 from omni_recall_tpu_torch.index.device_index import PLANES
@@ -44,12 +56,13 @@ SLICE = dict(
 )
 
 
-def _corpus(seed: int, n: int, near_ties: bool = False):
-    """Clustered unit embeddings (64 rows per cluster) with cluster-token
-    contents. ``near_ties``: every row of a cluster is the same vector and
-    text, so scores tie exactly and certificates cannot separate them."""
+def _corpus(seed: int, n: int, near_ties: bool = False, per_cluster: int = 64):
+    """Clustered unit embeddings (``per_cluster`` rows per cluster) with
+    cluster-token contents. ``near_ties``: every row of a cluster is the
+    same vector and text, so scores tie exactly and certificates cannot
+    separate them."""
     rng = np.random.default_rng(seed)
-    n_clusters = max(8, n // 64)
+    n_clusters = max(8, n // per_cluster)
     centers = rng.standard_normal((n_clusters, DIM)).astype(np.float32)
     words = ["".join(random.Random(seed + i).choices(string.ascii_lowercase, k=6))
              for i in range(n_clusters)]
@@ -84,7 +97,7 @@ def _engines(rows, **overrides):
     (jstore, jchunks), (tstore, tchunks) = _stores(rows)
     opts = {**SLICE, **overrides}
     jdix = JIndex(DIM, capacity_block=opts["capacity_block"], bloom_bits=BITS,
-                  ngram=4, bloom_hashes=2, scan_dtype="int8", refine=False,
+                  ngram=4, bloom_hashes=2, scan_dtype="int8", refine=opts["refine"],
                   exact_cos=True)
     jeng = JEngine(jstore, jdix, JOptions(**opts))
     jeng.on_chunks_upserted(jchunks, new=True)
@@ -195,12 +208,159 @@ def test_pipelined_batches_and_mixed_requests(clustered):
 
 
 def test_options_the_port_cannot_serve_raise():
+    """xla, f32/bf16 scan storage and sharding still raise, each naming its
+    ROADMAP.md item by a title that ROADMAP.md has; refine serves."""
     store = TStore()
-    for bad in (dict(backend="xla"), dict(scan_dtype="bf16"), dict(refine=True),
-                dict(shards=2)):
+    titles = _roadmap_titles()
+    for bad in (dict(backend="xla"), dict(scan_dtype="bf16"), dict(scan_dtype="f32"),
+                dict(shards=2), dict(backend="xla", refine=True)):
         opts = dataclasses.replace(TOptions(embedding_dim=DIM), **bad)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
             TEngine(store, None, opts, device="cpu")
+        named = re.findall(r'ROADMAP\.md, "([^"]+)"', str(err.value))
+        assert named and all(t in titles for t in named), (str(err.value), named)
+    for direct in (True, False):
+        opts = dataclasses.replace(TOptions(embedding_dim=DIM), refine=True,
+                                   direct_select=direct)
+        eng = TEngine(store, None, opts, device="cpu")
+        assert eng.device_index.refine
+
+
+def _roadmap_titles() -> set[str]:
+    """The bold item titles of ROADMAP.md (``**title**``, trailing period
+    dropped)."""
+    text = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
+    return {t.rstrip(".") for t in re.findall(r"\*\*([^*]+)\*\*", text)}
+
+
+def test_every_not_ported_message_names_a_roadmap_title():
+    """Every 'not ported yet' message in the port names ROADMAP.md items by
+    title, and each title is one ROADMAP.md has."""
+    titles = _roadmap_titles()
+    pkg = Path(__file__).resolve().parent.parent / "omni_recall_tpu_torch"
+    named = []
+    for path in pkg.rglob("*.py"):
+        src = path.read_text()
+        # a title may open the next line of an implicitly joined string
+        named += re.findall(r'ROADMAP\.md, "?\s*\'?"([^"]+)"', src)
+    assert len(named) >= 7
+    missing = [t for t in named if t not in titles]
+    assert not missing, missing
+
+
+def test_refine_default_is_the_reference_default():
+    assert TOptions().refine is JOptions().refine is True
+
+
+@pytest.fixture()
+def kernel_order_refine(monkeypatch):
+    """Route the JAX engine's refine stage through the interpret-mode TPU
+    kernel (the order the port's K3 follows), in this process only. The jit
+    caches are cleared on both sides of the patch so no trace made with the
+    other function is reused."""
+    def fused(*args):
+        return jrefine._refine_bounds_fused(*args, interpret=True)
+
+    jax.clear_caches()
+    monkeypatch.setattr(jrefine, "_refine_dispatch", fused)
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+STATS = ("host_fallbacks_total", "escalation_rounds_total", "rescue_wide_total",
+         "rescue_sliced_total", "coarse_resolved_total", "kw_only_resolved_total",
+         "dd_resolved_total", "dd_escalations_total")
+
+
+def _assert_same_stats(jeng, teng):
+    for key in STATS:
+        assert teng.stats[key] == jeng.stats[key], (key, teng.stats[key], jeng.stats[key])
+
+
+def test_refine_selection_without_direct_select(clustered, kernel_order_refine):
+    """refine=True, direct_select=False (the reference's own selection): K3
+    refines the top-r scan candidates of every batch, compact_select picks
+    the slice, K2 and the DD certificate finish."""
+    rows, centers, words, toks = clustered
+    jeng, teng, toracle = _engines(rows, refine=True, direct_select=False)
+    assert teng.device_index.device_arrays().emb2 is not None
+    reqs = _requests(centers, words, 12, 1) + _kw_requests(toks, 4, 12)
+    _assert_same(jeng, teng, toracle, reqs)
+    assert teng.stats["coarse_resolved_total"] > 0
+    assert teng.stats["kw_only_resolved_total"] > 0
+    assert teng._last_select_direct is None
+    _assert_same_stats(jeng, teng)
+
+
+def test_direct_select_with_gate_forced_closed(clustered, kernel_order_refine):
+    """refine=True, direct_select=True, the direct gate closed: the engine
+    falls back to the refine selection and advances the gate's clock."""
+    rows, centers, words, _ = clustered
+    jeng, teng, toracle = _engines(rows, refine=True, direct_select=True)
+    for eng in (jeng, teng):
+        eng._direct_skip_until = 10**9
+    reqs = _requests(centers, words, 12, 13)
+    _assert_same(jeng, teng, toracle, reqs)
+    assert teng._last_select_direct is False
+    assert teng._direct_query_count == jeng._direct_query_count == len(reqs)
+    _assert_same_stats(jeng, teng)
+
+
+def _keyword_led(centers, words, count, seed, every=8):
+    """Cluster queries where one in ``every`` has a random vector and only
+    its cluster token as text: the cosine-only coarse certificate cannot
+    hold for it, so the rescue loop serves it."""
+    rng = np.random.default_rng(seed)
+    reqs = _requests(centers, words, count, seed)
+    for i in range(0, count, every):
+        v = rng.standard_normal(DIM).astype(np.float32)
+        reqs[i] = (reqs[i][0], (v / np.linalg.norm(v)).tolist(), 10)
+    return reqs
+
+
+@pytest.fixture(scope="module")
+def small_clusters():
+    """16 rows per cluster: embedding queries resolve on the coarse prepass,
+    so a keyword-led query's miss stays a minority the rescue serves."""
+    return _corpus(23, 4000, per_cluster=16)
+
+
+@pytest.mark.parametrize("refine", [False, True])
+def test_keyword_led_miss_batch(small_clusters, kernel_order_refine, refine):
+    """The keyword-led miss path (F3): the coarse certificate misses, the
+    wide rescue re-reads the full scan width, then the rescue loop's sliced
+    K4 scan (with the planes: and K3 on its candidates) serves the misses.
+    Results and stats against the JAX engine's, and the oracle. With the
+    planes the misses close the direct gate and a later batch takes the
+    refine selection; without them direct is the only compact path."""
+    rows, centers, words, _ = small_clusters
+    jeng, teng, toracle = _engines(rows, refine=refine)
+    for count, seed in ((24, 15), (16, 16), (16, 17)):
+        _assert_same(jeng, teng, toracle, _keyword_led(centers, words, count, seed))
+        _assert_same_stats(jeng, teng)
+        assert (teng._direct_query_count, teng._direct_skip_until) == (
+            jeng._direct_query_count, jeng._direct_skip_until)
+    assert teng.stats["rescue_wide_total"] > 0 and teng.stats["rescue_sliced_total"] > 0
+    assert teng.stats["coarse_resolved_total"] > 0
+    assert teng._last_select_direct is (not refine)
+
+
+def test_pipelined_refine_batches_equal_serial(small_clusters):
+    """With the planes and the direct gate: the pipelined executor (its
+    dispatcher advances the gate while the finalize worker records
+    outcomes) gives the same DTOs as serial batches, and the oracle's."""
+    rows, centers, words, _ = small_clusters
+    _, serial, toracle = _engines(rows, refine=True)
+    _, piped, _ = _engines(rows, refine=True)
+    batches = [_keyword_led(centers, words, 16, s) for s in (21, 22, 23, 24)]
+    got = piped.search_batches_pipelined(batches, now=NOW)
+    for reqs, res in zip(batches, got):
+        want = serial.search_batch(reqs, now=NOW)
+        assert [_dto(h) for h in res] == [_dto(h) for h in want]
+        for (q, emb, k), h in zip(reqs, res):
+            assert _dto(h) == _dto(toracle.search(q, emb, k, now=NOW))
+    assert piped.stats["searches_total"] == serial.stats["searches_total"] == 64
 
 
 def test_full_width_certificate_without_direct_select(clustered):

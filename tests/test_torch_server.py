@@ -149,3 +149,30 @@ def test_searches_return_citations_and_metrics(transcripts):
     assert f"omni_searches_total {len(QUERIES) + 3}" in metrics.body.decode()
     health = client.get("/health").json()
     assert any(d["name"] == "tpu-engine" for d in health["dependencies"])
+
+
+@pytest.mark.parametrize("direct", ["true", "false"])
+def test_refine_configuration_responses_equal_the_jax_app(direct):
+    """Engine:Refine=true (the reference's default: residual planes, K3),
+    with the direct selection and with the refine selection."""
+    overrides = {**OVERRIDES, "Engine:Refine": "true", "Engine:DirectSelect": direct}
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (jingest, jengine, tingest, tengine):
+            mp.setattr(module, "datetime", _FixedClock)
+        japp = jbuild(jload(settings_file=None, env={}, overrides=overrides))
+        tapp = tbuild(tload(settings_file=None, env={}, overrides=overrides), device="cpu")
+        assert tapp.engine.device_index.refine
+        jlog, tlog = _run(JClient(japp), _Renamer()), _run(TClient(tapp), _Renamer())
+    assert tlog == jlog
+
+
+def test_ocr_provider_not_ported_raises():
+    """An OCR provider the port cannot build raises instead of silently
+    extracting no text from scanned PDFs; None keeps the no-op extractor."""
+    for provider in ("DocumentIntelligence", "AzureDocumentIntelligence", "Tesseract"):
+        config = tload(settings_file=None, env={},
+                       overrides={**OVERRIDES, "Ocr:Provider": provider})
+        with pytest.raises(NotImplementedError, match="Host-only providers and routes"):
+            tbuild(config, device="cpu")
+    assert tbuild(tload(settings_file=None, env={}, overrides={**OVERRIDES, "Ocr:Provider": "None"}),
+                  device="cpu").pdf_extractor is not None
