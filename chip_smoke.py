@@ -7,14 +7,20 @@ Phases, one JSON line each:
 1. ``env``      torch / CUDA / nvcc versions, the card's name and power limit,
                 and the build of every CUDA kernel from omni_recall_tpu_torch/csrc.
 2. ``kernel``   per kernel (K1 coarse scan and its pair mode K7a, K2 DD
-                cosine, K3 refine, K4 fused scan, K5 keyword scan), at the
-                serving shapes (N = 2^20 rows, d = 768, 1024 bloom bits,
-                B = 448 queries; K2 at 32 candidates per query; K3 at 64 per
-                query, the select stage, and at 64 x 2048, the rescue stage):
-                the kernel against its plain PyTorch version on the same
-                inputs on the card — bitwise, K2's sabs within SABS_REL — and
-                the median of 5 CUDA-event timed runs of each, beside the
-                least time the card could take.
+                cosine, K3 refine, K4 fused scan, K5 keyword scan, K6 f32/bf16
+                scan on bf16 and on f32 rows), at the serving shapes
+                (N = 2^20 rows, d = 768, 1024 bloom bits, B = 448 queries; K2
+                at 32 candidates per query; K3 at 64 per query, the select
+                stage, and at 64 x 2048, the rescue stage; K6 at sub 512,
+                t 4, the engine's layout at m = 128): the kernel against its
+                plain PyTorch version on the same inputs on the card —
+                bitwise, K2's sabs within SABS_REL — and the median of 5
+                CUDA-event timed runs of each (K6's plain version, which
+                takes seconds, timed by the host clock over its one
+                comparison call), beside the least time the card could
+                take. Then the plain-torch xla scorer (no kernel of the
+                repository) at the same shape: its time beside its f32 floor,
+                its values against a float64 scan of a few queries.
 3. ``server``   the app of ``python -m omni_recall_tpu_torch.server`` in
                 process on the card (Backend=pallas, int8, Refine=true,
                 DirectSelect=true, Hash embeddings): three uploads, five
@@ -33,7 +39,12 @@ Phases, one JSON line each:
                 one of empty-vector queries (K5). Last, the same corpus in an
                 index without the residual planes (refine=False, the capacity
                 configuration) serves a keyword-led batch: its rescue runs
-                without K3.
+                without K3. Then the same corpus in three more indexes, each
+                freed before the next, served in batches of 448 with an
+                oracle sample: bf16 storage under the pallas backend (the
+                bench's bf16 mode: K6), f32 storage (K6), and EngineOptions()
+                with only the corpus keys set (the reference's defaults:
+                backend xla over f32 storage, no kernel of the repository).
 5. ``kernels``  per kernel: its parity and times, and its launches on each
                 serving path (the server of phase 3 and each path of phase 4;
                 the counts are zeroed just before a path and read just after
@@ -65,6 +76,7 @@ BATCH = 448
 DD_T = 32
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 INT8_OPS_PER_S = 1.979e15     # dense int8 tensor-core peak
+BF16_OPS_PER_S = 0.989e15     # dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12         # f32 outside the tensor cores
 
 
@@ -203,7 +215,10 @@ def kernel_phase(seed: int) -> dict:
         2.0 * n * b * 8 * w,
     )
     results.update(refine_lines(g, emb8, bloom, kw_w8, kw_b[:, 0], scale_row[0]))
-    del emb8, bloom
+    del emb8
+    torch.cuda.empty_cache()
+    results.update(fp_scan_lines(g, bloom, kw_b, add_row))
+    del bloom
     torch.cuda.empty_cache()
 
     # K2 at the serving selection width (t_out = 32) over the raw f32 plane
@@ -295,6 +310,91 @@ def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1) -> dict:
         out[f"refine_{stage}"] = line
     del emb2
     torch.cuda.empty_cache()
+    return out
+
+
+FP_T, FP_SUB = 4, 512  # K6's layout at m = 128 over 2^20 rows (_select_scorer)
+
+
+def fp_scan_lines(g, bloom, kw_b, add_row) -> dict:
+    """K6 on bf16 and on f32 rows at the serving shapes, bitwise against its
+    plain version (which takes seconds at this size: timed once); then the
+    xla scorer's score_topm on the f32 rows at m = 128."""
+    import torch
+
+    from omni_recall_tpu_torch.ops import scorer, xla_scorer
+
+    dev = bloom.device
+    n, w = bloom.shape
+    d, b = DIM, BATCH
+    emb = torch.randn((n, d), generator=g, device=dev)
+    emb /= emb.norm(dim=1, keepdim=True)
+    q = torch.randn((b, d), generator=g, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    kw = torch.where(torch.rand((b, 8 * w), generator=g, device=dev) < 0.03,
+                     torch.rand((b, 8 * w), generator=g, device=dev) * 0.1,
+                     torch.zeros((), device=dev))
+    t1 = FP_T + 1
+    out = {}
+    for storage, rows in (("bf16", emb.to(torch.bfloat16)), ("f32", emb)):
+        args = (rows, bloom, q, kw, kw_b, add_row)
+        kern = lambda: scorer.block_topt(*args, t=FP_T, sub=FP_SUB)  # noqa: E731
+        plain = lambda: scorer.block_topt_plain(*args, t=FP_T, sub=FP_SUB)  # noqa: E731
+        kv, ki = kern()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pv, pi = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3  # seconds a call: timed once
+        ok = bitwise(kv, pv) and bitwise(ki, pi)
+        err = float((kv - pv).abs().max())
+        bms, by = bound_ms(
+            n * d * rows.element_size() + n * w + b * d * 4 + b * 8 * w * 4 + 4 * b + 4 * n
+            + b * (n // FP_SUB) * t1 * 8,
+            2.0 * n * b * (d + 8 * w), BF16_OPS_PER_S)
+        line = dict(name=f"fp_scan[{storage}]",
+                    replaces="omni_recall_tpu/ops/pallas_scorer.py:737", storage=storage,
+                    shape=[b, n, d], layout=[FP_SUB, FP_T], bitwise=ok, max_abs_err=err,
+                    ms=time_ms(kern, device_only=True), plain_ms=plain_ms,
+                    plain_runs=1, bound_ms=bms, bound_by=by, library_ms=None)
+        emit({"phase": "kernel", **line})
+        if not ok:
+            raise AssertionError(f"fp_scan[{storage}]: kernel disagrees with its plain version")
+        out[f"fp_{storage}"] = line
+        del rows, args, kv, ki, pv, pi
+        torch.cuda.empty_cache()
+
+    # the xla scorer (plain torch: cuBLAS f32 products with TF32 refused,
+    # torch.topk) at the same shape, m = 128
+    created = torch.rand((n,), generator=g, device=dev) * 365.0
+    valid = torch.rand((n,), generator=g, device=dev) > 0.01
+    m = 128
+    twin = lambda: xla_scorer.score_topm(  # noqa: E731
+        emb, bloom, created, valid, q, kw, kw_b[:, 0], 365.0, 0, m=m)
+    tv, ti = twin()
+    # a float64 scan of a few queries: the twin's values within its bound
+    nq = 4
+    bits = xla_scorer.unpack_bloom_bits(bloom).double()
+    exact = (0.7 * (q[:nq].double() @ emb.double().T)
+             + 0.2 * torch.clamp_max(kw[:nq].double() @ bits.T + kw_b[:nq].double(), 1.0)
+             + 0.1 * torch.exp(torch.clamp_max(created.double() - 365.0, 0.0) / 30.0)
+             + xla_scorer.CERT_EPS)
+    exact = torch.where(valid[None, :], exact, torch.full_like(exact, float("-inf")))
+    ev = torch.topk(exact, m + 1, dim=1).values
+    err = float((tv[:nq].double() - ev).abs().max())
+    rows_ok = bool((exact.gather(1, ti[:nq].long()) > float("-inf")).all())
+    del bits, exact
+    torch.cuda.empty_cache()
+    ops = 2.0 * n * b * (d + 8 * w)
+    line = dict(name="xla_scorer.score_topm", replaces="omni_recall_tpu/ops/xla_scorer.py:120",
+                shape=[b, n, d], m=m, out_shape=list(tv.shape), ms=time_ms(twin, device_only=True),
+                f32_floor_ms=ops / F32_OPS_PER_S * 1e3, floor_by="operations (f32, CUDA cores)",
+                max_abs_err_vs_f64=err, tf32_guard="xla_scorer.check_tf32_off: raises unless "
+                "allow_tf32 is False and the float32 matmul precision is 'highest'")
+    emit({"phase": "kernel", **line})
+    if list(tv.shape) != [b, m + 1] or not rows_ok or not err <= 1e-4:
+        raise AssertionError(f"xla scorer: {line}")
+    out["xla"] = line
     return out
 
 
@@ -432,12 +532,27 @@ PATH_KERNELS = {
     "prepass_off_batch": ("fused_scan", "refine"),
     "empty_vector_batch": ("kw_scan",),
     "keyword_led_batch": ("coarse_scan", "fused_scan"),
+    "bf16_batches": ("fp_scan",),
+    "f32_batches": ("fp_scan",),
+    "reference_default_batches": (),
 }
-PATH_FORBIDS = {"keyword_led_batch": ("refine",), "pair_emit_batch": ("coarse_scan",)}
+# the int8 kernels: an f32/bf16 index must not reach them
+INT8_KERNELS = ("coarse_scan", "coarse_pair", "dd_rows", "refine", "fused_scan")
+PATH_FORBIDS = {
+    # the capacity configuration has no residual planes (K3) and, since
+    # the device-exact cosine needs them, no raw plane (K2)
+    "keyword_led_batch": ("refine", "dd_rows"),
+    "pair_emit_batch": ("coarse_scan",),
+    "bf16_batches": INT8_KERNELS,
+    "f32_batches": INT8_KERNELS,
+    # backend xla: the plain-torch scorer, no kernel of the repository
+    "reference_default_batches": INT8_KERNELS + ("kw_scan", "fp_scan"),
+}
 # the path whose launches a kernel's entry in the kernels line reports
 HOME_PATH = {"coarse_scan": "embedding_batches", "coarse_pair": "pair_emit_batch",
              "dd_rows": "embedding_batches", "refine": "refine_select_batches",
-             "fused_scan": "keyword_led_refine_batch", "kw_scan": "empty_vector_batch"}
+             "fused_scan": "keyword_led_refine_batch", "kw_scan": "empty_vector_batch",
+             "fp_scan": "bf16_batches"}
 KEYWORD_LED_EVERY = 8  # one query in 8 of the keyword-led batch
 
 
@@ -465,22 +580,39 @@ def run_path(paths: dict, name: str, batches: int, fn, stats=None):
     return out
 
 
-def load_index(engine, emb, assign, contents, created_days):
+def load_index(engine, emb, assign, contents, created_days, records: dict):
     """Bulk-load the corpus into ``engine``'s device index (real bloom
-    signatures, exact created micros, contents arena) and upload it."""
+    signatures, exact created micros, contents arena) and upload it. The
+    records, signatures and host columns are built once into ``records``
+    and shared by every index of the run (all have the same bloom
+    parameters); the indexes only read them."""
+    import torch
+
+    dix = engine.device_index
+    key = (dix.bloom_bits, dix.ngram, dix.bloom_hashes)
+    if key not in records:
+        records[key] = corpus_records(emb, assign, contents, created_days, *key)
+    sigs, meta, aux = records[key]
+    dix.bulk_load(emb, sigs, created_days, meta, aux=aux)
+    dev = dix.device_arrays()
+    torch.cuda.synchronize()
+    return {k: round(getattr(dev, k).numel() * getattr(dev, k).element_size() / 2**30, 3)
+            for k in ("emb", "emb2", "raw", "bloom") if getattr(dev, k) is not None}
+
+
+def corpus_records(emb, assign, contents, created_days, bloom_bits, ngram, bloom_hashes):
+    """(bloom signatures, ChunkRecords, bulk_load's aux columns) of the corpus."""
     from datetime import timedelta
 
     import numpy as np
-    import torch
 
     from omni_recall_tpu_torch.index.device_index import EPOCH, to_micros
     from omni_recall_tpu_torch.index.records import ChunkRecord
     from omni_recall_tpu_torch.ops import hashing
 
     n = emb.shape[0]
-    dix = engine.device_index
     sigs = hashing.chunk_signatures_batch(
-        [c.lower() for c in contents], dix.bloom_bits, dix.ngram, dix.bloom_hashes)
+        [c.lower() for c in contents], bloom_bits, ngram, bloom_hashes)
     day_cache: dict = {}
     meta = []
     for i in range(n):
@@ -501,15 +633,11 @@ def load_index(engine, emb, assign, contents, created_days):
         "lower_arena": fixed[assign].tobytes(),
         "lower_off": np.arange(n + 1, dtype=np.int64) * fixed.dtype.itemsize,
     }
-    dix.bulk_load(emb, sigs[assign], created_days, meta, aux=aux)
-    dev = dix.device_arrays()
-    torch.cuda.synchronize()
-    return {k: round(getattr(dev, k).numel() * getattr(dev, k).element_size() / 2**30, 3)
-            for k in ("emb", "emb2", "raw", "bloom") if getattr(dev, k) is not None}
+    return sigs[assign], meta, aux
 
 
 def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
-                sample: int = 8) -> dict:
+                sample: int = 8, n_fp: int = 3, fp_sample: int = 4) -> dict:
     from datetime import timedelta
 
     import numpy as np
@@ -543,7 +671,8 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
     # measure the fallback
     if not (native.native_available() and native.rescore_available()):
         raise AssertionError("the native keyword library did not build or load")
-    resident = {"refine": load_index(engine, emb, assign, contents, created_days)}
+    records: dict = {}
+    resident = {"refine": load_index(engine, emb, assign, contents, created_days, records)}
     build_s = time.perf_counter() - t0
     now = EPOCH + timedelta(days=365.0)
     n_clusters = len(contents)
@@ -609,24 +738,25 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
         # debug mode, on its own batch, since the mode slows the host.
         timing["breakdown"] = breakdown(make_requests(seed + 401), make_requests(seed + 400))
 
-    def breakdown(probe, reqs):
+    def breakdown(probe, reqs, eng=None, positions=None):
+        eng = eng or engine
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("warn")
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            ctx = engine._dispatch_device_batch(probe, 0, now)
+            ctx = eng._dispatch_device_batch(probe, 0, now)
         torch.cuda.set_sync_debug_mode(0)
         dispatch_syncs = sum("synchronizing" in str(w.message) for w in caught)
-        engine._finalize_device_batch(ctx)
+        eng._finalize_device_batch(ctx)
         torch.cuda.synchronize()
         t = time.perf_counter()
-        ctx = engine._dispatch_device_batch(reqs, 0, now)
+        ctx = eng._dispatch_device_batch(reqs, 0, now)
         t_dispatch = time.perf_counter()
         torch.cuda.synchronize()
         t_device = time.perf_counter()
-        res = engine._finalize_device_batch(ctx)
+        res = eng._finalize_device_batch(ctx)
         t_final = time.perf_counter()
-        check(engine, reqs, res)
+        check(eng, reqs, res, positions)
         return {"dispatch_sync_calls": dispatch_syncs,
                 "dispatch_host_ms": (t_dispatch - t) * 1e3,
                 "device_wait_ms": (t_device - t_dispatch) * 1e3,
@@ -712,13 +842,68 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
     # misses rescue through K4 alone
     t0 = time.perf_counter()
     capacity = engine_for(False)
-    resident["no_refine"] = load_index(capacity, emb, assign, contents, created_days)
+    resident["no_refine"] = load_index(capacity, emb, assign, contents, created_days, records)
     capacity_build_s = time.perf_counter() - t0
     run_path(paths, "keyword_led_batch", 1, one_batch(
         capacity, "keyword_led_batch_ms", make_requests(seed + 700, keyword_led=every),
         led_sample), capacity.stats)
     del capacity
     torch.cuda.empty_cache()
+
+    # f32/bf16 scan storage (K6: no coarse prepass, every embedding query
+    # goes straight to the rescue loop's fused scan) and the reference's
+    # defaults (backend xla over f32 storage: the plain-torch scorer). The
+    # f32 pallas engine serves the index the reference-default engine built
+    # for itself: the f32 layout both engines build (no residual or raw
+    # plane), loaded once.
+    fp_configs = {
+        "bf16_batches": dict(backend="pallas", scan_dtype="bf16"),
+        "reference_default_batches": {},
+        "f32_batches": dict(backend="pallas", scan_dtype="f32"),
+    }
+    fp_timing: dict = {}
+    shared = None
+    for name, opts in fp_configs.items():
+        t0 = time.perf_counter()
+        options = EngineOptions(embedding_dim=d, recent_window=0, candidate_m=128,
+                                bloom_bits=BITS, **opts)
+        if name == "f32_batches":
+            own = RecallEngine(InMemoryIngestionStore(), options=options).device_index
+            layout = lambda x: (x.scan_dtype, x.refine, x.exact_cos, x.bloom_bits)  # noqa: E731
+            if layout(own) != layout(shared):
+                raise AssertionError(f"f32 layouts differ: {layout(own)} != {layout(shared)}")
+            eng = RecallEngine(InMemoryIngestionStore(), shared, options)
+            resident[name] = "the reference_default_batches index"
+        else:
+            eng = RecallEngine(InMemoryIngestionStore(), options=options)
+            resident[name] = load_index(eng, emb, assign, contents, created_days, records)
+        shared = eng.device_index if name == "reference_default_batches" else None
+        build = time.perf_counter() - t0
+
+        def fp_batches(eng=eng, name=name, build=build):
+            eng.search_batch(make_requests(seed + 900), now=now)  # warm-up
+            reqs_all = [make_requests(seed + 910 + i) for i in range(n_fp)]
+            lat, res_all = [], []
+            for reqs in reqs_all:
+                t = time.perf_counter()
+                res_all.append(eng.search_batch(reqs, now=now))
+                lat.append(time.perf_counter() - t)
+            for reqs, res in zip(reqs_all, res_all):
+                check(eng, reqs, res, range(fp_sample))
+            fp_timing[name] = {
+                "options": {"backend": eng.options.backend,
+                            "scan_dtype": eng.device_index.scan_dtype},
+                "build_s": build, "certified_qps": n_fp * BATCH / sum(lat),
+                "p50_batch_ms": statistics.median(lat) * 1e3,
+                "batch_ms": [x * 1e3 for x in lat],
+                # these batches launch no scan at dispatch: the rescue
+                # loop's scan runs inside the finalize (host clock)
+                "breakdown": breakdown(make_requests(seed + 921), make_requests(seed + 920),
+                                       eng, range(fp_sample))}
+        run_path(paths, name, 1 + n_fp + 2, fp_batches, eng.stats)
+        del eng, fp_batches
+        torch.cuda.empty_cache()
+    del shared, records
 
     lat = timing.pop("lat")
     line = {
@@ -734,8 +919,9 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
         "keyword_led_host_scans": {
             k: paths[k]["stats"].get("host_fallbacks_total", 0)
             for k in ("keyword_led_refine_batch", "keyword_led_batch")},
-        "direct_gate": direct_gate,
+        "direct_gate": direct_gate, "fp_paths": fp_timing,
         "oracle_checked": checked, "oracle_per_batch": sample,
+        "oracle_per_fp_batch": fp_sample,
         "paths": {k: v for k, v in paths.items() if k != "server"},
     }
     emit(line)
@@ -801,6 +987,12 @@ def main() -> int:
                       "max_abs_err")}}),
         entry("K4 fused_scan", "fused_scan", scan_src, k["fused"]),
         entry("K5 kw_scan", "kw_scan", scan_src, k["kw"]),
+        entry("K6 fp_scan", "fp_scan", "omni_recall_tpu_torch/csrc/fp_scan.cu", k["fp_bf16"], {
+            "storage": "bf16", "plain_runs": 1,
+            "f32_storage": {key: k["fp_f32"][key] for key in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+            "launches_per_batch_f32": paths["f32_batches"]["launches"]["fp_scan"]
+            / paths["f32_batches"]["batches"]}),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

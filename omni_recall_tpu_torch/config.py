@@ -17,16 +17,17 @@ them exactly as in the reference.
 
 New (device engine) section: ``Engine`` configures the device index and
 kernels. This is the PyTorch port's copy of omni_recall_tpu/config.py: the
-same keys (``OMNI__Engine__Backend`` etc.) bind the same fields, so
-configurations carry over. Four ``Engine`` defaults differ, set to the
-configuration this port serves end to end (certified-exact hybrid search
-over an int8 index with direct selection and the device-exact cosine):
-``backend="pallas"`` (the name of the hand-written-kernel backend),
-``scan_dtype="int8"``, ``direct_select=True`` and ``device_exact_cos=True``;
-``refine`` has the reference's default (True: the residual refine planes).
-Settings the port cannot serve yet (backend xla, f32/bf16 scan storage,
-sharding) raise when the engine is built (search/engine.py check_options),
-naming their ROADMAP.md item by title; nothing is silently substituted.
+same keys (``OMNI__Engine__Backend`` etc.) bind the same fields with the
+same defaults, so a configuration serves the same engine on both. With no
+``Engine`` keys that is the reference's default: ``backend="xla"`` (the
+plain-torch scorer, ops/xla_scorer.py) over f32 scan storage. The bench's
+headline configuration, certified-exact search over an int8 index with the
+hand-written CUDA kernels, direct selection and the device-exact cosine,
+needs ``Engine:Backend=pallas``, ``Engine:ScanDtype=int8``,
+``Engine:DirectSelect=true`` and ``Engine:DeviceExactCos=true``. Sharding
+(``Engine:Shards`` > 0) is not ported yet and raises when the engine is
+built (search/engine.py check_options), naming its ROADMAP.md item by
+title; nothing is silently substituted.
 """
 
 from __future__ import annotations
@@ -198,9 +199,10 @@ class HealthOptions:
 class EngineOptions:
     """TPU device-engine knobs (new scope; no reference equivalent)."""
 
-    # scoring backend: oracle (host NumPy) | pallas (the hand-written CUDA
-    # kernels; name kept from the TPU package) | xla (not ported yet)
-    backend: str = "pallas"
+    # scoring backend: oracle (host NumPy) | xla (plain torch,
+    # ops/xla_scorer.py) | pallas (the hand-written CUDA kernels; name kept
+    # from the TPU package)
+    backend: str = "xla"
     # >0: row-shard the device index over the first N local devices on a
     # 1-D 'shards' mesh (parallel/mesh.py) — the multi-chip serving mode.
     # Scan, refine, compact selection and the device-exact cosine all run
@@ -223,7 +225,7 @@ class EngineOptions:
     # device embedding storage for the scan: f32 | bf16 | int8. Quantized
     # formats halve/quarter HBM traffic; exactness is preserved via the
     # certificate (per-row error norms for int8, margin eps for bf16).
-    scan_dtype: str = "int8"
+    scan_dtype: str = "f32"
     # >0 enables the request-coalescing executor: concurrent searches within
     # this window share one device pass (search/coalesce.py)
     coalesce_window_ms: float = 0.0
@@ -271,7 +273,7 @@ class EngineOptions:
     # Results are DTO-identical to the oracle (ranking + 4-decimal scores);
     # raw SearchHit.score may differ from the oracle float64 by < ~1e-10
     # on certified queries (the margin the certificate enforces).
-    device_exact_cos: bool = True
+    device_exact_cos: bool = False
     # direct compact selection (pallas + int8 + exact only): select the
     # compact candidate slice straight from the scan bounds and skip the
     # residual-int8 refine stage entirely — the serving fast path when the
@@ -282,7 +284,7 @@ class EngineOptions:
     # (wide rescue) and then the fused rescan, exactly as before. Saves the
     # refine gather + kernel (the serving stage's second-largest device
     # cost) per batch.
-    direct_select: bool = True
+    direct_select: bool = False
     # TPU emit layouts of the coarse scan (packed_emit / transposed_emit):
     # all decode to the same values, so in this port both map to the one
     # coarse-scan kernel — the keys stay so configurations carry over

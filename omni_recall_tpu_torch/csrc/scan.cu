@@ -33,7 +33,7 @@
 // so the 128-bit shared loads are conflict free), scores them with a 2-rows x 4-query
 // register tile per thread, and keeps the f32 scores of all R rows in shared memory.
 // Then each warp runs the literal max-and-mask rounds of _extract_topt for its
-// queries with warp shuffles. The keyword dot unpacks each bloom byte into eight
+// queries with warp shuffles (topt_extract.cuh, shared with fp_scan.cu). The keyword dot unpacks each bloom byte into eight
 // 0/1 int8 lanes (column j of the JAX bit matrix is bit j / W of word j % W) and
 // reorders kw_w8 word-major to match, so it is the same exact int8 dot.
 //
@@ -47,12 +47,13 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "topt_extract.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSmem = 232448;
-constexpr float kNegInf = -1e30f;       // _NEG_INF, the in-kernel mask value
 constexpr float kEpsInt8 = 4e-3f;       // PALLAS_CERT_EPS_INT8
 constexpr float kCosW = 0.7f;           // COSINE_WEIGHT
 constexpr float kKwW = 0.2f;            // KEYWORD_WEIGHT
@@ -84,26 +85,6 @@ inline int pad_stride(int k) { return k + ((k / 16) % 2 == 0 ? 16 : 32); }
 // four low bits of n -> four 0/1 bytes (bit i -> byte i)
 __device__ __forceinline__ uint32_t expand4(uint32_t n) {
   return (n & 1u) | ((n & 2u) << 7) | ((n & 4u) << 14) | ((n & 8u) << 21);
-}
-
-__device__ __forceinline__ int warp_max_i(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ int warp_min_i(int v) {
-  for (int o = 16; o > 0; o >>= 1) v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_max_f(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// packed key -> f32 upper bound with the lane bits forced to 1 (decode_up)
-__device__ __forceinline__ float decode_up(int k, int lmask) {
-  int y = k | lmask;
-  y = y ^ ((y >> 31) & 0x7FFFFFFF);
-  return __int_as_float(y);
 }
 
 // acc[i][j] += rows[lane + 32 i] . qs[warp * QPT + j] over K bytes (K % 16 == 0)
@@ -243,65 +224,13 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
   }
   __syncthreads();
 
-  // extraction: warp `warp` owns queries warp * QPT + j; literal _extract_topt rounds
-  const int sub = a.sub, t1 = a.t1;
-  const int slices = R / sub;
-  const long n_slices = a.n / sub;
+  // extraction: warp `warp` owns queries warp * QPT + j (topt_extract.cuh)
+  const long n_slices = a.n / a.sub;
   for (int j = 0; j < QPT; ++j) {
     const int ql = warp * QPT + j, qg = q0 + ql;
     if (qg >= a.b) continue;  // warp-uniform
-    for (int sl = 0; sl < slices; ++sl) {
-      float* ss = sc + ql * R + sl * sub;
-      const long base = row0 + (long)sl * sub;
-      const size_t o = ((size_t)qg * n_slices + base / sub) * t1;
-      if (a.packed) {
-        const int lmask = sub - 1;
-        int* ks = reinterpret_cast<int*>(ss);
-        for (int e = lane; e < sub; e += 32) {
-          const int si = __float_as_int(ss[e]);
-          const int kf = si ^ ((si >> 31) & 0x7FFFFFFF);
-          ks[e] = (kf & ~lmask) | (lmask - (e & lmask));
-        }
-        __syncwarp();
-        for (int r = 0; r < t1; ++r) {
-          int m = INT_MIN;
-          for (int e = lane; e < sub; e += 32) m = max(m, ks[e]);
-          m = warp_max_i(m);
-          if (lane == 0) {
-            a.out_vals[o + r] = decode_up(m, lmask);
-            a.out_idxs[o + r] = (r == t1 - 1) ? -2 : (int)((lmask - (m & lmask)) + base);
-          }
-          if (r < t1 - 1)
-            for (int e = lane; e < sub; e += 32)
-              if (ks[e] == m) ks[e] = INT_MIN;
-          __syncwarp();
-        }
-      } else {
-        for (int r = 0; r < t1; ++r) {
-          float v = __int_as_float(0xff800000);  // -inf
-          for (int e = lane; e < sub; e += 32) v = fmaxf(v, ss[e]);
-          v = warp_max_f(v);
-          if (r == t1 - 1) {
-            if (lane == 0) {
-              a.out_vals[o + r] = v;
-              a.out_idxs[o + r] = -2;
-            }
-            break;
-          }
-          int hit = sub;  // lowest lane among ties
-          for (int e = lane; e < sub; e += 32)
-            if (ss[e] == v) hit = min(hit, e);
-          hit = warp_min_i(hit);
-          if (lane == 0) {
-            a.out_vals[o + r] = v;
-            a.out_idxs[o + r] = (int)(hit + base);
-          }
-          __syncwarp();
-          if (hit < sub && lane == (hit & 31)) ss[hit] = kNegInf;
-          __syncwarp();
-        }
-      }
-    }
+    omni::extract_query(sc + ql * R, R, a.sub, a.t1, a.packed, row0, n_slices, qg,
+                        a.out_vals, a.out_idxs, lane);
   }
 }
 

@@ -1,5 +1,5 @@
 """Device-resident chunk index (structure-of-arrays), PyTorch port of
-omni_recall_tpu/index/device_index.py for the int8 scan layout.
+omni_recall_tpu/index/device_index.py.
 
 Rows are append-only in (created_at, seq) order, so the reference's
 "N most recent chunks" candidate window (RecallSearchService.cs:26) is a
@@ -7,13 +7,16 @@ row threshold computed on the host. Deletions clear the valid mask
 (tombstones); reindex overwrites embeddings in place.
 
 Per row the device holds (``DeviceArrays``):
-- ``emb``     int8[cap, d]  symmetric per-row quantization of the
-                            L2-normalized embedding (zero rows for chunks
-                            without a usable embedding),
-- ``scale``   f32[cap]      per-row dequantization scale,
-- ``err``     f32[cap]      sound bound on the quantization error norm,
+- ``emb``     the scan plane, per ``scan_dtype``: the L2-normalized
+              embedding (zero rows for chunks without a usable embedding)
+              as ``f32`` [cap, d], rounded to ``bf16`` (nearest, ties to
+              even) [cap, d], or as ``int8`` [cap, d], a symmetric per-row
+              quantization with
+- ``scale``   f32[cap]      per-row dequantization scale (int8 only),
+- ``err``     f32[cap]      sound bound on the quantization error norm
+                            (int8 only),
 - ``emb2``, ``scale2``, ``err2``  the residual int8 plane, its scale and
-                            its error bound (only with ``refine``: the
+                            its error bound (only int8 with ``refine``: the
                             refine stage, K3, ops/refine.py):
                             emb ~= emb*scale + emb2*scale2,
                             ||resid|| <= err2,
@@ -28,8 +31,8 @@ grows in ``capacity_block`` row blocks; a capacity change re-uploads
 everything (new tensors — searches in flight keep the old ones), otherwise
 dirty capacity blocks are copied in place into the device planes
 (``Tensor.copy_``, ordered on the current stream after any scan already
-queued). Not in this port yet: f32/bf16 scan storage, snapshot restore,
-compact bulk indexes and the sharded mesh.
+queued). Not in this port yet: snapshot restore, compact bulk indexes and
+the sharded mesh.
 
 The entry point runs on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -122,12 +125,12 @@ def device_quantize(x: torch.Tensor, refine: bool = False,
 
 @dataclass
 class DeviceArrays:
-    emb: torch.Tensor            # int8 rows
+    emb: torch.Tensor            # f32 | bf16 | int8 rows, per scan_dtype
     bloom: torch.Tensor
     created: torch.Tensor
     valid: torch.Tensor
-    scale: torch.Tensor          # per-row dequant scale
-    err: torch.Tensor            # per-row quantization error norm bound
+    scale: torch.Tensor | None = None  # int8: per-row dequant scale
+    err: torch.Tensor | None = None    # int8: per-row quantization error norm
     # residual int8 plane for the refine stage (ops/refine.py, refine=True)
     emb2: torch.Tensor | None = None
     scale2: torch.Tensor | None = None
@@ -135,11 +138,27 @@ class DeviceArrays:
     raw: torch.Tensor | None = None  # raw f32 rows (exact_cos)
 
 
-# planes the int8 layout carries (from_numpy_planes' keys)
+# planes an index may carry (from_numpy_planes' keys)
 PLANES = ("emb", "bloom", "created", "valid", "scale", "err",
           "emb2", "scale2", "err2", "raw")
 # the planes the row quantizer writes (with refine: the residual ones too)
 _QUANT_PLANES = ("emb", "scale", "err", "emb2", "scale2", "err2")
+# scan storage type of each scan_dtype
+SCAN_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.int8}
+
+
+def _host_tensor(a) -> torch.Tensor:
+    """A host plane as a CPU tensor: numpy arrays, including the bfloat16
+    arrays of the JAX package (ml_dtypes, read through their bits), or
+    tensors as they are."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if not a.flags.writeable:  # e.g. a JAX array's host view: PyTorch wants its own
+        a = a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
 
 
 class DeviceIndex:
@@ -158,16 +177,13 @@ class DeviceIndex:
     ) -> None:
         if bloom_bits % 8 != 0:
             raise ValueError("bloom_bits must be a multiple of 8")
-        if scan_dtype != "int8":
-            raise NotImplementedError(
-                f"scan_dtype={scan_dtype!r} needs the f32/bf16 scan kernel, not "
-                'ported yet (ROADMAP.md, "K6: f32/bf16 scan storage"); use '
-                "scan_dtype='int8'"
-            )
+        if scan_dtype not in SCAN_DTYPES:
+            raise ValueError(f"unsupported scan_dtype: {scan_dtype}")
         self.device = resolve_device(device)
         self.dim = dim
         self.scan_dtype = scan_dtype
-        self.refine = bool(refine)  # keep the residual int8 plane (K3)
+        # keep the residual int8 plane (K3): int8 storage only
+        self.refine = bool(refine) and scan_dtype == "int8"
         self.exact_cos = bool(exact_cos)
         self.capacity_block = max(128, capacity_block)
         self.bloom_bits = bloom_bits
@@ -493,25 +509,29 @@ class DeviceIndex:
         ngram: int = 4,
         bloom_hashes: int = 1,
     ) -> "DeviceIndex":
-        """Build an index holding the same bits as another int8 index.
+        """Build an index holding the same bits as another index.
 
         ``planes`` maps each name of ``PLANES`` to a numpy array — e.g.
         ``np.asarray`` of each field of the JAX package's ``DeviceArrays``
-        (``raw`` may be absent: no device-exact cosine then); ``meta`` is
-        that index's row list (``None`` for tombstoned rows). The device
-        planes are installed bit for bit; the host mirrors are re-derived
-        from the records exactly as ``append`` derives them. Bloom
-        parameters must be the source index's (``bloom_bits`` defaults to
-        the plane width)."""
-        emb = np.asarray(planes["emb"])
+        (``raw`` may be absent: no device-exact cosine then) — or a CPU
+        tensor. The scan storage type follows the ``emb`` plane: int8 (with
+        ``scale``/``err``), f32, or bf16 (a torch.bfloat16 tensor or a numpy
+        bfloat16 array). ``meta`` is that index's row list (``None`` for
+        tombstoned rows). The device planes are installed bit for bit; the
+        host mirrors are re-derived from the records exactly as ``append``
+        derives them. Bloom parameters must be the source index's
+        (``bloom_bits`` defaults to the plane width)."""
+        host = {k: _host_tensor(a) for k, a in planes.items() if a is not None}
+        emb = host["emb"]
         cap, dim = emb.shape
-        if emb.dtype != np.int8:
-            raise ValueError(f"emb plane must be int8, got {emb.dtype}")
-        w = np.asarray(planes["bloom"]).shape[1]
+        scan_dtype = {v: k for k, v in SCAN_DTYPES.items()}.get(emb.dtype)
+        if scan_dtype is None:
+            raise ValueError(f"emb plane must be int8, f32 or bf16, got {emb.dtype}")
+        w = host["bloom"].shape[1]
         index = cls(
             dim, capacity_block=capacity_block,
             bloom_bits=bloom_bits if bloom_bits is not None else 8 * w,
-            ngram=ngram, bloom_hashes=bloom_hashes, scan_dtype="int8",
+            ngram=ngram, bloom_hashes=bloom_hashes, scan_dtype=scan_dtype,
             refine=planes.get("emb2") is not None,
             exact_cos=planes.get("raw") is not None, device=device,
         )
@@ -564,13 +584,9 @@ class DeviceIndex:
             index._n_valid = int(live.sum())
             for r in rows:
                 index._block_valid[r // VALID_BLOCK] += 1
-            dev = index.device
-
-            def put(name):
-                a = planes.get(name)
-                return None if a is None else torch.tensor(np.asarray(a), device=dev)
-
-            index._device = DeviceArrays(**{k: put(k) for k in PLANES})
+            index._device = DeviceArrays(**{
+                k: host[k].to(index.device, copy=True) if k in host else None
+                for k in PLANES})
             index._device_cap = cap
             index._dirty_blocks.clear()
         return index
@@ -646,12 +662,15 @@ class DeviceIndex:
 
     # ---- device sync ----
 
-    def _put(self, host: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(host)).to(self.device, copy=True)
+    def _put(self, host) -> torch.Tensor:
+        return _host_tensor(host).to(self.device, copy=True)
 
-    # full uploads at/above this row count quantize ON DEVICE; below it the
-    # host quantizer (ops/quantize.py) keeps small indexes bit-stable with it
+    # full uploads at/above this row count quantize (or round to bf16) ON
+    # DEVICE; below it the host quantizer (ops/quantize.py) keeps small
+    # indexes bit-stable with it
     _DEVICE_QUANTIZE_MIN_ROWS = 1 << 16
+    # f32 rows uploaded at a time when the device rounds them to bf16
+    _BF16_SLAB_ROWS = 1 << 18
 
     def device_arrays(self) -> DeviceArrays:
         """Upload pending host changes and return the device-resident SoA.
@@ -663,23 +682,41 @@ class DeviceIndex:
                 self._sync_dirty()
             return self._device
 
-    def _quantize_host(self, rows: np.ndarray) -> dict[str, np.ndarray]:
-        """Host f32 rows -> the int8 planes (+ the residual plane with
-        refine), device_index.py _convert_emb."""
+    def _convert_host(self, rows: np.ndarray) -> dict:
+        """Host f32 rows -> the scan planes (device_index.py _convert_emb):
+        the int8 planes (+ the residual plane with refine), the rows rounded
+        to bf16, or the f32 rows themselves."""
+        if self.scan_dtype == "bf16":
+            return {"emb": torch.from_numpy(rows).to(torch.bfloat16)}
+        if self.scan_dtype == "f32":
+            return {"emb": rows}
         if self.refine:
             return dict(zip(_QUANT_PLANES, quantize_rows_int8_residual(rows)))
         return dict(zip(_QUANT_PLANES, quantize_rows_int8(rows)))
 
+    def _device_bf16(self) -> torch.Tensor:
+        """The bf16 scan plane rounded on the device, a slab of f32 rows at
+        a time (the same round-to-nearest-even as the host conversion)."""
+        out = torch.empty(self.emb.shape, dtype=torch.bfloat16, device=self.device)
+        for lo in range(0, self._cap, self._BF16_SLAB_ROWS):
+            hi = lo + self._BF16_SLAB_ROWS
+            out[lo:hi] = self._put(self.emb[lo:hi])
+        return out
+
     def _full_upload(self) -> None:
         raw_dev = None
-        if self._cap >= self._DEVICE_QUANTIZE_MIN_ROWS:
+        large = self._cap >= self._DEVICE_QUANTIZE_MIN_ROWS
+        if large and self.scan_dtype == "int8":
             up = self._put(self.emb)
             converted = device_quantize(up, refine=self.refine)
             if self.exact_cos:
                 raw_dev = up if self._raw_aliased else self._put(self.raw_emb)
             del up
         else:
-            converted = {k: self._put(v) for k, v in self._quantize_host(self.emb).items()}
+            if large and self.scan_dtype == "bf16":
+                converted = {"emb": self._device_bf16()}
+            else:
+                converted = {k: self._put(v) for k, v in self._convert_host(self.emb).items()}
             if self.exact_cos:
                 raw_dev = self._put(self.raw_emb)
         self._device = DeviceArrays(
@@ -697,8 +734,8 @@ class DeviceIndex:
             if lo >= self._cap:
                 continue
             hi = min(lo + block, self._cap)
-            for name, plane in self._quantize_host(self.emb[lo:hi]).items():
-                getattr(dev, name)[lo:hi].copy_(torch.from_numpy(plane))
+            for name, plane in self._convert_host(self.emb[lo:hi]).items():
+                getattr(dev, name)[lo:hi].copy_(_host_tensor(plane))
             dev.bloom[lo:hi].copy_(torch.from_numpy(self.bloom[lo:hi]))
             dev.created[lo:hi].copy_(torch.from_numpy(self.created[lo:hi]))
             dev.valid[lo:hi].copy_(torch.from_numpy(self.valid[lo:hi]))

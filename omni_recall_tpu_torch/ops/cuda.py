@@ -32,7 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel library name -> source file
-SOURCES = {"scan": "scan.cu", "dd_rows": "dd_rows.cu", "refine": "refine.cu"}
+SOURCES = {"scan": "scan.cu", "fp_scan": "fp_scan.cu", "dd_rows": "dd_rows.cu",
+           "refine": "refine.cu"}
 
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -46,6 +47,7 @@ LAUNCHES: dict[str, int] = {
     "coarse_pair": 0,   # K7a: the same scan in its value/index pair mode
     "fused_scan": 0,    # K4: full fused int8 + keyword scan
     "kw_scan": 0,       # K5: keyword-only bloom scan
+    "fp_scan": 0,       # K6: fused f32/bf16 scan
     "dd_rows": 0,       # K2: double-float cosine over gathered rows
     "refine": 0,        # K3: residual two-plane refine over candidate rows
 }
@@ -91,9 +93,13 @@ def _lib_path(name: str) -> Path:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any shared header
+    (csrc/*.cuh)."""
     lib = _lib_path(name)
-    src = CSRC / SOURCES[name]
-    return not lib.is_file() or lib.stat().st_mtime < src.stat().st_mtime
+    if not lib.is_file():
+        return True
+    inputs = [CSRC / SOURCES[name], *CSRC.glob("*.cuh")]
+    return lib.stat().st_mtime < max(p.stat().st_mtime for p in inputs)
 
 
 def build_all(force: bool = False) -> float:
@@ -133,6 +139,12 @@ _ARGTYPES = {
         _P, _P, _P, _P, _P, _P, _P, _P, _P,   # emb8 bloom q8 kw_w8 kw_b add scale qs qb
         _P, _P,                               # out vals, out idxs
         _I, _I, _I, _I, _I, _I, _I, _I,       # n d w b sub t1 mode packed
+        _P,                                   # stream
+    ]),
+    "fp_scan": ("omni_fp_scan_topt", [
+        _P, _P, _P, _P, _P, _P,               # emb bloom q kw_w kw_b add
+        _P, _P,                               # out vals, out idxs
+        _I, _I, _I, _I, _I, _I, _I, _I,       # n d w b sub t1 packed bf16
         _P,                                   # stream
     ]),
     "dd_rows": ("omni_dd_rows", [

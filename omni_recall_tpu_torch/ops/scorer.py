@@ -1,9 +1,9 @@
-"""int8 hybrid upper-bound scans: CUDA kernels and their plain versions.
+"""Hybrid upper-bound scans: CUDA kernels and their plain versions.
 
 Counterpart of omni_recall_tpu/ops/pallas_scorer.py (the fused Pallas TPU
-kernels) for the int8 device index. Three scans, each a hand-written CUDA
-kernel (csrc/scan.cu) with a plain PyTorch version of the same function
-beside it, written from the JAX graph:
+kernels). Four scans, each a hand-written CUDA kernel (csrc/scan.cu,
+csrc/fp_scan.cu) with a plain PyTorch version of the same function beside
+it, written from the JAX graph:
 
 - K1 ``block_topt_int8_coarse`` — cosine-only scan, keyword capped per query
   (pallas_scorer.py _make_topt_kernel_int8_coarse_keys_t, and the pair emit
@@ -16,6 +16,14 @@ beside it, written from the JAX graph:
   (_make_topt_kernel_int8), the certificate-miss rescue scan.
 - K5 ``block_topt_kw_only`` — bloom-only scan for queries without an
   embedding (_make_topt_kernel_kw_only).
+- K6 ``block_topt`` — the fused scan over f32 or bf16 scan storage
+  (_make_topt_kernel / _ub_block): bf16 operands, f32 sums, eps
+  PALLAS_CERT_EPS. The TPU sums its dot products in the MXU's order, which
+  nothing fixes; the port fixes one (each (row, query) pair sums its
+  products in k order, cosine terms then keyword terms, csrc/fp_scan.cu) and
+  the plain version follows it, so kernel and plain version agree bit for
+  bit. Against the TPU kernel the sums agree to within the rounding of a
+  reordered f32 sum (tests/test_torch_scorer.py states the bound).
 
 Each returns the [B, N/sub, t1] (vals f32, idxs i32) contract of the TPU
 kernels: per extraction slice of ``sub`` rows the top-(t1-1) entries plus a
@@ -57,12 +65,17 @@ from omni_recall_tpu_torch.ops.oracle import (
 _NEG_INF = -1e30  # finite mask value inside the scans; mapped to -inf outside
 _INT_MIN = -(2**31)
 PALLAS_CERT_EPS_INT8 = 4e-3
+# the f32/bf16 scan's certificate margin (pallas_scorer.py PALLAS_CERT_EPS:
+# both bf16 operands' rounding plus f32 accumulation)
+PALLAS_CERT_EPS = 8e-3
 # candidates emitted per extraction slice at most (engine PALLAS_BLOCK_T)
 PALLAS_BLOCK_T = 8
 
 _MODE_COARSE, _MODE_FUSED, _MODE_KW = 0, 1, 2
 _KERNEL_NAME = {_MODE_COARSE: "coarse_scan", _MODE_FUSED: "fused_scan",
                 _MODE_KW: "kw_scan"}
+# scan storage types of K6 (DeviceIndex scan_dtype f32 / bf16)
+FP_DTYPES = (torch.float32, torch.bfloat16)
 
 
 # ---- block-size picks (pallas_scorer.py _pick_block / _pick_block_coarse) ----
@@ -537,6 +550,92 @@ def block_topt_kw_only(bloom, kw_w8, kw_b, add_row, t: int, sub: int = 512):
     )
 
 
+# ---- K6: fused f32/bf16 scan ----
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (nearest, ties to even) and widened back to f32 —
+    the TPU kernel's ``astype(jnp.bfloat16)`` of each operand."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _seq_dot(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
+    """a[M, K] . bt[K, N] -> f32[M, N] summed in k order, one product and
+    one f32 addition per term (``acc + a_k * b_k``, two roundings): the
+    order and the operations of csrc/fp_scan.cu. Columns of ``a`` that are
+    zero in every row are skipped: their products are zeros, and adding a
+    zero leaves a sum that starts at +0 unchanged."""
+    acc = torch.zeros((a.shape[0], bt.shape[1]), dtype=torch.float32, device=a.device)
+    for k in torch.nonzero((a != 0).any(dim=0)).flatten().tolist():
+        acc = acc + a[:, k:k + 1] * bt[k]
+    return acc
+
+
+def _fp_scores_plain(q, kw_w, kw_b, emb_t, bits_t, add_row):
+    """_ub_block with the port's fixed sum order. ``emb_t`` [d, N] and
+    ``bits_t`` [8W, N] are the bf16-rounded rows and the 0/1 bloom bits,
+    transposed so each term's row operand is contiguous."""
+    cos = _seq_dot(_bf16_round(q), emb_t)
+    kw = torch.clamp_max(_seq_dot(_bf16_round(kw_w), bits_t) + kw_b, 1.0)
+    return (_fma32(COSINE_WEIGHT, cos, KEYWORD_WEIGHT * kw) + add_row
+            + PALLAS_CERT_EPS)
+
+
+def _fp_shape(n: int, dtype: torch.dtype, t: int, sub: int):
+    if dtype not in FP_DTYPES:
+        raise ValueError(f"K6 scans f32 or bf16 rows, got {dtype}")
+    c = _pick_block(n, 2 if dtype == torch.bfloat16 else 4)
+    if c == 0:
+        raise ValueError(f"row count {n} not divisible by a supported block")
+    sub = min(sub, c)
+    return sub, min(t + 1, sub)
+
+
+def block_topt_plain(emb, bloom, q, kw_weights, kw_bias, add_row, t: int,
+                     sub: int = 512):
+    """Plain PyTorch K6 (pallas_scorer.py block_topt)."""
+    sub, t1 = _fp_shape(emb.shape[0], emb.dtype, t, sub)
+    emb_t = _bf16_round(emb.to(torch.float32)).T.contiguous()
+    bits_t = _bloom_bits(bloom).T.to(torch.float32).contiguous()
+    return _by_query_chunks(
+        _fp_scores_plain, (q, kw_weights, kw_bias), (emb_t, bits_t, add_row), sub, t1)
+
+
+def block_topt(emb, bloom, q, kw_weights, kw_bias, add_row, t: int, sub: int = 512):
+    """Fused f32/bf16 scan, K6. emb f32|bf16[N, d], bloom u8[N, W], q
+    f32[B, d], kw_weights f32[B, 8W], kw_bias f32[B, 1], add_row f32[1, N].
+    Returns (vals f32, idxs i32) [B, N/sub, t1]."""
+    if not emb.is_cuda:
+        _require_cpu(emb)
+        return block_topt_plain(emb, bloom, q, kw_weights, kw_bias, add_row, t, sub)
+    (n, d), b, w = emb.shape, q.shape[0], bloom.shape[1]
+    sub, t1 = _fp_shape(n, emb.dtype, t, sub)
+    if d % 4:
+        raise ValueError(f"the CUDA K6 scan needs d % 4 == 0, got d={d}")
+    if sub % 64 and 64 % sub:
+        raise ValueError(f"the CUDA scan needs sub % 64 == 0 or 64 % sub == 0, got {sub}")
+    if n % max(sub, 64):
+        raise ValueError(f"the CUDA scan needs N % max(sub, 64) == 0, got N={n}")
+    f32 = torch.float32
+    kw_b, add_row = kw_bias.reshape(-1), add_row.reshape(-1)
+    _check_cuda_operands(
+        emb.device, emb=(emb, emb.dtype, (n, d)), bloom=(bloom, torch.uint8, (n, w)),
+        q=(q, f32, (b, d)), kw_weights=(kw_weights, f32, (b, 8 * w)),
+        kw_bias=(kw_b, f32, (b,)), add_row=(add_row, f32, (n,)),
+    )
+    vals = torch.empty((b, n // sub, t1), dtype=f32, device=emb.device)
+    idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=emb.device)
+    lib = cuda.library("fp_scan")
+    rc = lib.omni_fp_scan_topt(
+        _ptr(emb), _ptr(bloom), _ptr(q), _ptr(kw_weights), _ptr(kw_b), _ptr(add_row),
+        _ptr(vals), _ptr(idxs), n, d, w, b, sub, t1, int(_packed_mode(sub, t1)),
+        int(emb.dtype == torch.bfloat16), cuda.stream_ptr(emb.device),
+    )
+    cuda.check(lib, rc, "fp_scan")
+    cuda.count_launch("fp_scan")
+    return vals, idxs
+
+
 # ---- merge + engine entry points ----
 
 
@@ -602,4 +701,14 @@ def score_topm_kw_only(bloom, created, valid, kw_weights, kw_bias, now_days,
     add_row = make_add_row(created, valid, now_days, window_start)
     kw_w8 = quantize_kw_weights(kw_weights)
     vals, idxs = block_topt_kw_only(bloom, kw_w8, kw_bias[:, None], add_row, t=t, sub=sub)
+    return _merge_topm(vals, idxs, m)
+
+
+def score_topm(emb, bloom, created, valid, q, kw_weights, kw_bias, now_days,
+               window_start, m: int, t: int = 8, sub: int = 512):
+    """f32/bf16 scan entry (K6 + merge): no quantization error term; the
+    bf16 rounding of both operands is inside PALLAS_CERT_EPS."""
+    add_row = make_add_row(created, valid, now_days, window_start)
+    vals, idxs = block_topt(emb, bloom, q, kw_weights, kw_bias[:, None], add_row,
+                            t=t, sub=sub)
     return _merge_topm(vals, idxs, m)

@@ -1,9 +1,10 @@
 """Certified-exact hybrid search engine (PyTorch port of
 omni_recall_tpu/search/engine.py, single-device path).
 
-The device computes a *sound upper bound* per chunk with the int8 scans
-(ops/scorer.py: K1 coarse, K4 fused, K5 keyword-only — CUDA kernels) and
-returns the top-M candidate rows, optionally re-bounded tighter by the
+The device computes a *sound upper bound* per chunk — with the int8 scans
+(ops/scorer.py: K1 coarse, K4 fused, K5 keyword-only), the f32/bf16 scan
+(K6), all CUDA kernels, or the plain-torch xla scorer (ops/xla_scorer.py)
+— and returns the top-M candidate rows, optionally re-bounded tighter by the
 residual refine stage (ops/refine.py, K3, on indexes with the residual
 planes); the host exact-rescores only those candidates (float64, substring
 keyword semantics) — or, with the device-exact cosine (ops/exact_cos.py,
@@ -28,9 +29,11 @@ their compact results into pinned host memory) and
 batch's device work.
 
 Backends: ``pallas`` (the hand-written-kernel backend; the name is kept so
-configurations carry over) and ``oracle`` (host float64 only). ``xla``,
-f32/bf16 scan storage and the sharded index wait for later slices and raise
-at construction, naming their ROADMAP.md item.
+configurations carry over) over int8, f32 or bf16 scan storage, ``xla``
+(the reference's default: the plain-torch scorer over f32 storage, which
+also serves pallas f32 scans beyond K6's extraction budget) and ``oracle``
+(host float64 only). The sharded index waits for a later slice and raises
+at construction, naming its ROADMAP.md item.
 
 Invariants this port preserves, word for word from the repository's working
 notes ("Invariants to preserve"; the sharded and compact paths they name
@@ -96,7 +99,15 @@ from omni_recall_tpu_torch.device import resolve_device
 from omni_recall_tpu_torch.index.device_index import DeviceIndex, to_days, to_micros
 from omni_recall_tpu_torch.index.records import ChunkRecord
 from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
-from omni_recall_tpu_torch.ops import exact_cos, hashing, native, oracle, refine, scorer
+from omni_recall_tpu_torch.ops import (
+    exact_cos,
+    hashing,
+    native,
+    oracle,
+    refine,
+    scorer,
+    xla_scorer,
+)
 
 
 class _HostCopy:
@@ -241,19 +252,8 @@ def _sort_key(hit: SearchHit):
 
 def check_options(options: EngineOptions) -> None:
     """Raise for configurations this port cannot serve yet: no silent
-    substitution of another backend or layout. Each message names its
+    substitution of another backend or layout. The message names its
     ROADMAP.md item by title."""
-    if options.backend not in ("pallas", "oracle"):
-        raise NotImplementedError(
-            f"Engine:Backend={options.backend!r} is not ported yet "
-            '(ROADMAP.md, "The plain-torch twin of ops/xla_scorer.py"); use '
-            "Backend=pallas (the CUDA kernels) or oracle"
-        )
-    if options.backend == "pallas" and options.scan_dtype != "int8":
-        raise NotImplementedError(
-            f"Engine:ScanDtype={options.scan_dtype!r} needs the f32/bf16 scan "
-            'kernel (ROADMAP.md, "K6: f32/bf16 scan storage"); use ScanDtype=int8'
-        )
     if options.shards > 0:
         raise NotImplementedError(
             "Engine:Shards > 0 (the row-sharded multi-card index) is not "
@@ -279,19 +279,29 @@ class RecallEngine:
         else:
             self.device = resolve_device(device)
         if device_index is None and self.options.backend != "oracle":
+            # the reference's expressions (search/engine.py:312-328): only
+            # the pallas backend scans int8/bf16 storage, and the
+            # device-exact cosine serves int8 refine indexes only
+            pallas = self.options.backend == "pallas"
+            scan_dtype = self.options.scan_dtype if pallas else "f32"
             device_index = DeviceIndex(
                 self.options.embedding_dim,
                 capacity_block=self.options.capacity_block,
                 bloom_bits=self.options.bloom_bits,
                 ngram=self.options.ngram,
                 bloom_hashes=self.options.bloom_hashes,
-                scan_dtype=self.options.scan_dtype,
+                scan_dtype=scan_dtype,
                 refine=self.options.refine,
-                exact_cos=self.options.device_exact_cos,
+                exact_cos=(self.options.device_exact_cos and self.options.refine
+                           and pallas and self.options.scan_dtype == "int8"),
                 device=self.device,
             )
         self.device_index = device_index
         if self.device_index is not None:
+            if self.device_index.scan_dtype == "f32":
+                # the xla scorer may serve f32 storage: fail here, not at the
+                # first search, if TF32 would make its bounds unsound
+                xla_scorer.check_tf32_off()
             # warm the native library (compile + bit-identity self-check)
             # outside any index lock
             native.rescore_available()
@@ -470,25 +480,48 @@ class RecallEngine:
     # -- scorer selection --
 
     def _select_scorer(self, m: int, n_rows_padded: int):
-        """The fused int8 rescue scan (K4) for this escalation round, or
-        (None, True) when its extraction budget cannot cover m (the exact
-        host scan then finishes). It emits per-slice top-t only, so it never
-        guarantees full coverage (second value False)."""
-        c = scorer._pick_block(n_rows_padded, 1)
-        if c > 0:
-            sub = min(512, c)
-            slices = n_rows_padded // sub
-            # ~2x the needed candidates per slice, floored at 4 for the
-            # co-location reason of _coarse_layout
-            t = min(scorer.PALLAS_BLOCK_T, sub - 1, max(4, math.ceil(2 * m / slices)))
-            if m <= slices * t:
-                def fused(dev, q, w, bias, now_days, r0, m):
-                    return scorer.score_topm_int8(
-                        dev.emb, dev.scale, dev.err, dev.bloom, dev.created,
-                        dev.valid, q, w, bias, now_days, r0, m=m, t=t, sub=sub,
-                    )
-                return fused, False
-        return None, True
+        """(scorer, full_coverage) for this escalation round
+        (search/engine.py:688-734, single device). Under the pallas backend
+        the fused scan of the storage type — K4 on int8, K6 on f32/bf16 —
+        while its extraction budget covers m; it emits per-slice top-t only,
+        so it never guarantees full coverage (False). Otherwise the xla
+        scorer, whose top-(m+1) covers every row once m reaches the window
+        (True), on f32 storage; on int8/bf16 storage nothing can feed it,
+        so (None, True): the exact host scan finishes."""
+        scan_dtype = self.device_index.scan_dtype
+        if self.options.backend == "pallas":
+            itemsize = {"int8": 1, "bf16": 2}.get(scan_dtype, 4)
+            c = scorer._pick_block(n_rows_padded, itemsize)
+            if c > 0:
+                sub = min(512, c)
+                slices = n_rows_padded // sub
+                # ~2x the needed candidates per slice, floored at 4 for the
+                # co-location reason of _coarse_layout
+                t = min(scorer.PALLAS_BLOCK_T, sub - 1, max(4, math.ceil(2 * m / slices)))
+                if m <= slices * t:
+                    if scan_dtype == "int8":
+                        def fused(dev, q, w, bias, now_days, r0, m):
+                            return scorer.score_topm_int8(
+                                dev.emb, dev.scale, dev.err, dev.bloom, dev.created,
+                                dev.valid, q, w, bias, now_days, r0, m=m, t=t, sub=sub,
+                            )
+                        return fused, False
+
+                    def fused_fp(dev, q, w, bias, now_days, r0, m):
+                        return scorer.score_topm(
+                            dev.emb, dev.bloom, dev.created, dev.valid, q, w, bias,
+                            now_days, r0, m=m, t=t, sub=sub,
+                        )
+                    return fused_fp, False
+        if scan_dtype != "f32":
+            return None, True
+
+        def xla(dev, q, w, bias, now_days, r0, m):
+            return xla_scorer.score_topm(
+                dev.emb, dev.bloom, dev.created, dev.valid, q, w, bias,
+                now_days, r0, m=m,
+            )
+        return xla, True
 
     def _coarse_gate_open(self) -> bool:
         with self._coarse_gate_lock:
@@ -546,12 +579,13 @@ class RecallEngine:
     def _select_coarse_scorer(self, m: int, n_rows_padded: int):
         """Cosine-only int8 prepass scorer (K1), or None when unavailable
         (exact profile only: the coarse bound's flat keyword cap must never
-        rank results)."""
+        rank results; int8 storage only)."""
         if not (
             self.options.exact
             and self.options.coarse_prepass
             and self.options.backend == "pallas"
             and self.device_index is not None
+            and self.device_index.scan_dtype == "int8"
         ):
             return None
         c = scorer._pick_block_coarse(n_rows_padded)
@@ -575,7 +609,8 @@ class RecallEngine:
 
     def _select_kw_scorer(self, m: int, n_rows_padded: int):
         """Keyword-only scan (K5: bloom + recency, no emb read) for queries
-        with no embedding."""
+        with no embedding, on every storage type (the bloom plane is u8);
+        pallas only: under xla such queries take the xla scorer."""
         if not (
             self.options.exact
             and self.options.backend == "pallas"

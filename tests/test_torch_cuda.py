@@ -89,6 +89,31 @@ def test_kw_scan_kernel(dev, w):
     assert _same(kv, pv) and _same(ki, pi)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("sub, t, d", [(512, 4, 768), (512, 1, 768), (256, 2, 100),
+                                       (1024, 4, 768)])
+def test_fp_scan_kernel(dev, dtype, sub, t, d):
+    """K6 on bf16 and f32 storage, packed (t1 >= 3) and two-reduce (t1 = 2)
+    extraction; bf16 at sub 1024 takes the 32-query tile, f32 rows cap the
+    block at 1024."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, b, w = 8192, 45, 128
+    emb = torch.randn((n, d), generator=g, device=dev)
+    emb /= emb.norm(dim=1, keepdim=True)
+    q = torch.randn((b, d), generator=g, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    o = _operands(dev, n, 16, b, w, seed=6)
+    kw = torch.where(torch.rand((b, 8 * w), generator=g, device=dev) < 0.05,
+                     torch.rand((b, 8 * w), generator=g, device=dev) * 0.1,
+                     torch.zeros((), device=dev))
+    args = (emb.to(dtype), o["bloom"], q, kw, o["kw_b"], o["add_row"])
+    before = cuda.LAUNCHES["fp_scan"]
+    kv, ki = scorer.block_topt(*args, t=t, sub=sub)
+    pv, pi = scorer.block_topt_plain(*args, t=t, sub=sub)
+    assert cuda.LAUNCHES["fp_scan"] == before + 1
+    assert _same(kv, pv) and _same(ki, pi)
+
+
 @pytest.mark.parametrize("d", [768, 100])
 def test_dd_rows_kernel(dev, d):
     g = torch.Generator(device=dev).manual_seed(3)
@@ -142,6 +167,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     args = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
     with pytest.raises(ValueError, match="d % 16"):
         scorer.block_topt_int8_coarse(*args, t=2, sub=512)
+    with pytest.raises(ValueError, match="d % 4"):
+        scorer.block_topt(torch.zeros((4096, 70), device=dev), o["bloom"],
+                          torch.zeros((8, 70), device=dev), torch.zeros((8, 128), device=dev),
+                          o["kw_b"], o["add_row"], t=4)
     raw = torch.zeros((10, 1 << 15), device=dev)
     with pytest.raises(ValueError, match="shared memory"):
         exact_cos.exact_cos_rows(raw, torch.zeros((1, 1), dtype=torch.int32, device=dev),

@@ -1,6 +1,7 @@
 """The port's DeviceIndex against the JAX DeviceIndex (int8 layout, raw
 plane for the device-exact cosine; without and with the residual refine
-planes), on the CPU."""
+planes; f32 and bf16 scan storage), on the CPU. bf16 planes are compared
+through their bits (uint16)."""
 
 from datetime import datetime, timedelta, timezone
 
@@ -41,9 +42,9 @@ def _chunks(cls, rows):
                 created_at_utc=ts, seq=i) for i, (cid, doc, text, emb, ts) in enumerate(rows)]
 
 
-def _pair(capacity_block=256, refine=False):
+def _pair(capacity_block=256, refine=False, scan_dtype="int8"):
     kw = dict(capacity_block=capacity_block, bloom_bits=256, ngram=4, bloom_hashes=2,
-              scan_dtype="int8", refine=refine, exact_cos=True)
+              scan_dtype=scan_dtype, refine=refine, exact_cos=True)
     return jdi.DeviceIndex(DIM, **kw), tdi.DeviceIndex(DIM, device="cpu", **kw)
 
 
@@ -53,7 +54,12 @@ def _planes_equal(jdev, tdev, err_ulps=0):
         assert (j is None) == (t is None), name
         if j is None:
             continue
-        j, t = np.asarray(j), t.numpy()
+        j = np.asarray(j)
+        if t.dtype == torch.bfloat16:
+            assert j.dtype.name == "bfloat16", name
+            j, t = j.view(np.uint16), t.view(torch.int16).numpy().view(np.uint16)
+        else:
+            t = t.numpy()
         if name in ("err", "err2") and err_ulps:
             assert np.all(np.abs(j - t) <= err_ulps * np.spacing(j)), name
         else:
@@ -241,3 +247,81 @@ def test_bulk_load_quantizes_residual_plane_on_device(monkeypatch):
         out.append(ix.device_arrays())
     assert out[1].emb2 is not None
     _planes_equal(*out, err_ulps=2)
+
+
+@pytest.mark.parametrize("scan_dtype", ["f32", "bf16"])
+def test_scan_storage_follows_every_write_path(scan_dtype):
+    """f32 / bf16 scan storage: the full upload, a capacity growth, the
+    dirty-block sync, update_embedding and deletes leave the scan plane bit
+    for bit the JAX index's (bf16: rounded to nearest, ties to even). Neither
+    storage carries scale/err or the residual planes, even when refine is
+    asked for: refine is int8-only in both packages."""
+    jix, tix = _pair(refine=True, scan_dtype=scan_dtype)
+    assert tix.refine is jix.refine is False
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}[scan_dtype]
+    rows = _rows(21, 300)
+    jix.append(_chunks(JChunk, rows[:200]))
+    tix.append(_chunks(TChunk, rows[:200]))
+    tdev = tix.device_arrays()
+    assert tdev.emb.dtype == dt
+    assert tdev.scale is tdev.err is tdev.emb2 is None
+    _planes_equal(jix.device_arrays(), tdev)
+    jix.append(_chunks(JChunk, rows[200:]))  # grows capacity: full re-upload
+    tix.append(_chunks(TChunk, rows[200:]))
+    _planes_equal(jix.device_arrays(), tix.device_arrays())
+    more = _rows(22, 20, start=300)
+    jix.append(_chunks(JChunk, more))  # dirty-slab sync, in place
+    tix.append(_chunks(TChunk, more))
+    new = np.random.default_rng(23).standard_normal(DIM).astype(np.float32).tolist()
+    assert jix.update_embedding("c9", new) and tix.update_embedding("c9", new)
+    assert jix.update_embedding("c10", None) and tix.update_embedding("c10", None)
+    assert jix.delete_document("doc2") == tix.delete_document("doc2") > 0
+    emb_before = tix.device_arrays().emb
+    _planes_equal(jix.device_arrays(), tix.device_arrays())
+    assert tix.device_arrays().emb is emb_before  # synced in place
+
+
+@pytest.mark.parametrize("scan_dtype", ["f32", "bf16"])
+def test_bulk_load_converts_on_device_above_threshold(monkeypatch, scan_dtype):
+    """Full uploads at >= the threshold: bf16 rows are rounded on the device,
+    a slab at a time, to the bits the JAX index rounds on the host."""
+    monkeypatch.setattr(tdi.DeviceIndex, "_DEVICE_QUANTIZE_MIN_ROWS", 256)
+    monkeypatch.setattr(tdi.DeviceIndex, "_BF16_SLAB_ROWS", 192)
+    rng = np.random.default_rng(24)
+    n = 512
+    emb = rng.standard_normal((n, DIM)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+    # values half-way between bf16 neighbours: ties go to the even one
+    emb[0, :4] = [1 + 2.0**-8, 1 + 3 * 2.0**-8, -(1 + 2.0**-8), 0.5 + 2.0**-10]
+    bloom = rng.integers(0, 256, size=(n, 32), dtype=np.uint8)
+    created = np.linspace(0, 30, n).astype(np.float32)
+    out = []
+    for mod, cls, kw in ((jdi, JChunk, {}), (tdi, TChunk, {"device": "cpu"})):
+        ix = mod.DeviceIndex(DIM, capacity_block=256, bloom_bits=256,
+                             scan_dtype=scan_dtype, **kw)
+        meta = [cls(id=f"b{i}", document_id="b", chunk_index=i, content=f"row {i}",
+                    embedding=emb[i], created_at_utc=T0, seq=i) for i in range(n)]
+        ix.bulk_load(emb.copy(), bloom, created, meta)
+        out.append(ix.device_arrays())
+    _planes_equal(*out)
+
+
+@pytest.mark.parametrize("scan_dtype", ["f32", "bf16"])
+def test_from_numpy_planes_takes_f32_and_bf16_planes(scan_dtype):
+    """The JAX index's f32 or bf16 (ml_dtypes) planes install bit for bit,
+    and later appends keep matching."""
+    jix, _ = _pair(capacity_block=128, scan_dtype=scan_dtype)
+    rows = _rows(25, 200)
+    jix.append(_chunks(JChunk, rows))
+    jdev = jix.device_arrays()
+    planes = {k: np.asarray(v) for k in tdi.PLANES if (v := getattr(jdev, k)) is not None}
+    by_id = {c.id: c for c in _chunks(TChunk, rows)}
+    tix = tdi.DeviceIndex.from_numpy_planes(
+        planes, [by_id[m.id] for m in jix.meta], device="cpu", capacity_block=128,
+        bloom_bits=256, ngram=4, bloom_hashes=2)
+    assert tix.scan_dtype == scan_dtype and not tix.refine
+    _planes_equal(jdev, tix.device_arrays())
+    more = _rows(26, 10, start=200)
+    jix.append(_chunks(JChunk, more))
+    tix.append(_chunks(TChunk, more))
+    _planes_equal(jix.device_arrays(), tix.device_arrays())

@@ -1,15 +1,17 @@
 """The port's RecallEngine against the JAX RecallEngine and the oracle.
 
-Both engines serve the same index state: the JAX engine builds an int8
+Both engines serve the same index state. For the headline configuration
+(``SLICE``: ``backend="pallas"``, int8 scan, coarse prepass, direct or
+refine selection, device-exact cosine) the JAX engine builds an int8
 ``DeviceIndex(exact_cos=True)`` from the records, with or without the
 residual refine planes, and the port's index is made from that index's
-planes and records with ``DeviceIndex.from_numpy_planes``. Both run the
-port's configurations (``backend="pallas"``, int8 scan, coarse prepass,
-direct or refine selection, device-exact cosine); on the CPU the JAX side
-runs its Pallas kernels in interpret mode and the port its plain PyTorch
-versions. Results must be DTO-identical — the same chunk ids in the same
-order with the same ``round(score, 4)`` — to each other and to
-``backend="oracle"``.
+planes and records with ``DeviceIndex.from_numpy_planes``. For the other
+configurations (f32/bf16 scan storage under K6, backend xla, the
+reference's defaults) each engine builds its own index from the same
+records, as a server does. On the CPU the JAX side runs its Pallas kernels
+in interpret mode and the port its plain PyTorch versions. Results must be
+DTO-identical — the same chunk ids in the same order with the same
+``round(score, 4)`` — to each other and to ``backend="oracle"``.
 
 Refine order: on a CPU the JAX engine serves its refine stage with
 ``refine_ub`` (scale products first), while the port's plain K3 follows
@@ -208,20 +210,28 @@ def test_pipelined_batches_and_mixed_requests(clustered):
 
 
 def test_options_the_port_cannot_serve_raise():
-    """xla, f32/bf16 scan storage and sharding still raise, each naming its
-    ROADMAP.md item by a title that ROADMAP.md has; refine serves."""
+    """Only sharding still raises, naming its ROADMAP.md item by a title that
+    ROADMAP.md has; backend xla and f32/bf16 scan storage serve, and refine
+    serves on the int8 pallas index."""
     store = TStore()
     titles = _roadmap_titles()
-    for bad in (dict(backend="xla"), dict(scan_dtype="bf16"), dict(scan_dtype="f32"),
-                dict(shards=2), dict(backend="xla", refine=True)):
+    for bad in (dict(shards=2), dict(shards=2, backend="pallas", scan_dtype="int8")):
         opts = dataclasses.replace(TOptions(embedding_dim=DIM), **bad)
         with pytest.raises(NotImplementedError, match="ROADMAP") as err:
             TEngine(store, None, opts, device="cpu")
         named = re.findall(r'ROADMAP\.md, "([^"]+)"', str(err.value))
-        assert named and all(t in titles for t in named), (str(err.value), named)
+        assert named == ["Row sharding over GPUs (parallel/)"], str(err.value)
+        assert all(t in titles for t in named), (str(err.value), named)
+    for good, dtype in ((dict(backend="xla"), "f32"),
+                        (dict(backend="pallas", scan_dtype="bf16"), "bf16"),
+                        (dict(backend="pallas", scan_dtype="f32"), "f32"),
+                        (dict(backend="xla", refine=True, scan_dtype="int8"), "f32")):
+        opts = dataclasses.replace(TOptions(embedding_dim=DIM), **good)
+        eng = TEngine(store, None, opts, device="cpu")
+        assert eng.device_index.scan_dtype == dtype and not eng.device_index.refine
     for direct in (True, False):
-        opts = dataclasses.replace(TOptions(embedding_dim=DIM), refine=True,
-                                   direct_select=direct)
+        opts = dataclasses.replace(TOptions(embedding_dim=DIM), backend="pallas",
+                                   scan_dtype="int8", refine=True, direct_select=direct)
         eng = TEngine(store, None, opts, device="cpu")
         assert eng.device_index.refine
 
@@ -243,7 +253,7 @@ def test_every_not_ported_message_names_a_roadmap_title():
         src = path.read_text()
         # a title may open the next line of an implicitly joined string
         named += re.findall(r'ROADMAP\.md, "?\s*\'?"([^"]+)"', src)
-    assert len(named) >= 7
+    assert len(named) >= 5
     missing = [t for t in named if t not in titles]
     assert not missing, missing
 
@@ -402,3 +412,164 @@ def test_coalesced_concurrent_searches_equal_serial(clustered):
     for i, (q, emb, k) in enumerate(reqs):
         assert got[i] == _dto(toracle.search(q, emb, k, now=NOW))
     assert teng.stats["searches_total"] == len(reqs)
+
+
+# ---- the reference's defaults, f32/bf16 storage (K6) and backend xla ----
+
+
+def test_engine_options_default_to_the_reference():
+    """F2: every field of the two EngineOptions() is equal (the reference's
+    defaults: backend xla over f32 storage, no device-exact cosine, the
+    refine selection)."""
+    t, j = TOptions(), JOptions()
+    names = {f.name for f in dataclasses.fields(TOptions)}
+    assert names == {f.name for f in dataclasses.fields(JOptions)}
+    assert {n: getattr(t, n) for n in names} == {n: getattr(j, n) for n in names}
+    assert (t.backend, t.scan_dtype, t.device_exact_cos, t.direct_select) == (
+        "xla", "f32", False, False)
+
+
+@pytest.mark.parametrize("device_exact_cos", [False, True])
+@pytest.mark.parametrize("refine", [False, True])
+@pytest.mark.parametrize("scan_dtype", ["int8", "f32", "bf16"])
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+def test_engine_built_index_takes_the_reference_layout(backend, scan_dtype, refine,
+                                                        device_exact_cos):
+    """Faults 1 and 2: the index an engine builds for itself has the JAX
+    engine's (scan_dtype, refine, exact_cos) — f32 unless the backend is
+    pallas, the residual planes on int8 only, the raw plane only for a
+    pallas int8 refine index."""
+    opts = dict(embedding_dim=DIM, capacity_block=128, bloom_bits=BITS, backend=backend,
+                scan_dtype=scan_dtype, refine=refine, device_exact_cos=device_exact_cos)
+    jdix = JEngine(JStore(), None, JOptions(**opts)).device_index
+    tdix = TEngine(TStore(), None, TOptions(**opts), device="cpu").device_index
+    layout = lambda d: (d.scan_dtype, d.refine, d.exact_cos)  # noqa: E731
+    assert layout(tdix) == layout(jdix)
+
+
+def _own_engines(rows, base=SLICE, **overrides):
+    """A JAX and a port engine that each build their own index from the same
+    records (options ``base`` with ``overrides``), and the port's oracle."""
+    (jstore, jchunks), (tstore, tchunks) = _stores(rows)
+    opts = {**base, **overrides}
+    jeng = JEngine(jstore, None, JOptions(**opts))
+    teng = TEngine(tstore, None, TOptions(**opts), device="cpu")
+    jeng.on_chunks_upserted(jchunks, new=True)
+    teng.on_chunks_upserted(tchunks, new=True)
+    toracle = TEngine(tstore, None, TOptions(backend="oracle", recent_window=0),
+                      device="cpu")
+    return jeng, teng, toracle
+
+
+@pytest.fixture()
+def scan_calls(monkeypatch):
+    """Count the port engine's calls of each scan entry (this process only)."""
+    from omni_recall_tpu_torch.ops import scorer as tscorer
+    from omni_recall_tpu_torch.ops import xla_scorer as txla
+
+    calls = {}
+    for mod, name in ((tscorer, "score_topm"), (tscorer, "score_topm_int8"),
+                      (tscorer, "score_topm_int8_coarse"), (tscorer, "score_topm_kw_only"),
+                      (txla, "score_topm")):
+        key = f"{mod.__name__.rsplit('.', 1)[1]}.{name}"
+        calls[key] = 0
+
+        def counted(*args, _fn=getattr(mod, name), _key=key, **kwargs):
+            calls[_key] += 1
+            return _fn(*args, **kwargs)
+        monkeypatch.setattr(mod, name, counted)
+    return calls
+
+
+def test_refine_off_device_exact_cos_on_takes_the_host_rescore(clustered):
+    """Fault 1: Refine=false with DeviceExactCos=true builds no raw plane in
+    either package, so neither runs the device-exact cosine: the same DTOs
+    and the same dd_* (and every other) stats."""
+    rows, centers, words, toks = clustered
+    jeng, teng, toracle = _own_engines(rows, refine=False, device_exact_cos=True)
+    assert not teng.device_index.exact_cos and not jeng.device_index.exact_cos
+    _assert_same(jeng, teng, toracle,
+                 _requests(centers, words, 12, 31) + _kw_requests(toks, 4, 32))
+    _assert_same_stats(jeng, teng)
+    assert teng.stats["dd_resolved_total"] == teng.stats["dd_escalations_total"] == 0
+    assert teng.stats["coarse_resolved_total"] > 0
+
+
+@pytest.mark.parametrize("scan_dtype", ["bf16", "f32"])
+def test_fp_storage_serves_through_k6(clustered, scan_calls, scan_dtype):
+    """backend pallas over f32 / bf16 storage: no coarse prepass (Fault 3,
+    int8 only), every embedding query goes straight to the rescue loop's K6
+    scan; embedding-less queries take K5."""
+    rows, centers, words, toks = clustered
+    jeng, teng, toracle = _own_engines(rows, scan_dtype=scan_dtype)
+    assert teng.device_index.scan_dtype == scan_dtype
+    assert teng._select_coarse_scorer(32, 4096) is None
+    reqs = _requests(centers, words, 12, 33) + _kw_requests(toks, 4, 34)
+    _assert_same(jeng, teng, toracle, reqs)
+    _assert_same_stats(jeng, teng)
+    assert teng.stats["coarse_resolved_total"] == 0
+    assert teng.stats["kw_only_resolved_total"] > 0
+    assert scan_calls["scorer.score_topm"] > 0 and scan_calls["scorer.score_topm_kw_only"] > 0
+    assert scan_calls["scorer.score_topm_int8_coarse"] == 0
+    # at 4096 rows K6 covers m <= 64: an escalation to m = 128 takes the xla
+    # scorer on f32 storage (never on bf16)
+    assert scan_calls["xla_scorer.score_topm"] <= (
+        teng.stats["escalation_rounds_total"] if scan_dtype == "f32" else 0)
+
+
+@pytest.mark.parametrize("scan_dtype, fallback", [("f32", "xla scorer"), ("bf16", "host scan")])
+def test_k6_budget_exhausted(scan_calls, scan_dtype, fallback):
+    """An index of 2048 rows: K6 (sub 512, t <= 8) covers m = 32 but not the
+    escalation to m = 128. Near-tie queries escalate; on f32 storage the xla
+    scorer takes over with full coverage, on bf16 the exact host scan."""
+    rows, centers, words, _ = _corpus(22, 1500, near_ties=True)
+    jeng, teng, toracle = _own_engines(rows, scan_dtype=scan_dtype, capacity_block=2048)
+    _assert_same(jeng, teng, toracle, _requests(centers, words, 6, 35))
+    _assert_same_stats(jeng, teng)
+    assert teng.stats["escalation_rounds_total"] > 0
+    assert scan_calls["scorer.score_topm"] > 0
+    if fallback == "xla scorer":
+        assert scan_calls["xla_scorer.score_topm"] > 0
+        assert teng.stats["host_fallbacks_total"] == 0
+    else:
+        assert scan_calls["xla_scorer.score_topm"] == 0
+        assert teng.stats["host_fallbacks_total"] > 0
+
+
+# EngineOptions() with only the corpus keys set: the reference's default
+# configuration (backend xla, f32 storage)
+REFERENCE_DEFAULTS = dict(embedding_dim=DIM, candidate_m=32, bloom_bits=BITS,
+                          recent_window=0, capacity_block=4096)
+
+
+@pytest.mark.parametrize("kw_only", [False, True])
+def test_xla_backend_serves_the_reference_defaults(clustered, scan_calls, kw_only):
+    """backend xla: every query, with or without an embedding, goes to the
+    rescue loop's xla scorer (full coverage); no kernel wrapper runs."""
+    rows, centers, words, toks = clustered
+    jeng, teng, toracle = _own_engines(rows, base=REFERENCE_DEFAULTS)
+    assert teng.options.backend == "xla" and teng.device_index.scan_dtype == "f32"
+    reqs = _requests(centers, words, 10, 36)
+    if kw_only:
+        reqs += _kw_requests(toks, 6, 37)
+    _assert_same(jeng, teng, toracle, reqs)
+    _assert_same_stats(jeng, teng)
+    assert scan_calls["xla_scorer.score_topm"] > 0
+    assert sum(v for k, v in scan_calls.items() if k.startswith("scorer.")) == 0
+    assert teng.stats["kw_only_resolved_total"] == 0
+
+
+def test_pipelined_xla_batches_equal_serial(clustered):
+    rows, centers, words, toks = clustered
+    _, serial, toracle = _own_engines(rows, base=REFERENCE_DEFAULTS)
+    _, piped, _ = _own_engines(rows, base=REFERENCE_DEFAULTS)
+    batches = [_requests(centers, words, 8, 38), _kw_requests(toks, 4, 39),
+               _requests(centers, words, 8, 40) + _kw_requests(toks, 2, 41)]
+    got = piped.search_batches_pipelined(batches, now=NOW)
+    for reqs, res in zip(batches, got):
+        want = serial.search_batch(reqs, now=NOW)
+        assert [_dto(h) for h in res] == [_dto(h) for h in want]
+        for (q, emb, k), h in zip(reqs, res):
+            assert _dto(h) == _dto(toracle.search(q, emb, k, now=NOW))
+    for key in STATS:
+        assert piped.stats[key] == serial.stats[key], key

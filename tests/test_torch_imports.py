@@ -85,3 +85,9 @@ def test_kernel_wrappers_do_not_fall_back_for_other_devices():
             emb8, emb8[:4], torch.zeros((1, 256), device="meta"),
             torch.zeros((1, 256), device="meta"), torch.zeros((4, 1), device="meta"),
             torch.zeros((4, 1), device="meta"), t=2, sub=128)
+    emb = torch.zeros((256, 32), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        scorer.block_topt(
+            emb, torch.zeros((256, 4), dtype=torch.uint8, device="meta"), emb[:4],
+            torch.zeros((4, 32), device="meta"), torch.zeros((4, 1), device="meta"),
+            torch.zeros((1, 256), device="meta"), t=2, sub=128)

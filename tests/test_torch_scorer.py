@@ -184,3 +184,138 @@ def test_merge_topm_with_masked_slices_matches_jax():
     tv, ti = tps._merge_topm(_t(vals), _t(idxs), 20)
     assert _bits_equal(jv, tv.numpy())
     assert _bits_equal(ji, ti.numpy())
+
+
+# ---- K6: the fused f32/bf16 scan ----
+#
+# The TPU kernel sums its dot products in XLA's order; the port fixes k order
+# (ops/scorer.py). On exactly-summable inputs (entries multiples of 2^-4 with
+# few nonzeros, keyword weights multiples of 2^-6) every order gives the same
+# sums, and there the port is held to the interpret-mode kernel bit for bit.
+# Elsewhere the scores are held to the shape bound of a reordered f32 sum,
+#   0.7 * g(d) * max_row sum_i |q_i c_i| + 0.2 * g(8W) * sum_j w_j, g(n) = n 2^-24,
+# plus 4 ulp for the epilogue and, in packed mode, the decode's granularity
+# of sub ulps; indices are held equal in every slice whose emitted values lie
+# further apart than twice that bound.
+
+FP_N, FP_D, FP_B, FP_W = 4096, 256, 16, 32
+FP_DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _fp_operands(seed: int, exact: bool):
+    rng = np.random.default_rng(seed)
+    n, d, b, w = FP_N, FP_D, FP_B, FP_W
+
+    def sparse(rows):
+        x = np.zeros((rows, d), np.float32)
+        for r in range(rows):
+            x[r, rng.choice(d, 6, replace=False)] = rng.integers(-16, 17, 6) * 2.0**-4
+        return x
+
+    if exact:
+        emb, q = sparse(n), sparse(b)
+        kw = np.where(rng.random((b, 8 * w)) < 0.05,
+                      rng.integers(0, 20, (b, 8 * w)) * 2.0**-6, 0).astype(np.float32)
+    else:
+        emb = rng.standard_normal((n, d)).astype(np.float32)
+        emb /= np.linalg.norm(emb, axis=1, keepdims=True)
+        q = rng.standard_normal((b, d)).astype(np.float32)
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        kw = np.where(rng.random((b, 8 * w)) < 0.05, rng.random((b, 8 * w)) * 0.1,
+                      0).astype(np.float32)
+        kw[2] *= 20.0  # a query whose keyword term clamps at 1
+    emb[9], emb[11] = emb[4], emb[4]  # exact ties inside a slice
+    bloom = rng.integers(0, 256, size=(n, w), dtype=np.uint8)
+    bloom[9], bloom[11] = bloom[4], bloom[4]
+    kw_b = (rng.random((b, 1)) * 0.05).astype(np.float32)
+    add_row = (rng.random((1, n)) * 0.1).astype(np.float32)
+    add_row[0, rng.random(n) < 0.1] = np.float32(-1e30)
+    add_row[0, 9] = add_row[0, 11] = add_row[0, 4]
+    return emb, bloom, q, kw, kw_b, add_row
+
+
+def _k6_pair(dtype, arrs, t, sub):
+    jdt, tdt = FP_DTYPES[dtype]
+    emb, *rest = arrs
+    jv, ji = jps.block_topt(jnp.asarray(emb).astype(jdt), *map(jnp.asarray, rest),
+                            t=t, sub=sub, interpret=True)
+    tv, ti = tps.block_topt(torch.from_numpy(emb).to(tdt), *map(_t, rest), t=t, sub=sub)
+    return np.asarray(jv), np.asarray(ji), tv.numpy(), ti.numpy()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sub, t", [(512, 4), (256, 2), (512, 1)])
+def test_k6_matches_pallas_bitwise_on_exactly_summable_inputs(dtype, sub, t):
+    """Packed keys (sub 512, t 4: the engine's layout at m = 128; sub 256,
+    t1 = 3) and the two-reduce mode (t1 = 2), on f32 and bf16 storage."""
+    jv, ji, tv, ti = _k6_pair(dtype, _fp_operands(10, exact=True), t, sub)
+    assert _bits_equal(jv, tv)
+    assert _bits_equal(ji, ti)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("sub, t", [(512, 4), (512, 1)])
+def test_k6_matches_pallas_within_the_sum_order_bound(dtype, sub, t):
+    arrs = _fp_operands(11, exact=False)
+    jv, ji, tv, ti = _k6_pair(dtype, arrs, t, sub)
+    assert jv.shape == tv.shape and ji.shape == ti.shape
+    emb, _, q, kw = arrs[:4]
+    jdt = FP_DTYPES[dtype][0]
+    eh = np.asarray(jnp.asarray(emb).astype(jdt).astype(jnp.float32), np.float64)
+    qh = np.asarray(jnp.asarray(q).astype(jnp.bfloat16).astype(jnp.float32), np.float64)
+    g = lambda n: n * 2.0**-24  # noqa: E731
+    per_q = (0.7 * g(FP_D) * (np.abs(qh) @ np.abs(eh).T).max(axis=1)
+             + 0.2 * g(8 * FP_W) * kw.sum(axis=1) * (1 + 2.0**-8))
+    spacing = np.spacing(np.abs(jv).astype(np.float32))
+    granule = sub if tps._packed_mode(sub, min(t + 1, sub)) else 1
+    bound = per_q[:, None, None] + (4 + granule) * spacing
+    assert np.all(np.abs(jv - tv) <= bound)
+    gaps = np.abs(np.diff(jv.astype(np.float64), axis=2))
+    clear = (gaps > 2 * bound[:, :, 1:]).all(axis=2)
+    assert clear.mean() > 0.75  # the comparison is not vacuous
+    assert np.array_equal(ji[clear], ti[clear])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k6_bounds_are_sound(dtype):
+    """Every emitted value, and every slice bound, is >= the float64 hybrid
+    score (0.7 cos + 0.2 min(1, kw + bias) + add_row, from the unrounded
+    operands) of each row it stands for."""
+    emb, bloom, q, kw, kw_b, add_row = arrs = _fp_operands(12, exact=False)
+    sub, t = 512, 4
+    _, tdt = FP_DTYPES[dtype]
+    vals, idxs = tps.block_topt(torch.from_numpy(emb).to(tdt), *map(_t, arrs[1:]),
+                                t=t, sub=sub)
+    vals, idxs = vals.numpy().astype(np.float64), idxs.numpy()
+    bits = np.concatenate([(bloom.astype(np.int32) >> k) & 1 for k in range(8)], axis=1)
+    cos = q.astype(np.float64) @ emb.astype(np.float64).T
+    kwd = np.minimum(kw.astype(np.float64) @ bits.T.astype(np.float64) + kw_b, 1.0)
+    exact = 0.7 * cos + 0.2 * kwd + add_row.astype(np.float64)
+    live = add_row[0] > -1e29
+    rows = np.arange(FP_N).reshape(-1, sub)
+    for qi in range(FP_B):
+        for sl in range(FP_N // sub):
+            emitted = idxs[qi, sl, :t]
+            assert np.all(vals[qi, sl, :t] >= exact[qi, emitted])
+            rest = np.setdiff1d(rows[sl][live[rows[sl]]], emitted)
+            if rest.size:
+                assert vals[qi, sl, t] >= exact[qi, rest].max()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_k6_score_topm_matches_pallas(dtype):
+    """K6 + merge through the engine entry (make_add_row, the merged
+    boundary) on exactly-summable inputs."""
+    emb, bloom, q, kw, kw_b, _ = _fp_operands(13, exact=True)
+    rng = np.random.default_rng(13)
+    created = np.sort((rng.random(FP_N) * 100).astype(np.float32))
+    valid = rng.random(FP_N) > 0.1
+    jdt, tdt = FP_DTYPES[dtype]
+    arrs = (bloom, created, valid, q, kw, kw_b[:, 0])
+    jv, ji = jps.score_topm(jnp.asarray(emb).astype(jdt), *map(jnp.asarray, arrs),
+                            jnp.float32(60.0), jnp.int32(0), m=16, t=4, sub=512,
+                            interpret=True)
+    tv, ti = tps.score_topm(torch.from_numpy(emb).to(tdt), *map(_t, arrs),
+                            torch.tensor(60.0), 0, m=16, t=4, sub=512)
+    assert _bits_equal(jv, tv.numpy())
+    assert _bits_equal(ji, ti.numpy())

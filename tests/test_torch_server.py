@@ -2,7 +2,9 @@
 against the JAX app on the same inputs.
 
 Both apps embed with the Hash provider and serve certified-exact search
-over an int8 index (the JAX one runs its Pallas kernels in interpret mode).
+over an int8 index (the JAX one runs its Pallas kernels in interpret mode),
+or over a bf16 index, or with no Engine keys at all (the reference's
+defaults: backend xla over f32 storage).
 Responses must be equal up to generated ids and timestamps, which each app
 draws itself; ids are compared through a per-app renaming, so references
 between responses (a citation's documentId, a chunk's id) must line up too.
@@ -10,6 +12,7 @@ Both apps read one fixed clock on the ingest and search paths, so recency
 scores are the same to the bit.
 """
 
+import json
 import re
 from datetime import datetime, timezone
 
@@ -23,7 +26,11 @@ import omni_recall_tpu_torch.search.engine as tengine
 from omni_recall_tpu.config import load_config as jload
 from omni_recall_tpu.server.app import build_app as jbuild
 from omni_recall_tpu.server.testing import TestClient as JClient
+from omni_recall_tpu_torch.config import EngineOptions
 from omni_recall_tpu_torch.config import load_config as tload
+from omni_recall_tpu_torch.contracts import to_wire
+from omni_recall_tpu_torch.search.engine import RecallEngine
+from omni_recall_tpu_torch.search.service import RecallSearchService
 from omni_recall_tpu_torch.server.app import build_app as tbuild
 from omni_recall_tpu_torch.server.testing import TestClient as TClient
 
@@ -176,3 +183,43 @@ def test_ocr_provider_not_ported_raises():
             tbuild(config, device="cpu")
     assert tbuild(tload(settings_file=None, env={}, overrides={**OVERRIDES, "Ocr:Provider": "None"}),
                   device="cpu").pdf_extractor is not None
+
+
+def _apps(overrides):
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (jingest, jengine, tingest, tengine):
+            mp.setattr(module, "datetime", _FixedClock)
+        japp = jbuild(jload(settings_file=None, env={}, overrides=overrides))
+        tapp = tbuild(tload(settings_file=None, env={}, overrides=overrides), device="cpu")
+        jlog, tlog = _run(JClient(japp), _Renamer()), _run(TClient(tapp), _Renamer())
+        oracle = RecallSearchService(
+            RecallEngine(tapp.store, None, EngineOptions(
+                backend="oracle", recent_window=tapp.config.engine.recent_window),
+                device="cpu"),
+            tapp.embedding_client,
+        )
+        client = TClient(tapp)
+        for q in QUERIES:
+            got = client.post("/api/recall/search", json_body={"query": q, "topK": 4}).json()
+            assert got == json.loads(json.dumps(to_wire(oracle.search(q, 4)))), q
+    return tapp, jlog, tlog
+
+
+def test_server_with_no_engine_keys_serves_the_reference_defaults():
+    """No Engine keys at all: the reference's defaults (backend xla over f32
+    storage, 768 dims, 2048 bloom bits). Uploads and searches equal the JAX
+    app's, and every search equals the oracle backend's response."""
+    tapp, jlog, tlog = _apps({"Embeddings:Provider": "Hash",
+                              "Ingestion:ChunkSizeWords": 20,
+                              "Ingestion:ChunkOverlapWords": 4})
+    engine = tapp.engine
+    assert engine.options.backend == "xla" and engine.device_index.scan_dtype == "f32"
+    assert engine.stats["searches_total"] > 0
+    assert tlog == jlog
+
+
+def test_bf16_scan_storage_serves():
+    """Engine:ScanDtype=bf16 under the pallas backend (K6)."""
+    tapp, jlog, tlog = _apps({**OVERRIDES, "Engine:ScanDtype": "bf16"})
+    assert tapp.engine.device_index.scan_dtype == "bf16"
+    assert tlog == jlog
