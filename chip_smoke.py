@@ -20,7 +20,20 @@ Phases, one JSON line each:
                 comparison call), beside the least time the card could
                 take. Then the plain-torch xla scorer (no kernel of the
                 repository) at the same shape: its time beside its f32 floor,
-                its values against a float64 scan of a few queries.
+                its values against a float64 scan of a few queries. Then the
+                two profiling probes of tools/ at the same serving shapes:
+                T1 (tools/profile_kernel.py: K6's body as cosine only, cosine
+                + keyword, and the full top-9, blocks of 1024 rows, bf16
+                rows, sparse keyword weights) and T5 (tools/profile_bloomT.py:
+                K4's body, slice maxima, on row and transposed bloom, which
+                must agree bitwise), each bitwise against its plain version,
+                with one PyTorch call's time as a yardstick where one computes
+                the product at its heart.
+2b. ``profile`` the profiling path: the two tools' own sweeps
+                (``omni_recall_tpu_torch.tools.profile_kernel.main("all")``,
+                ``...profile_bloomT.main()``) at the tools' shapes, each
+                configuration beside its bound. It must launch both probes and
+                no serving kernel; no serving path may launch a probe.
 3. ``server``   the app of ``python -m omni_recall_tpu_torch.server`` in
                 process on the card (Backend=pallas, int8, Refine=true,
                 DirectSelect=true, Hash embeddings): three uploads, five
@@ -46,9 +59,10 @@ Phases, one JSON line each:
                 with only the corpus keys set (the reference's defaults:
                 backend xla over f32 storage, no kernel of the repository).
 5. ``kernels``  per kernel: its parity and times, and its launches on each
-                serving path (the server of phase 3 and each path of phase 4;
-                the counts are zeroed just before a path and read just after
-                it, and each path must launch its kernels).
+                path (the profiling path, the server of phase 3 and each path
+                of phase 4; the counts are zeroed just before a path and read
+                just after it, and each path must launch its kernels); T1 and
+                T5 with one sub-entry per variant and per bloom layout.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero; it needs CUDA and the repository beside it.
@@ -215,6 +229,7 @@ def kernel_phase(seed: int) -> dict:
         2.0 * n * b * 8 * w,
     )
     results.update(refine_lines(g, emb8, bloom, kw_w8, kw_b[:, 0], scale_row[0]))
+    results["t5"] = t5_lines(g, emb8, bloom, q8, add_row)
     del emb8
     torch.cuda.empty_cache()
     results.update(fp_scan_lines(g, bloom, kw_b, add_row))
@@ -313,6 +328,18 @@ def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1) -> dict:
     return out
 
 
+def plain_once(plain):
+    """A plain version that takes seconds at these shapes: its one
+    comparison call, timed by the host clock."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = plain()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
 FP_T, FP_SUB = 4, 512  # K6's layout at m = 128 over 2^20 rows (_select_scorer)
 
 
@@ -341,11 +368,7 @@ def fp_scan_lines(g, bloom, kw_b, add_row) -> dict:
         kern = lambda: scorer.block_topt(*args, t=FP_T, sub=FP_SUB)  # noqa: E731
         plain = lambda: scorer.block_topt_plain(*args, t=FP_T, sub=FP_SUB)  # noqa: E731
         kv, ki = kern()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pv, pi = plain()
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3  # seconds a call: timed once
+        (pv, pi), plain_ms = plain_once(plain)
         ok = bitwise(kv, pv) and bitwise(ki, pi)
         err = float((kv - pv).abs().max())
         bms, by = bound_ms(
@@ -363,6 +386,7 @@ def fp_scan_lines(g, bloom, kw_b, add_row) -> dict:
         out[f"fp_{storage}"] = line
         del rows, args, kv, ki, pv, pi
         torch.cuda.empty_cache()
+    out["t1"] = t1_lines(emb.to(torch.bfloat16), bloom, q, kw, kw_b, add_row)
 
     # the xla scorer (plain torch: cuBLAS f32 products with TF32 refused,
     # torch.topk) at the same shape, m = 128
@@ -396,6 +420,144 @@ def fp_scan_lines(g, bloom, kw_b, add_row) -> dict:
         raise AssertionError(f"xla scorer: {line}")
     out["xla"] = line
     return out
+
+
+T1_C = 1024  # T1's block in its kernel lines: the tool's first, 32 queries a tile
+
+
+def t1_bound(variant: str, n: int, b: int, d: int, w: int, c: int) -> tuple[float, str]:
+    """T1's least time: rows (bf16) and queries read once, bloom, keyword
+    weights and per-row terms too unless cosine only, its output written
+    once; 2 operations a bf16 product term."""
+    terms = d if variant == "cos" else d + 8 * w
+    read = n * d * 2 + b * d * 4
+    if variant != "cos":
+        read += n * w + b * 8 * w * 4 + 4 * b + 4 * n
+    out = (n // c) * b * (9 if variant == "full" else 128) * 4
+    return bound_ms(read + out, 2.0 * n * b * terms, BF16_OPS_PER_S)
+
+
+def t5_bound(n: int, b: int, d: int, w: int) -> tuple[float, str]:
+    """T5's least time: int8 rows, bloom, queries and keyword weights and the
+    f32 recency row read once, the slice maxima written once; 2 int8
+    operations a product term."""
+    return bound_ms(n * d + n * w + b * d + b * 8 * w + 4 * n + b * (n // 512) * 4,
+                    2.0 * n * b * (d + 8 * w), INT8_OPS_PER_S)
+
+
+def t1_lines(rows, bloom, q, kw, kw_b, add_row) -> dict:
+    """T1's three variants over the bf16 rows at the serving shapes, blocks
+    of 1024, each bitwise against its plain version; cosine only beside one
+    bf16 matmul (cuBLAS, TF32 off), which writes all N columns."""
+    import torch
+
+    from omni_recall_tpu_torch.ops import scorer
+    from omni_recall_tpu_torch.tools import profile_kernel as t1
+
+    (n, d), b, w = rows.shape, q.shape[0], bloom.shape[1]
+    args = (rows, bloom, q, kw, kw_b, add_row)
+    body_line = {"cos": 53, "coskw": 60, "full": 72}
+    out = {}
+    for variant in t1.VARIANTS:
+        kern = lambda: t1.profile_scan(variant, *args, T1_C)  # noqa: E731, B023
+        got = kern()
+        want, plain_ms = plain_once(lambda: t1.profile_scan_plain(variant, *args, T1_C))  # noqa: B023
+        ok = bitwise(got, want)
+        err = float((got - want).abs().max())
+        library_ms = None
+        if variant == "cos":
+            qb = q.to(torch.bfloat16)
+            with scorer._no_tf32():
+                library_ms = time_ms(lambda: torch.matmul(qb, rows.t()), device_only=True)
+        bms, by = t1_bound(variant, n, b, d, w, T1_C)
+        line = dict(name=f"profile_kernel[{variant}]",
+                    replaces=f"tools/profile_kernel.py:{body_line[variant]}",
+                    shape=[b, n, d], c=T1_C, query_tile=t1.query_tile(T1_C),
+                    out_shape=list(got.shape), bitwise=ok, max_abs_err=err,
+                    ms=time_ms(kern, device_only=True), plain_ms=plain_ms, plain_runs=1,
+                    bound_ms=bms, bound_by=by, library_ms=library_ms,
+                    library=("torch.matmul(q.bfloat16(), emb.t()), TF32 off"
+                             if variant == "cos" else None))
+        emit({"phase": "kernel", **line})
+        if not ok:
+            raise AssertionError(f"profile_kernel[{variant}]: kernel disagrees with its "
+                                 "plain version")
+        out[variant] = line
+        del got, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def t5_lines(g, emb8, bloom, q8, add_row) -> dict:
+    """T5 on row and transposed bloom at the serving shapes (c 2048, the
+    tool's 0/1 keyword weights), each bitwise against its plain version and
+    the two against each other; beside the int8 cosine product alone
+    (torch._int_mm), where this build has one for these shapes."""
+    import torch
+
+    from omni_recall_tpu_torch.tools import profile_bloomT as t5
+
+    (n, d), b, w = emb8.shape, q8.shape[0], bloom.shape[1]
+    kw8 = torch.randint(0, 2, (b, 8 * w), generator=g, device=emb8.device).to(torch.int8)
+    layouts = {"row": (bloom, False), "transposed": (bloom.T.contiguous(), True)}
+    try:
+        library_ms, library = time_ms(lambda: torch._int_mm(q8, emb8.t()), device_only=True), \
+            "torch._int_mm(q8, emb8.t()): the int8 cosine product alone"
+    except RuntimeError as exc:  # a yardstick only: record why there is none
+        library_ms, library = None, f"none: torch._int_mm: {exc}"
+    bms, by = t5_bound(n, b, d, w)
+    out, got = {}, {}
+    for layout, (bl, transposed) in layouts.items():
+        kern = lambda: t5.bloom_scan(emb8, bl, q8, kw8, add_row, transposed, t5.C)  # noqa: E731, B023
+        got[layout] = kern()
+        want, plain_ms = plain_once(
+            lambda: t5.bloom_scan_plain(emb8, bl, q8, kw8, add_row, transposed, t5.C))  # noqa: B023
+        ok = bitwise(got[layout], want)
+        line = dict(name=f"profile_bloomT[{layout}]", replaces="tools/profile_bloomT.py:22",
+                    shape=[b, n, d], bits=8 * w, c=t5.C, out_shape=list(want.shape),
+                    bitwise=ok, max_abs_err=float((got[layout] - want).abs().max()),
+                    ms=time_ms(kern, device_only=True), plain_ms=plain_ms, plain_runs=1,
+                    bound_ms=bms, bound_by=by, library_ms=library_ms, library=library)
+        emit({"phase": "kernel", **line})
+        if not ok:
+            raise AssertionError(f"profile_bloomT[{layout}]: kernel disagrees with its "
+                                 "plain version")
+        out[layout] = line
+        del want
+    if not bitwise(got["row"], got["transposed"]):
+        raise AssertionError("profile_bloomT: the row and transposed layouts disagree")
+    del layouts, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_path(paths: dict) -> dict:
+    """The profiling path: both tools' own sweeps at their shapes, run with
+    the launch counts zeroed just before and read just after. Each record
+    gets its bound; the per-configuration launches must add up to the
+    path's."""
+    from omni_recall_tpu_torch.tools import profile_bloomT, profile_kernel
+
+    configs = len(profile_kernel.VARIANTS) * len(profile_kernel.BLOCKS) + len(
+        profile_bloomT.CONFIGS)
+    t1_rec, t5_rec = run_path(paths, "profile", configs,
+                              lambda: (profile_kernel.main("all"), profile_bloomT.main()))
+    for r in t1_rec:
+        r["bound_ms"], r["bound_by"] = t1_bound(r["variant"], profile_kernel.N,
+                                                profile_kernel.B, profile_kernel.D,
+                                                profile_kernel.BITS // 8, r["c"])
+    for r in t5_rec:
+        r["bound_ms"], r["bound_by"] = t5_bound(profile_bloomT.N, r["b"], profile_bloomT.D,
+                                                r["bits"] // 8)
+    launches = paths["profile"]["launches"]
+    for key, recs in (("profile_kernel", t1_rec), ("profile_bloomT", t5_rec)):
+        if sum(r["launches"] for r in recs) != launches[key]:
+            raise AssertionError(f"profile: {key} records do not add up to the path's "
+                                 f"launches ({launches})")
+    line = {"phase": "profile", "profile_kernel": t1_rec, "profile_bloomT": t5_rec,
+            "launches": launches}
+    emit(line)
+    return line
 
 
 # ---------------------------------------------------------------- phase 3
@@ -535,10 +697,13 @@ PATH_KERNELS = {
     "bf16_batches": ("fp_scan",),
     "f32_batches": ("fp_scan",),
     "reference_default_batches": (),
+    "profile": ("profile_kernel", "profile_bloomT"),
 }
 # the int8 kernels: an f32/bf16 index must not reach them
 INT8_KERNELS = ("coarse_scan", "coarse_pair", "dd_rows", "refine", "fused_scan")
-PATH_FORBIDS = {
+SERVING_KERNELS = INT8_KERNELS + ("kw_scan", "fp_scan")
+PROBE_KERNELS = ("profile_kernel", "profile_bloomT")
+_SERVING_FORBIDS = {
     # the capacity configuration has no residual planes (K3) and, since
     # the device-exact cosine needs them, no raw plane (K2)
     "keyword_led_batch": ("refine", "dd_rows"),
@@ -546,13 +711,19 @@ PATH_FORBIDS = {
     "bf16_batches": INT8_KERNELS,
     "f32_batches": INT8_KERNELS,
     # backend xla: the plain-torch scorer, no kernel of the repository
-    "reference_default_batches": INT8_KERNELS + ("kw_scan", "fp_scan"),
+    "reference_default_batches": SERVING_KERNELS,
+}
+# the profiling path reaches no serving kernel, and no serving path a probe
+PATH_FORBIDS = {
+    name: SERVING_KERNELS if name == "profile" else _SERVING_FORBIDS.get(name, ()) + PROBE_KERNELS
+    for name in PATH_KERNELS
 }
 # the path whose launches a kernel's entry in the kernels line reports
 HOME_PATH = {"coarse_scan": "embedding_batches", "coarse_pair": "pair_emit_batch",
              "dd_rows": "embedding_batches", "refine": "refine_select_batches",
              "fused_scan": "keyword_led_refine_batch", "kw_scan": "empty_vector_batch",
-             "fp_scan": "bf16_batches"}
+             "fp_scan": "bf16_batches", "profile_kernel": "profile",
+             "profile_bloomT": "profile"}
 KEYWORD_LED_EVERY = 8  # one query in 8 of the keyword-led batch
 
 
@@ -956,6 +1127,7 @@ def main() -> int:
     k = kernel_phase(args.seed)
 
     paths: dict = {}
+    profile = profile_path(paths)
     run_path(paths, "server", len(QUERIES), server_phase)
     serve_phase(args.seed, paths)
 
@@ -968,10 +1140,31 @@ def main() -> int:
                 "launches_by_path": {p: v["launches"][route_key] for p, v in paths.items()},
                 "max_abs_err": line["max_abs_err"], "ms": line["ms"],
                 "plain_ms": line["plain_ms"], "bound_ms": line["bound_ms"],
-                "bound_by": line["bound_by"], "library_ms": None,
+                "bound_by": line["bound_by"], "library_ms": line["library_ms"],
                 "parity": "bitwise" if line["bitwise"] else "FAILED", **(extra or {})}
 
+    def probe_entry(name, route_key, source, replaces, lines, top, records, of):
+        """A probe's entry: the numbers of its sub-entry ``top``, then its
+        sub-entries (one per variant or layout) with their serving-shape
+        lines, their launches on the profiling path and the tool's sweep
+        beside its bounds."""
+        subs = {}
+        for sub, line in lines.items():
+            mine = [r for r in records if of(r) == sub]
+            subs[sub] = {
+                "name": line["name"], "route": "cuda", "source": source,
+                "replaces": line["replaces"], "launches": sum(r["launches"] for r in mine),
+                **{key: line[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                    "library", "shape", "out_shape")},
+                "parity": "bitwise" if line["bitwise"] else "FAILED",
+                "tool_sweep": [{key: r[key] for key in r if key != "launches"} for r in mine],
+            }
+        return entry(name, route_key, source, lines[top], {
+            "replaces": replaces, "sub_entries": subs, "plain_runs": 1})
+
     scan_src = "omni_recall_tpu_torch/csrc/scan.cu"
+    fp_src = "omni_recall_tpu_torch/csrc/fp_scan.cu"
     rescue = k["refine_rescue"]
     kernels = [
         entry("K1 coarse_scan", "coarse_scan", scan_src, k["coarse_packed"]),
@@ -987,12 +1180,18 @@ def main() -> int:
                       "max_abs_err")}}),
         entry("K4 fused_scan", "fused_scan", scan_src, k["fused"]),
         entry("K5 kw_scan", "kw_scan", scan_src, k["kw"]),
-        entry("K6 fp_scan", "fp_scan", "omni_recall_tpu_torch/csrc/fp_scan.cu", k["fp_bf16"], {
+        entry("K6 fp_scan", "fp_scan", fp_src, k["fp_bf16"], {
             "storage": "bf16", "plain_runs": 1,
             "f32_storage": {key: k["fp_f32"][key] for key in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
             "launches_per_batch_f32": paths["f32_batches"]["launches"]["fp_scan"]
             / paths["f32_batches"]["batches"]}),
+        probe_entry("T1 profile_kernel", "profile_kernel", fp_src,
+                    "tools/profile_kernel.py:26", k["t1"], "full",
+                    profile["profile_kernel"], lambda r: r["variant"]),
+        probe_entry("T5 profile_bloomT", "profile_bloomT", scan_src,
+                    "tools/profile_bloomT.py:39", k["t5"], "row", profile["profile_bloomT"],
+                    lambda r: "transposed" if r["transposed"] else "row"),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -32,6 +32,22 @@
 // 67 TFLOP/s, and twice the instructions for the two roundings), far above
 // that bound; tensor cores are later work.
 //
+// The same kernel serves the profiling probe T1 (tools/profile_kernel.py, the
+// pallas_call at :26 with the bodies mk_cos_only :53, mk_cos_kw :60, mk_full
+// :72), which splits this body three ways over bf16 rows and a block of c
+// rows: T1-cos writes cos itself, T1-coskw the score without the eps,
+//   score = fma(0.7, cos, 0.2 * kw) + add_row
+// (the contraction found against the interpret-mode tool body, as for K6),
+// both for the first 128 rows of each block ([N/c, B, 128]), and T1-full the
+// nine largest scores of each block ([B, N/c, 9], values only: 8 max-and-mask
+// rounds, lowest lane first, then the 9th maximum; extract_query's two-reduce
+// mode with sub = c). Every variant computes all c rows of a block into
+// shared memory, as the TPU body computes the whole [B, c] product: the probe
+// measures that cost. A block then holds c scores a query, so the query tile
+// drops to 16 at c = 2048 and to 8 at c = 4096. Bounds at N = 2^20, d = 768,
+// W = 128, B = 448: cos 2*N*B*d = 7.2e11 operations, 0.73 ms at the bf16
+// peak; coskw and full as K6, 1.70 ms.
+//
 // Design (scan.cu's frame): one block owns whole extraction slices
 // (R = max(sub, ROWS) rows) for a tile of QT queries, so nothing carries
 // between blocks. The block walks its rows ROWS at a time; for each row tile
@@ -61,6 +77,11 @@ constexpr int KS = KC + 4;        // shared row stride in floats: 33 float4 word
 constexpr float kEps = 8e-3f;     // PALLAS_CERT_EPS
 constexpr float kCosW = 0.7f;     // COSINE_WEIGHT
 constexpr float kKwW = 0.2f;      // KEYWORD_WEIGHT
+constexpr int kT1Wide = 128;      // rows of a block T1-cos / T1-coskw write
+constexpr int kT1Top = 9;         // values of a block T1-full writes
+
+// what the kernel computes: K6, or one of the T1 probe's three bodies
+enum Variant : int { kK6 = 0, kT1Cos = 1, kT1CosKw = 2, kT1Full = 3 };
 
 struct Args {
   const void* emb;       // f32 or bf16 [n, d]
@@ -110,8 +131,9 @@ __device__ __forceinline__ void chunk_dot(const float* tile, const float* qs, in
   }
 }
 
-template <bool BF16, int QT>
+template <bool BF16, int QT, int VAR = kK6>
 __global__ void __launch_bounds__(kThreads) fp_scan_kernel(Args a) {
+  constexpr bool kKw = VAR != kT1Cos;  // T1-cos has no keyword terms
   constexpr int QPT = QT / kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // [QT][KS] query terms of the chunk
@@ -155,7 +177,7 @@ __global__ void __launch_bounds__(kThreads) fp_scan_kernel(Args a) {
       chunk_dot<QPT>(tile, qs, kc, lane, warp, acc_c);
     }
     // keyword terms: column j of the JAX bit matrix is bit j / W of word j % W
-    for (int j0 = 0; j0 < K; j0 += KC) {
+    for (int j0 = 0; kKw && j0 < K; j0 += KC) {
       const int kc = min(KC, K - j0);
       __syncthreads();
       for (int i = tid; i < ROWS * kc; i += kThreads) {
@@ -178,30 +200,45 @@ __global__ void __launch_bounds__(kThreads) fp_scan_kernel(Args a) {
       const float ar = a.add_row[tr0 + rl];
 #pragma unroll
       for (int j = 0; j < QPT; ++j) {
-        const float kw = fminf(__fadd_rn(acc_k[i][j], kb[j]), 1.0f);
-        float s = __fmaf_rn(kCosW, acc_c[i][j], __fmul_rn(kKwW, kw));
-        s = __fadd_rn(__fadd_rn(s, ar), kEps);
+        float s = acc_c[i][j];
+        if (kKw) {
+          const float kw = fminf(__fadd_rn(acc_k[i][j], kb[j]), 1.0f);
+          s = __fadd_rn(__fmaf_rn(kCosW, s, __fmul_rn(kKwW, kw)), ar);
+          if (VAR == kK6) s = __fadd_rn(s, kEps);
+        }
         sc[(warp * QPT + j) * R + rt + rl] = s;
       }
     }
   }
   __syncthreads();
 
-  // extraction: warp `warp` owns queries warp * QPT + j
+  // extraction, or T1's first 128 rows: warp `warp` owns queries warp * QPT + j
   const long n_slices = a.n / a.sub;
   for (int j = 0; j < QPT; ++j) {
     const int ql = warp * QPT + j, qg = q0 + ql;
     if (qg >= a.b) continue;  // warp-uniform
-    omni::extract_query(sc + ql * R, R, a.sub, a.t1, a.packed, row0, n_slices, qg,
-                        a.out_vals, a.out_idxs, lane);
+    if (VAR == kK6) {
+      omni::extract_query(sc + ql * R, R, a.sub, a.t1, a.packed, row0, n_slices, qg,
+                          a.out_vals, a.out_idxs, lane);
+    } else if (VAR == kT1Full) {
+      omni::extract_query<false>(sc + ql * R, R, R, kT1Top, 0, row0, n_slices, qg,
+                                 a.out_vals, nullptr, lane);
+    } else {
+      float* o = a.out_vals + ((size_t)blockIdx.x * a.b + qg) * kT1Wide;
+      for (int e = lane; e < kT1Wide; e += 32) o[e] = sc[ql * R + e];
+    }
   }
 }
 
-template <bool BF16, int QT>
+constexpr size_t smem_bytes(int qt, int rows_per_block) {
+  return ((size_t)(qt + ROWS) * KS + (size_t)qt * rows_per_block) * 4;
+}
+
+template <bool BF16, int QT, int VAR = kK6>
 int try_launch(Args a, cudaStream_t stream, bool* launched) {
-  const size_t smem = ((size_t)(QT + ROWS) * KS + (size_t)QT * a.rows_per_block) * 4;
+  const size_t smem = smem_bytes(QT, a.rows_per_block);
   if (smem > (size_t)kMaxSmem) return 0;
-  auto kernel = fp_scan_kernel<BF16, QT>;
+  auto kernel = fp_scan_kernel<BF16, QT, VAR>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -220,6 +257,25 @@ int launch(const Args& a, cudaStream_t stream) {
   rc = try_launch<BF16, 16>(a, stream, &launched);
   if (launched || rc) return rc;
   return -1;  // no tile configuration fits this shape
+}
+
+// T1's query tile for a block of c rows: the largest of 32, 16, 8 whose c
+// scores a query fit beside the staging; 0 if none does
+int probe_tile(int c) {
+  for (int qt = 32; qt >= 8; qt /= 2)
+    if (smem_bytes(qt, c) <= (size_t)kMaxSmem) return qt;
+  return 0;
+}
+
+template <int VAR>
+int launch_probe(const Args& a, cudaStream_t stream) {
+  bool launched = false;
+  switch (probe_tile(a.rows_per_block)) {
+    case 32: return try_launch<true, 32, VAR>(a, stream, &launched);
+    case 16: return try_launch<true, 16, VAR>(a, stream, &launched);
+    case 8: return try_launch<true, 8, VAR>(a, stream, &launched);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -247,6 +303,37 @@ extern "C" int omni_fp_scan_topt(const void* emb, const void* bloom, const void*
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return bf16 ? launch<true>(a, st) : launch<false>(a, st);
 }
+
+// T1 over bf16 rows: variant 1 cos, 2 coskw (into out [N/c, B, 128]), 3 full
+// (into out [B, N/c, 9]). Blocks of c rows, c % 64 == 0 (c >= 128 for 1, 2).
+extern "C" int omni_fp_scan_probe(const void* emb, const void* bloom, const void* q,
+                                  const void* kw_w, const void* kw_b, const void* add_row,
+                                  void* out, int n, int d, int w, int b, int c, int variant,
+                                  void* stream) {
+  Args a;
+  a.emb = emb;
+  a.bloom = static_cast<const uint8_t*>(bloom);
+  a.q = static_cast<const float*>(q);
+  a.kw_w = static_cast<const float*>(kw_w);
+  a.kw_b = static_cast<const float*>(kw_b);
+  a.add_row = static_cast<const float*>(add_row);
+  a.out_vals = static_cast<float*>(out);
+  a.out_idxs = nullptr;
+  a.n = n; a.d = d; a.w = w; a.b = b; a.sub = c; a.t1 = kT1Top; a.packed = 0;
+  a.rows_per_block = c;
+  if (n <= 0 || b <= 0 || d <= 0 || d % 4 != 0 || w <= 0 || c <= 0 || c % ROWS != 0 ||
+      n % c != 0 || (variant != kT1Full && c < kT1Wide))
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (variant) {
+    case kT1Cos: return launch_probe<kT1Cos>(a, st);
+    case kT1CosKw: return launch_probe<kT1CosKw>(a, st);
+    case kT1Full: return launch_probe<kT1Full>(a, st);
+    default: return -1;
+  }
+}
+
+extern "C" int omni_fp_scan_probe_tile(int c) { return probe_tile(c); }
 
 extern "C" const char* omni_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -12,6 +12,20 @@
 //                     + add_row + q_bias + 4e-3
 //   MODE 2, K5  keyword-only scan  _make_topt_kernel_kw_only:
 //               score = fma(0.2, kw, add_row) + 4e-3
+//   MODE 3, T5  the profiling probe of tools/profile_bloomT.py (the pallas_call of
+//               `variant` at :39, body `kernel` :22): K4's int8 cosine and keyword
+//               dots with the tool's epilogue, its constants folded as XLA folds
+//               them and the cosine term contracted (found against the
+//               interpret-mode tool body):
+//               score = fma(cosd, f32(0.7 * 1e-4), kwd * f32(0.2 * f32(1/127))) + add
+//               and only the maximum of each 512-row slice (the bound entry of the
+//               two-reduce extraction at t1 = 1), values only, [B, N/512]. The bloom
+//               arrives as rows [N, W] or transposed [W, N] (bit j is bit j / W of
+//               word j % W in both): a row tile's bytes are then W runs of 64
+//               bytes, N apart, against one run of 64 * W bytes. Both layouts are
+//               staged with 16-byte loads, four neighbouring threads on each run of
+//               64 in the transposed one. At N = 2^20, d = 768, W = 128, B = 448
+//               it does K4's 1.7e12 operations (0.851 ms at the int8 peak).
 //
 // followed by the per-slice top-(t1-1) + bound extraction of _extract_topt, in both of
 // its modes (packed keys when sub is a power of two and t1 >= 3, else value/index
@@ -59,7 +73,11 @@ constexpr float kCosW = 0.7f;           // COSINE_WEIGHT
 constexpr float kKwW = 0.2f;            // KEYWORD_WEIGHT
 constexpr float kInv127 = (float)(1.0 / 127.0);
 
-enum Mode : int { kCoarse = 0, kFused = 1, kKwOnly = 2 };
+enum Mode : int { kCoarse = 0, kFused = 1, kKwOnly = 2, kProbe = 3 };
+
+// T5's constants, each folded to one f32 as XLA folds the tool's graph
+constexpr float kProbeCos = kCosW * 1e-4f;
+constexpr float kProbeKw = kKwW * kInv127;
 
 struct Args {
   const int8_t* emb8;
@@ -112,7 +130,36 @@ __device__ __forceinline__ void dot_tile(const int8_t* rows, int rs, const int8_
   }
 }
 
-template <int MODE, int ROWS, int QT>
+// one row tile's bloom bytes (rows tr0 .. tr0 + ROWS) unpacked into tile rows of
+// 8W 0/1 bytes (word-major, byte w * 8 + b holds bit b of word w), by 16-byte
+// loads: from rows [N, W] (W % 16 == 0) or transposed [W, N]
+template <int ROWS, bool BLOOM_T>
+__device__ __forceinline__ void stage_bloom16(const uint8_t* bloom, int n, int w, long tr0,
+                                              int8_t* tile, int sk, int tid) {
+  constexpr int RV = ROWS / 16;  // 16-byte runs of one word in a transposed tile
+  const int nv = BLOOM_T ? w * RV : ROWS * (w / 16);
+  for (int i = tid; i < nv; i += kThreads) {
+    int r0, wd0, dr, dw;  // first row and word of the 16 bytes, and their steps
+    const uint8_t* src;
+    if (BLOOM_T) {
+      wd0 = i / RV, r0 = (i % RV) * 16, dr = 1, dw = 0;
+      src = bloom + (size_t)wd0 * n + tr0 + r0;
+    } else {
+      r0 = i / (w / 16), wd0 = (i % (w / 16)) * 16, dr = 0, dw = 1;
+      src = bloom + (size_t)(tr0 + r0) * w + wd0;
+    }
+    const int4 v = *reinterpret_cast<const int4*>(src);
+    const uint32_t words[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z, (uint32_t)v.w};
+#pragma unroll
+    for (int k = 0; k < 16; ++k) {
+      const uint32_t byte = (words[k / 4] >> (8 * (k % 4))) & 0xFFu;
+      *reinterpret_cast<uint2*>(tile + (r0 + k * dr) * sk + (wd0 + k * dw) * 8) =
+          make_uint2(expand4(byte & 15u), expand4(byte >> 4));
+    }
+  }
+}
+
+template <int MODE, int ROWS, int QT, bool BLOOM_T = false>
 __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
   constexpr bool kEmb = MODE != kKwOnly;
   constexpr bool kKw = MODE != kCoarse;
@@ -161,9 +208,9 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
   for (int j = 0; j < QPT; ++j) {
     const int qg = q0 + warp * QPT + j;
     const bool ok = qg < a.b;
-    qsc[j] = (kEmb && ok) ? a.q_scale[qg] : 0.0f;
-    qb[j] = (MODE != kKwOnly && ok) ? a.q_bias[qg] : 0.0f;
-    kb[j] = (kKw && ok) ? a.kw_b[qg] : 0.0f;
+    qsc[j] = (kEmb && MODE != kProbe && ok) ? a.q_scale[qg] : 0.0f;
+    qb[j] = (MODE != kKwOnly && MODE != kProbe && ok) ? a.q_bias[qg] : 0.0f;
+    kb[j] = (kKw && MODE != kProbe && ok) ? a.kw_b[qg] : 0.0f;
   }
 
   for (int rt = 0; rt < R; rt += ROWS) {
@@ -185,11 +232,15 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
     }
     if (kKw) {
       __syncthreads();
-      for (int i = tid; i < ROWS * a.w; i += kThreads) {
-        const int r = i / a.w, wd = i % a.w;
-        const uint32_t byte = a.bloom[(tr0 + r) * a.w + wd];
-        *reinterpret_cast<uint2*>(tile + r * a.sk + wd * 8) =
-            make_uint2(expand4(byte & 15u), expand4(byte >> 4));
+      if (MODE == kProbe) {
+        stage_bloom16<ROWS, BLOOM_T>(a.bloom, a.n, a.w, tr0, tile, a.sk, tid);
+      } else {
+        for (int i = tid; i < ROWS * a.w; i += kThreads) {
+          const int r = i / a.w, wd = i % a.w;
+          const uint32_t byte = a.bloom[(tr0 + r) * a.w + wd];
+          *reinterpret_cast<uint2*>(tile + r * a.sk + wd * 8) =
+              make_uint2(expand4(byte & 15u), expand4(byte >> 4));
+        }
       }
       __syncthreads();
       dot_tile<RPT, QPT>(tile, a.sk, kws, 8 * a.w, lane, warp, acc_k);
@@ -201,13 +252,16 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
       const int rl = lane + 32 * i;
       const long r = tr0 + rl;
       const float ar = a.add_row[r];
-      const float sr = kEmb ? a.scale_row[r] : 0.0f;
+      const float sr = (kEmb && MODE != kProbe) ? a.scale_row[r] : 0.0f;
 #pragma unroll
       for (int j = 0; j < QPT; ++j) {
         float s;
         if (MODE == kCoarse) {
           s = __fmaf_rn(__fmul_rn((float)acc_c[i][j], qsc[j]), sr, ar);
           s = __fadd_rn(__fadd_rn(s, qb[j]), kEpsInt8);
+        } else if (MODE == kProbe) {
+          s = __fmaf_rn((float)acc_c[i][j], kProbeCos, __fmul_rn((float)acc_k[i][j], kProbeKw));
+          s = __fadd_rn(s, ar);
         } else {
           const float kw = fminf(__fmaf_rn((float)acc_k[i][j], kInv127, kb[j]), 1.0f);
           if (MODE == kFused) {
@@ -229,12 +283,16 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
   for (int j = 0; j < QPT; ++j) {
     const int ql = warp * QPT + j, qg = q0 + ql;
     if (qg >= a.b) continue;  // warp-uniform
-    omni::extract_query(sc + ql * R, R, a.sub, a.t1, a.packed, row0, n_slices, qg,
-                        a.out_vals, a.out_idxs, lane);
+    if (MODE == kProbe)
+      omni::extract_query<false>(sc + ql * R, R, a.sub, 1, 0, row0, n_slices, qg,
+                                 a.out_vals, nullptr, lane);
+    else
+      omni::extract_query(sc + ql * R, R, a.sub, a.t1, a.packed, row0, n_slices, qg,
+                          a.out_vals, a.out_idxs, lane);
   }
 }
 
-template <int MODE, int ROWS, int QT>
+template <int MODE, int ROWS, int QT, bool BLOOM_T = false>
 int try_launch(Args a, cudaStream_t stream, bool* launched) {
   if (a.sub % ROWS != 0 && ROWS % a.sub != 0) return 0;
   a.rows_per_block = a.sub > ROWS ? a.sub : ROWS;
@@ -245,7 +303,7 @@ int try_launch(Args a, cudaStream_t stream, bool* launched) {
   const size_t smem = (emb ? (size_t)QT * a.se : 0) + (kw ? (size_t)QT * a.sk : 0) +
                       (size_t)ROWS * tile_stride + (size_t)QT * a.rows_per_block * 4;
   if (smem > (size_t)kMaxSmem) return 0;
-  auto kernel = scan_kernel<MODE, ROWS, QT>;
+  auto kernel = scan_kernel<MODE, ROWS, QT, BLOOM_T>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -258,12 +316,12 @@ int try_launch(Args a, cudaStream_t stream, bool* launched) {
 // 32 queries per block; 16 where shared memory runs out. At d = 768 the
 // 16-query tile serves the 2048-bit bloom (K4 at sub 512, K5 at sub 1024) and
 // the coarse scan at sub 2048; tests/test_torch_cuda.py holds both on the card.
-template <int MODE>
+template <int MODE, bool BLOOM_T = false>
 int launch_mode(const Args& a, cudaStream_t stream) {
   bool launched = false;
-  int rc = try_launch<MODE, 64, 32>(a, stream, &launched);
+  int rc = try_launch<MODE, 64, 32, BLOOM_T>(a, stream, &launched);
   if (launched || rc) return rc;
-  rc = try_launch<MODE, 64, 16>(a, stream, &launched);
+  rc = try_launch<MODE, 64, 16, BLOOM_T>(a, stream, &launched);
   if (launched || rc) return rc;
   return -1;  // no tile configuration fits this shape
 }
@@ -301,6 +359,28 @@ extern "C" int omni_scan_topt(const void* emb8, const void* bloom, const void* q
     case kKwOnly: return launch_mode<kKwOnly>(a, st);
     default: return -1;
   }
+}
+
+// T5: emb8 i8 [n, d], bloom u8 [n, w] (transposed = 0) or [w, n] (transposed = 1),
+// q8 i8 [b, d], kw8 i8 [b, 8w], add f32 [n] -> out f32 [b, n / 512], the maximum
+// score of each 512-row slice
+extern "C" int omni_scan_probe(const void* emb8, const void* bloom, const void* q8,
+                               const void* kw8, const void* add_row, void* out, int n, int d,
+                               int w, int b, int transposed, void* stream) {
+  Args a = {};
+  a.emb8 = static_cast<const int8_t*>(emb8);
+  a.bloom = static_cast<const uint8_t*>(bloom);
+  a.q8 = static_cast<const int8_t*>(q8);
+  a.kw_w8 = static_cast<const int8_t*>(kw8);
+  a.add_row = static_cast<const float*>(add_row);
+  a.out_vals = static_cast<float*>(out);
+  a.n = n; a.d = d; a.w = w; a.b = b; a.sub = 512; a.t1 = 1; a.packed = 0;
+  a.se = pad_stride(d);
+  a.sk = pad_stride(8 * w);
+  if (n <= 0 || b <= 0 || n % a.sub != 0 || d <= 0 || d % 16 != 0 || w <= 0 || w % 16 != 0)
+    return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return transposed ? launch_mode<kProbe, true>(a, st) : launch_mode<kProbe, false>(a, st);
 }
 
 extern "C" const char* omni_cuda_error_string(int code) {

@@ -38,7 +38,9 @@ __device__ __forceinline__ float decode_up(int k, int lmask) {
 
 // Extract every slice of one query. ``sc`` holds the query's scores for the
 // block's R rows (global rows row0 .. row0 + R); it is overwritten. All 32
-// lanes of the warp call this together.
+// lanes of the warp call this together. WRITE_IDXS = false writes the values
+// alone (out_idxs unused): the profiling probes of the tools/ kernels.
+template <bool WRITE_IDXS = true>
 __device__ void extract_query(float* sc, int R, int sub, int t1, int packed, long row0,
                               long n_slices, int qg, float* out_vals, int32_t* out_idxs,
                               int lane) {
@@ -62,7 +64,8 @@ __device__ void extract_query(float* sc, int R, int sub, int t1, int packed, lon
         m = warp_max_i(m);
         if (lane == 0) {
           out_vals[o + r] = decode_up(m, lmask);
-          out_idxs[o + r] = (r == t1 - 1) ? -2 : (int)((lmask - (m & lmask)) + base);
+          if (WRITE_IDXS)
+            out_idxs[o + r] = (r == t1 - 1) ? -2 : (int)((lmask - (m & lmask)) + base);
         }
         if (r < t1 - 1)
           for (int e = lane; e < sub; e += 32)
@@ -77,7 +80,7 @@ __device__ void extract_query(float* sc, int R, int sub, int t1, int packed, lon
         if (r == t1 - 1) {
           if (lane == 0) {
             out_vals[o + r] = v;
-            out_idxs[o + r] = -2;
+            if (WRITE_IDXS) out_idxs[o + r] = -2;
           }
           break;
         }
@@ -87,7 +90,7 @@ __device__ void extract_query(float* sc, int R, int sub, int t1, int packed, lon
         hit = warp_min_i(hit);
         if (lane == 0) {
           out_vals[o + r] = v;
-          out_idxs[o + r] = (int)(hit + base);
+          if (WRITE_IDXS) out_idxs[o + r] = (int)(hit + base);
         }
         __syncwarp();
         if (hit < sub && lane == (hit & 31)) ss[hit] = kExtractNegInf;

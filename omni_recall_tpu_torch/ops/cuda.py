@@ -50,6 +50,8 @@ LAUNCHES: dict[str, int] = {
     "fp_scan": 0,       # K6: fused f32/bf16 scan
     "dd_rows": 0,       # K2: double-float cosine over gathered rows
     "refine": 0,        # K3: residual two-plane refine over candidate rows
+    "profile_kernel": 0,  # T1: K6's body split three ways (tools/profile_kernel.py)
+    "profile_bloomT": 0,  # T5: K4's body over row or transposed bloom (tools/)
 }
 
 # shared memory one block may use on Hopper (bytes; opt-in above 48 KB)
@@ -134,32 +136,49 @@ def build_all(force: bool = False) -> float:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# library -> {exported function: its argument types}
 _ARGTYPES = {
-    "scan": ("omni_scan_topt", [
-        _P, _P, _P, _P, _P, _P, _P, _P, _P,   # emb8 bloom q8 kw_w8 kw_b add scale qs qb
-        _P, _P,                               # out vals, out idxs
-        _I, _I, _I, _I, _I, _I, _I, _I,       # n d w b sub t1 mode packed
-        _P,                                   # stream
-    ]),
-    "fp_scan": ("omni_fp_scan_topt", [
-        _P, _P, _P, _P, _P, _P,               # emb bloom q kw_w kw_b add
-        _P, _P,                               # out vals, out idxs
-        _I, _I, _I, _I, _I, _I, _I, _I,       # n d w b sub t1 packed bf16
-        _P,                                   # stream
-    ]),
-    "dd_rows": ("omni_dd_rows", [
+    "scan": {
+        "omni_scan_topt": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,   # emb8 bloom q8 kw_w8 kw_b add scale qs qb
+            _P, _P,                               # out vals, out idxs
+            _I, _I, _I, _I, _I, _I, _I, _I,       # n d w b sub t1 mode packed
+            _P,                                   # stream
+        ],
+        "omni_scan_probe": [
+            _P, _P, _P, _P, _P, _P,               # emb8 bloom q8 kw8 add out
+            _I, _I, _I, _I, _I,                   # n d w b transposed
+            _P,                                   # stream
+        ],
+    },
+    "fp_scan": {
+        "omni_fp_scan_topt": [
+            _P, _P, _P, _P, _P, _P,               # emb bloom q kw_w kw_b add
+            _P, _P,                               # out vals, out idxs
+            _I, _I, _I, _I, _I, _I, _I, _I,       # n d w b sub t1 packed bf16
+            _P,                                   # stream
+        ],
+        "omni_fp_scan_probe": [
+            _P, _P, _P, _P, _P, _P,               # emb bloom q kw_w kw_b add
+            _P,                                   # out
+            _I, _I, _I, _I, _I, _I,               # n d w b c variant
+            _P,                                   # stream
+        ],
+        "omni_fp_scan_probe_tile": [_I],          # c
+    },
+    "dd_rows": {"omni_dd_rows": [
         _P, _P, _P, _P, _P, _P,               # raw rows q hi lo sabs
         _I, _I, _I, _I,                       # n d b t
         _P,                                   # stream
-    ]),
-    "refine": ("omni_refine", [
+    ]},
+    "refine": {"omni_refine": [
         _P, _P, _P, _P, _P, _P, _P,           # emb1 emb2 bloom scale1 scale2 err2 valid
         _P, _P, _P,                           # q kw_w8 kw_b
         _P, _P, _P,                           # rows vals rec
         _P,                                   # out
         _I, _I, _I, _I, _I,                   # n d w b m
         _P,                                   # stream
-    ]),
+    ]},
 }
 
 
@@ -173,10 +192,10 @@ def library(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_lib_path(name)))
-            fn_name, argtypes = _ARGTYPES[name]
-            fn = getattr(lib, fn_name)
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
+            for fn_name, argtypes in _ARGTYPES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
             _libs[name] = lib
     return lib
 

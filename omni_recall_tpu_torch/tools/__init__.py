@@ -1,0 +1,44 @@
+"""Counterparts of the repository's ``tools/`` probes that reach a TPU kernel.
+
+Each module mirrors its tool by name, holds the probe's CUDA kernel wrapper
+beside its plain PyTorch version, and runs the tool's own sweep from
+``main`` (``python -m omni_recall_tpu_torch.tools.<name>``):
+
+- ``profile_kernel`` (T1): K6's body split into cosine, cosine + keyword and
+  the full top-9 extraction.
+- ``profile_bloomT`` (T5): K4's int8 body over row-major and transposed
+  bloom.
+"""
+
+from __future__ import annotations
+
+import statistics
+import time
+
+import torch
+
+
+def median_ms(fn, device: torch.device, runs: int = 8) -> float:
+    """Median wall time of ``runs`` calls of fn() after one warm-up call: on
+    the card each call is timed with CUDA events (the device's time, the
+    host's launch included), on the CPU by the host clock."""
+    fn()
+    times = []
+    for _ in range(runs):
+        if device.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def device_name(device: torch.device) -> str:
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"

@@ -12,6 +12,7 @@ import torch
 
 from omni_recall_tpu_torch.index.device_index import device_quantize
 from omni_recall_tpu_torch.ops import cuda, exact_cos, refine, scorer
+from omni_recall_tpu_torch.tools import profile_bloomT, profile_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -112,6 +113,54 @@ def test_fp_scan_kernel(dev, dtype, sub, t, d):
     pv, pi = scorer.block_topt_plain(*args, t=t, sub=sub)
     assert cuda.LAUNCHES["fp_scan"] == before + 1
     assert _same(kv, pv) and _same(ki, pi)
+
+
+@pytest.mark.parametrize("variant", list(profile_kernel.VARIANTS))
+@pytest.mark.parametrize("c, b", [(1024, 45), (2048, 45), (4096, 128), (1024, 8)])
+def test_profile_kernel_t1(dev, variant, c, b):
+    """T1's three variants over bf16 rows at each of the tool's blocks (query
+    tiles 32, 16 and 8), with batches that are not a multiple of the tile,
+    and serving-like sparse keyword weights."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, d, w = 8192, 768, 128
+    emb = torch.randn((n, d), generator=g, device=dev)
+    emb /= emb.norm(dim=1, keepdim=True)
+    q = torch.randn((b, d), generator=g, device=dev)
+    q /= q.norm(dim=1, keepdim=True)
+    kw = torch.where(torch.rand((b, 8 * w), generator=g, device=dev) < 0.03,
+                     torch.rand((b, 8 * w), generator=g, device=dev) * 0.1,
+                     torch.zeros((), device=dev))
+    o = _operands(dev, n, 16, b, w, seed=8)
+    args = (emb.to(torch.bfloat16), o["bloom"], q, kw, o["kw_b"], o["add_row"])
+    before = cuda.LAUNCHES["profile_kernel"]
+    got = profile_kernel.profile_scan(variant, *args, c)
+    want = profile_kernel.profile_scan_plain(variant, *args, c)
+    assert cuda.LAUNCHES["profile_kernel"] == before + 1
+    assert _same(got, want)
+    assert profile_kernel.query_tile(c) == {1024: 32, 2048: 16, 4096: 8}[c]
+
+
+@pytest.mark.parametrize("bits", [512, 1024])
+@pytest.mark.parametrize("b", [45, 448])
+def test_profile_bloom_t5(dev, bits, b):
+    """T5 on both bloom layouts (W = 64 and 128), bitwise against its plain
+    version and each against the other."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    n, d, w = 8192, 768, bits // 8
+
+    def ri(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).to(dtype)
+
+    emb8, q8, kw8 = ri(-127, 127, (n, d), torch.int8), ri(-127, 127, (b, d), torch.int8), \
+        ri(0, 2, (b, bits), torch.int8)
+    bloom = ri(0, 256, (n, w), torch.uint8)
+    add = torch.rand((1, n), generator=g, device=dev) * 0.1
+    before = cuda.LAUNCHES["profile_bloomT"]
+    row = profile_bloomT.bloom_scan(emb8, bloom, q8, kw8, add, False)
+    cols = profile_bloomT.bloom_scan(emb8, bloom.T.contiguous(), q8, kw8, add, True)
+    assert cuda.LAUNCHES["profile_bloomT"] == before + 2
+    want = profile_bloomT.bloom_scan_plain(emb8, bloom, q8, kw8, add, False)
+    assert _same(row, want) and _same(cols, want)
 
 
 @pytest.mark.parametrize("d", [768, 100])
