@@ -28,11 +28,20 @@ Phases, one JSON line each:
                 K4's body, slice maxima, on row and transposed bloom, which
                 must agree bitwise), each bitwise against its plain version,
                 with one PyTorch call's time as a yardstick where one computes
-                the product at its heart.
-2b. ``profile`` the profiling path: the two tools' own sweeps
+                the product at its heart. Then the two variants of K1 in
+                tools/: T2 (tools/probe_pipe.py: K1 software-pipelined) at
+                K1's serving layout (sub 1024, t 2) and at the tool's (512,
+                512, t 4), bitwise against its plain version and against K1's
+                kernel, with K1 timed beside it; and T4
+                (tools/probe_keys_emit.py: K1's tiles with the tool's bare
+                epilogue) in its three emit layouts at c = sub = 1024, t1 = 3,
+                each bitwise against its plain version, P3 decoded against
+                pair's values.
+2b. ``profile`` the profiling path: the four tools' own sweeps
                 (``omni_recall_tpu_torch.tools.profile_kernel.main("all")``,
-                ``...profile_bloomT.main()``) at the tools' shapes, each
-                configuration beside its bound. It must launch both probes and
+                ``...profile_bloomT.main()``, ``...probe_pipe.main()``,
+                ``...probe_keys_emit.main()``) at the tools' shapes, each
+                configuration beside its bound. It must launch every probe and
                 no serving kernel; no serving path may launch a probe.
 3. ``server``   the app of ``python -m omni_recall_tpu_torch.server`` in
                 process on the card (Backend=pallas, int8, Refine=true,
@@ -61,8 +70,8 @@ Phases, one JSON line each:
 5. ``kernels``  per kernel: its parity and times, and its launches on each
                 path (the profiling path, the server of phase 3 and each path
                 of phase 4; the counts are zeroed just before a path and read
-                just after it, and each path must launch its kernels); T1 and
-                T5 with one sub-entry per variant and per bloom layout.
+                just after it, and each path must launch its kernels); T1, T2,
+                T4 and T5 with one sub-entry per variant, layout or emit.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero; it needs CUDA and the repository beside it.
@@ -230,7 +239,10 @@ def kernel_phase(seed: int) -> dict:
     )
     results.update(refine_lines(g, emb8, bloom, kw_w8, kw_b[:, 0], scale_row[0]))
     results["t5"] = t5_lines(g, emb8, bloom, q8, add_row)
+    results["t2"] = t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias)
     del emb8
+    torch.cuda.empty_cache()
+    results["t4"] = t4_lines(dev, seed)
     torch.cuda.empty_cache()
     results.update(fp_scan_lines(g, bloom, kw_b, add_row))
     del bloom
@@ -488,6 +500,19 @@ def t1_lines(rows, bloom, q, kw, kw_b, add_row) -> dict:
     return out
 
 
+def int_mm_yardstick(q8, emb8) -> tuple[float | None, str]:
+    """One PyTorch call's time for the int8 cosine product alone
+    (``torch._int_mm``), where this build has one for these shapes: no single
+    call computes a scan with its extraction."""
+    import torch
+
+    try:
+        return time_ms(lambda: torch._int_mm(q8, emb8.t()), device_only=True), \
+            "torch._int_mm(q8, emb8.t()): the int8 cosine product alone"
+    except RuntimeError as exc:  # a yardstick only: record why there is none
+        return None, f"none: torch._int_mm: {exc}"
+
+
 def t5_lines(g, emb8, bloom, q8, add_row) -> dict:
     """T5 on row and transposed bloom at the serving shapes (c 2048, the
     tool's 0/1 keyword weights), each bitwise against its plain version and
@@ -500,11 +525,7 @@ def t5_lines(g, emb8, bloom, q8, add_row) -> dict:
     (n, d), b, w = emb8.shape, q8.shape[0], bloom.shape[1]
     kw8 = torch.randint(0, 2, (b, 8 * w), generator=g, device=emb8.device).to(torch.int8)
     layouts = {"row": (bloom, False), "transposed": (bloom.T.contiguous(), True)}
-    try:
-        library_ms, library = time_ms(lambda: torch._int_mm(q8, emb8.t()), device_only=True), \
-            "torch._int_mm(q8, emb8.t()): the int8 cosine product alone"
-    except RuntimeError as exc:  # a yardstick only: record why there is none
-        library_ms, library = None, f"none: torch._int_mm: {exc}"
+    library_ms, library = int_mm_yardstick(q8, emb8)
     bms, by = t5_bound(n, b, d, w)
     out, got = {}, {}
     for layout, (bl, transposed) in layouts.items():
@@ -531,17 +552,142 @@ def t5_lines(g, emb8, bloom, q8, add_row) -> dict:
     return out
 
 
-def profile_path(paths: dict) -> dict:
-    """The profiling path: both tools' own sweeps at their shapes, run with
-    the launch counts zeroed just before and read just after. Each record
-    gets its bound; the per-configuration launches must add up to the
-    path's."""
-    from omni_recall_tpu_torch.tools import profile_bloomT, profile_kernel
+def coarse_bound(n: int, b: int, d: int, terms: int, out_bytes: int) -> tuple[float, str]:
+    """K1's least time, and so T2's and T4's: int8 rows and queries and
+    ``terms`` f32 terms a row and a query (K1 and T2: add_row, scale_row,
+    q_scale, q_bias; T4: scale, qs) read once, the output written once;
+    2 int8 operations a product term."""
+    return bound_ms(n * d + b * d + 4 * terms * (n + b) + out_bytes, 2.0 * n * d * b,
+                    INT8_OPS_PER_S)
 
-    configs = len(profile_kernel.VARIANTS) * len(profile_kernel.BLOCKS) + len(
-        profile_bloomT.CONFIGS)
-    t1_rec, t5_rec = run_path(paths, "profile", configs,
-                              lambda: (profile_kernel.main("all"), profile_bloomT.main()))
+
+def t2_out_bytes(n: int, b: int, sub: int, t: int) -> int:
+    return b * (n // sub) * (t + 1) * 8
+
+
+def t4_out_bytes(n: int, b: int, sub: int, t1: int, emit: str) -> int:
+    return b * (n // sub) * t1 * (8 if emit == "pair" else 4)
+
+
+T2_LAYOUTS = {"serving": (1024, 2), "tool": (512, 4)}  # (sub, t), c = sub
+T4_BODY_LINE = {"pair": 123, "p3": 136, "pf": 142}  # tools/probe_keys_emit.py
+
+
+def t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias) -> dict:
+    """T2 at K1's serving layout (sub 1024, t 2) and at the tool's (512, 512,
+    t 4), over the K1 line's operands: bitwise against its plain version and
+    against K1's kernel on the same operands (K1 folds the 0.7 weight
+    itself), with K1 timed before and after it, and K1 at t = 0 (one maximum
+    a slice, the least extraction there is) beside them: K1 less that is
+    what its extraction rounds cost."""
+    import torch
+
+    from omni_recall_tpu_torch.ops import scorer
+    from omni_recall_tpu_torch.ops.oracle import COSINE_WEIGHT
+    from omni_recall_tpu_torch.tools import probe_pipe as t2
+
+    (n, d), b = emb8.shape, q8.shape[0]
+    args = (emb8, q8, add_row, scale_row, COSINE_WEIGHT * q_scale, q_bias)
+    library_ms, library = int_mm_yardstick(q8, emb8)
+    out = {}
+    for layout, (sub, t) in T2_LAYOUTS.items():
+        kern = lambda: t2.pipe_scan(*args, t, sub, sub)  # noqa: E731, B023
+        plain = lambda: t2.pipe_scan_plain(*args, t, sub, sub)  # noqa: E731, B023
+        k1 = lambda: scorer.block_topt_int8_coarse(  # noqa: E731
+            emb8, q8, add_row, scale_row, q_scale, q_bias, t=t, sub=sub, block=sub)  # noqa: B023
+        (kv, ki), (pv, pi), (rv, ri) = kern(), plain(), k1()
+        torch.cuda.synchronize()
+        ok = bitwise(kv, pv) and bitwise(ki, pi)
+        k1_ok = (bitwise(kv.transpose(0, 1).reshape(rv.shape), rv)
+                 and bitwise(ki.transpose(0, 1).reshape(ri.shape), ri))
+        k1_ms = time_ms(k1, device_only=True)
+        ms = time_ms(kern, device_only=True)
+        k1_max_only_ms = time_ms(lambda: scorer.block_topt_int8_coarse(  # noqa: B023
+            emb8, q8, add_row, scale_row, q_scale, q_bias, t=0, sub=sub, block=sub),
+            device_only=True)
+        bms, by = coarse_bound(n, b, d, 2, t2_out_bytes(n, b, sub, t))
+        line = dict(name=f"probe_pipe[{layout}]", replaces="tools/probe_pipe.py:34",
+                    shape=[b, n, d], layout=[sub, t], c=sub, out_shape=list(kv.shape),
+                    query_tile=t2.query_tile(d, sub), slices_per_block=t2.SLICES_PER_BLOCK,
+                    warps=t2.WARPS, bitwise=ok, k1_bitwise=k1_ok,
+                    max_abs_err=float((kv - pv).abs().max()), ms=ms, k1_ms=k1_ms,
+                    k1_ms_after=time_ms(k1, device_only=True), k1_max_only_ms=k1_max_only_ms,
+                    plain_ms=time_ms(plain), plain_runs=5, bound_ms=bms, bound_by=by,
+                    library_ms=library_ms, library=library)
+        emit({"phase": "kernel", **line})
+        if not ok:
+            raise AssertionError(f"probe_pipe[{layout}]: kernel disagrees with its plain version")
+        if not k1_ok:
+            raise AssertionError(f"probe_pipe[{layout}]: kernel disagrees with K1's kernel")
+        out[layout] = line
+        del kv, ki, pv, pi, rv, ri
+        torch.cuda.empty_cache()
+    return out
+
+
+def t4_lines(dev, seed: int) -> dict:
+    """T4's three emits over the tool's operands (random bits as int8, so
+    -128 occurs; scale and qs 1e-4) at B = 448, c = sub = 1024, t1 = 3, each
+    bitwise against its plain version, P3 decoded against pair's values."""
+    import torch
+
+    from omni_recall_tpu_torch.tools import probe_keys_emit as t4
+
+    emb8, q8, scale, qs = t4.tool_inputs(N_ROWS, BATCH, dev, seed)
+    (n, d), b = emb8.shape, q8.shape[0]
+    c, sub, t1 = t4.C, t4.SUB, t4.T1
+    library_ms, library = int_mm_yardstick(q8, emb8)
+    out, got = {}, {}
+    for emit_name in t4.EMITS:
+        kern = lambda: t4.keys_scan(emb8, q8, scale, qs, c, sub, t1, emit_name)  # noqa: E731, B023
+        plain = lambda: t4.keys_scan_plain(emb8, q8, scale, qs, c, sub, t1, emit_name)  # noqa: E731, B023
+        k, p = kern(), plain()
+        torch.cuda.synchronize()
+        k, p = (k, p) if emit_name == "pair" else ((k,), (p,))
+        ok = all(bitwise(x, y) for x, y in zip(k, p))
+        got[emit_name] = k
+        # the values the keys stand for (decoded as the tool decodes P3)
+        kv, pv = (k[0], p[0]) if emit_name == "pair" else (t4.decode_up(k[0], sub),
+                                                           t4.decode_up(p[0], sub))
+        bms, by = coarse_bound(n, b, d, 1, t4_out_bytes(n, b, sub, t1, emit_name))
+        line = dict(name=f"probe_keys_emit[{emit_name}]",
+                    replaces=f"tools/probe_keys_emit.py:{T4_BODY_LINE[emit_name]}",
+                    shape=[b, n, d], c=c, sub=sub, t1=t1, out_shape=list(k[0].shape),
+                    bitwise=ok, max_abs_err=float((kv - pv).abs().max()),
+                    ms=time_ms(kern, device_only=True), plain_ms=time_ms(plain), plain_runs=5,
+                    bound_ms=bms, bound_by=by, library_ms=library_ms, library=library)
+        emit({"phase": "kernel", **line})
+        if not ok:
+            raise AssertionError(f"probe_keys_emit[{emit_name}]: kernel disagrees with its "
+                                 "plain version")
+        out[emit_name] = line
+        del p, kv, pv
+    if not bitwise(t4.decode_up(got["p3"][0], sub), got["pair"][0]):
+        raise AssertionError("probe_keys_emit: P3 decoded differs from pair's values")
+    del emb8, q8, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def profile_path(paths: dict) -> dict:
+    """The profiling path: the four tools' own sweeps at their shapes, run
+    with the launch counts zeroed just before and read just after. Each
+    record gets its bound; the per-configuration launches must add up to the
+    path's, and T2's check against K1 must hold."""
+    from omni_recall_tpu_torch.tools import (
+        probe_keys_emit,
+        probe_pipe,
+        profile_bloomT,
+        profile_kernel,
+    )
+
+    configs = (len(profile_kernel.VARIANTS) * len(profile_kernel.BLOCKS)
+               + len(profile_bloomT.CONFIGS) + len(probe_pipe.CONFIGS)
+               + len(probe_keys_emit.EMITS))
+    t1_rec, t5_rec, t2_rec, t4_rec = run_path(
+        paths, "profile", configs,
+        lambda: (profile_kernel.main("all"), profile_bloomT.main(), probe_pipe.main(),
+                 probe_keys_emit.main()))
     for r in t1_rec:
         r["bound_ms"], r["bound_by"] = t1_bound(r["variant"], profile_kernel.N,
                                                 profile_kernel.B, profile_kernel.D,
@@ -549,13 +695,25 @@ def profile_path(paths: dict) -> dict:
     for r in t5_rec:
         r["bound_ms"], r["bound_by"] = t5_bound(profile_bloomT.N, r["b"], profile_bloomT.D,
                                                 r["bits"] // 8)
+    for r in t2_rec:
+        r["bound_ms"], r["bound_by"] = coarse_bound(
+            probe_pipe.N, probe_pipe.B, probe_pipe.D, 2,
+            t2_out_bytes(probe_pipe.N, probe_pipe.B, r["sub"], r["t"]))
+    for r in t4_rec:
+        r["bound_ms"], r["bound_by"] = coarse_bound(
+            probe_keys_emit.N, probe_keys_emit.B, probe_keys_emit.D, 1,
+            t4_out_bytes(probe_keys_emit.N, probe_keys_emit.B, r["sub"], r["t1"], r["emit"]))
+    check = t2_rec[probe_pipe.CONFIGS.index(probe_pipe.CHECK)]
+    if not (check["k1_vals_equal"] and check["k1_idxs_equal"]):
+        raise AssertionError(f"profile: probe_pipe disagrees with K1 ({check})")
     launches = paths["profile"]["launches"]
-    for key, recs in (("profile_kernel", t1_rec), ("profile_bloomT", t5_rec)):
+    for key, recs in (("profile_kernel", t1_rec), ("profile_bloomT", t5_rec),
+                      ("probe_pipe", t2_rec), ("probe_keys_emit", t4_rec)):
         if sum(r["launches"] for r in recs) != launches[key]:
             raise AssertionError(f"profile: {key} records do not add up to the path's "
                                  f"launches ({launches})")
     line = {"phase": "profile", "profile_kernel": t1_rec, "profile_bloomT": t5_rec,
-            "launches": launches}
+            "probe_pipe": t2_rec, "probe_keys_emit": t4_rec, "launches": launches}
     emit(line)
     return line
 
@@ -697,12 +855,12 @@ PATH_KERNELS = {
     "bf16_batches": ("fp_scan",),
     "f32_batches": ("fp_scan",),
     "reference_default_batches": (),
-    "profile": ("profile_kernel", "profile_bloomT"),
+    "profile": ("profile_kernel", "profile_bloomT", "probe_pipe", "probe_keys_emit"),
 }
 # the int8 kernels: an f32/bf16 index must not reach them
 INT8_KERNELS = ("coarse_scan", "coarse_pair", "dd_rows", "refine", "fused_scan")
 SERVING_KERNELS = INT8_KERNELS + ("kw_scan", "fp_scan")
-PROBE_KERNELS = ("profile_kernel", "profile_bloomT")
+PROBE_KERNELS = ("profile_kernel", "profile_bloomT", "probe_pipe", "probe_keys_emit")
 _SERVING_FORBIDS = {
     # the capacity configuration has no residual planes (K3) and, since
     # the device-exact cosine needs them, no raw plane (K2)
@@ -723,7 +881,8 @@ HOME_PATH = {"coarse_scan": "embedding_batches", "coarse_pair": "pair_emit_batch
              "dd_rows": "embedding_batches", "refine": "refine_select_batches",
              "fused_scan": "keyword_led_refine_batch", "kw_scan": "empty_vector_batch",
              "fp_scan": "bf16_batches", "profile_kernel": "profile",
-             "profile_bloomT": "profile"}
+             "profile_bloomT": "profile", "probe_pipe": "profile",
+             "probe_keys_emit": "profile"}
 KEYWORD_LED_EVERY = 8  # one query in 8 of the keyword-led batch
 
 
@@ -1154,14 +1313,13 @@ def main() -> int:
             subs[sub] = {
                 "name": line["name"], "route": "cuda", "source": source,
                 "replaces": line["replaces"], "launches": sum(r["launches"] for r in mine),
-                **{key: line[key] for key in (
-                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                    "library", "shape", "out_shape")},
+                **{key: v for key, v in line.items()
+                   if key not in ("name", "replaces", "bitwise")},
                 "parity": "bitwise" if line["bitwise"] else "FAILED",
                 "tool_sweep": [{key: r[key] for key in r if key != "launches"} for r in mine],
             }
         return entry(name, route_key, source, lines[top], {
-            "replaces": replaces, "sub_entries": subs, "plain_runs": 1})
+            "replaces": replaces, "sub_entries": subs, "plain_runs": lines[top]["plain_runs"]})
 
     scan_src = "omni_recall_tpu_torch/csrc/scan.cu"
     fp_src = "omni_recall_tpu_torch/csrc/fp_scan.cu"
@@ -1192,6 +1350,14 @@ def main() -> int:
         probe_entry("T5 profile_bloomT", "profile_bloomT", scan_src,
                     "tools/profile_bloomT.py:39", k["t5"], "row", profile["profile_bloomT"],
                     lambda r: "transposed" if r["transposed"] else "row"),
+        # T2's sweep at sub 512 goes with its line at the tool's layout, at
+        # sub 1024 with the serving layout's (same slice width, query tile)
+        probe_entry("T2 probe_pipe", "probe_pipe", scan_src, "tools/probe_pipe.py:85",
+                    k["t2"], "serving", profile["probe_pipe"],
+                    lambda r: "tool" if r["sub"] == T2_LAYOUTS["tool"][0] else "serving"),
+        probe_entry("T4 probe_keys_emit", "probe_keys_emit", scan_src,
+                    "tools/probe_keys_emit.py:123", k["t4"], "pair",
+                    profile["probe_keys_emit"], lambda r: r["emit"]),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -36,19 +36,34 @@ __device__ __forceinline__ float decode_up(int k, int lmask) {
   return __int_as_float(y);
 }
 
+// What a round writes: the decoded value (and index), or, in the packed
+// mode, the raw packed key itself, into out_idxs (T4's P3 and PF emits).
+enum Emit : int { kDecoded = 0, kRawKeys = 1 };
+
+// Where the t1 entries of query qg's global slice `slice` start in the
+// output: the [B, slices, t1] contract of the scans.
+struct SliceMajor {
+  __device__ __forceinline__ size_t operator()(int qg, long slice, long n_slices,
+                                               int t1) const {
+    return ((size_t)qg * n_slices + slice) * t1;
+  }
+};
+
 // Extract every slice of one query. ``sc`` holds the query's scores for the
 // block's R rows (global rows row0 .. row0 + R); it is overwritten. All 32
 // lanes of the warp call this together. WRITE_IDXS = false writes the values
 // alone (out_idxs unused): the profiling probes of the tools/ kernels.
-template <bool WRITE_IDXS = true>
+// EMIT = kRawKeys writes the packed keys (packed mode only) and Offset places
+// them: the emit layouts of T4.
+template <bool WRITE_IDXS = true, int EMIT = kDecoded, class Offset = SliceMajor>
 __device__ void extract_query(float* sc, int R, int sub, int t1, int packed, long row0,
                               long n_slices, int qg, float* out_vals, int32_t* out_idxs,
-                              int lane) {
+                              int lane, Offset offset = Offset()) {
   const int slices = R / sub;
   for (int sl = 0; sl < slices; ++sl) {
     float* ss = sc + sl * sub;
     const long base = row0 + (long)sl * sub;
-    const size_t o = ((size_t)qg * n_slices + base / sub) * t1;
+    const size_t o = offset(qg, base / sub, n_slices, t1);
     if (packed) {
       const int lmask = sub - 1;
       int* ks = reinterpret_cast<int*>(ss);
@@ -63,9 +78,13 @@ __device__ void extract_query(float* sc, int R, int sub, int t1, int packed, lon
         for (int e = lane; e < sub; e += 32) m = max(m, ks[e]);
         m = warp_max_i(m);
         if (lane == 0) {
-          out_vals[o + r] = decode_up(m, lmask);
-          if (WRITE_IDXS)
-            out_idxs[o + r] = (r == t1 - 1) ? -2 : (int)((lmask - (m & lmask)) + base);
+          if (EMIT == kRawKeys) {
+            out_idxs[o + r] = m;
+          } else {
+            out_vals[o + r] = decode_up(m, lmask);
+            if (WRITE_IDXS)
+              out_idxs[o + r] = (r == t1 - 1) ? -2 : (int)((lmask - (m & lmask)) + base);
+          }
         }
         if (r < t1 - 1)
           for (int e = lane; e < sub; e += 32)

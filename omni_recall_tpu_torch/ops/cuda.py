@@ -52,6 +52,8 @@ LAUNCHES: dict[str, int] = {
     "refine": 0,        # K3: residual two-plane refine over candidate rows
     "profile_kernel": 0,  # T1: K6's body split three ways (tools/profile_kernel.py)
     "profile_bloomT": 0,  # T5: K4's body over row or transposed bloom (tools/)
+    "probe_pipe": 0,      # T2: K1 software-pipelined (tools/probe_pipe.py)
+    "probe_keys_emit": 0,  # T4: K1's tiles with three emit layouts (tools/)
 }
 
 # shared memory one block may use on Hopper (bytes; opt-in above 48 KB)
@@ -148,6 +150,19 @@ _ARGTYPES = {
         "omni_scan_probe": [
             _P, _P, _P, _P, _P, _P,               # emb8 bloom q8 kw8 add out
             _I, _I, _I, _I, _I,                   # n d w b transposed
+            _P,                                   # stream
+        ],
+        "omni_scan_pipe": [
+            _P, _P, _P, _P, _P, _P,               # emb8 q8 add scale qs qb
+            _P, _P,                               # out vals, out idxs
+            _I, _I, _I, _I, _I, _I, _I,           # n d b sub t1 packed slices_per_block
+            _P,                                   # stream
+        ],
+        "omni_scan_pipe_tile": [_I, _I],          # d sub
+        "omni_scan_keys_emit": [
+            _P, _P, _P, _P,                       # emb8 q8 scale qs
+            _P, _P,                               # out vals, out keys (or idxs)
+            _I, _I, _I, _I, _I, _I, _I,           # n d b c sub t1 emit
             _P,                                   # stream
         ],
     },

@@ -252,16 +252,21 @@ def _packed_mode(sub: int, t1: int) -> bool:
     return sub & (sub - 1) == 0 and sub >= 2 and t1 >= 3
 
 
+def decode_up(keys: torch.Tensor, sub: int) -> torch.Tensor:
+    """Packed keys (any shape) -> f32 upper bounds with the lane bits forced
+    to 1 (sound, inflated < sub ulps)."""
+    y = keys | (sub - 1)
+    return (y ^ ((y >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
 def _decode_keys(keys: torch.Tensor, sub: int):
     """Packed keys [B, slices, t1] -> (vals, idxs) — pallas_scorer.py
-    _decode_keys / _decode_keys_t math: decode_up forces the lane bits to 1
-    (sound upper bounds inflated < sub ulps), the index is the inverted low
-    bits plus the slice's global base, bound entries carry -2."""
+    _decode_keys / _decode_keys_t math: ``decode_up`` values, the index is
+    the inverted low bits plus the slice's global base, bound entries carry
+    -2."""
     b, slices, t1 = keys.shape
     lmask = sub - 1
-    y = keys | lmask
-    y = y ^ ((y >> 31) & 0x7FFFFFFF)
-    vals = y.view(torch.float32)
+    vals = decode_up(keys, sub)
     lane = lmask - (keys & lmask)
     base = (torch.arange(slices, dtype=torch.int32, device=keys.device) * sub)[None, :, None]
     idxs = (lane + base).to(torch.int32)
@@ -269,24 +274,34 @@ def _decode_keys(keys: torch.Tensor, sub: int):
     return vals, idxs
 
 
+def _packed_keys_plain(scores: torch.Tensor, sub: int, t1: int) -> torch.Tensor:
+    """The packed-key rounds of _extract_topt over [B, N] scores (sub a
+    power of two): per slice the t1 - 1 largest keys, each masking every
+    entry equal to it, then the largest left (the bound). Returns the raw
+    keys [B, N/sub, t1]."""
+    b, n = scores.shape
+    s = scores.reshape(b, n // sub, sub)
+    lmask = sub - 1
+    s_i = s.view(torch.int32)
+    key_full = s_i ^ ((s_i >> 31) & 0x7FFFFFFF)
+    lane = torch.arange(sub, dtype=torch.int32, device=scores.device)
+    keys = (key_full & ~lmask) | (lmask - (lane & lmask))
+    cols = []
+    for _ in range(t1 - 1):
+        kmax = keys.amax(dim=-1, keepdim=True)
+        cols.append(kmax)
+        keys = torch.where(keys == kmax, torch.full_like(keys, _INT_MIN), keys)
+    cols.append(keys.amax(dim=-1, keepdim=True))
+    return torch.cat(cols, dim=-1)
+
+
 def _extract_topt_plain(scores: torch.Tensor, sub: int, t1: int):
     """_extract_topt over [B, N] scores -> (vals, idxs) [B, N/sub, t1]."""
+    if _packed_mode(sub, t1):
+        return _decode_keys(_packed_keys_plain(scores, sub, t1), sub)
     b, n = scores.shape
     s = scores.reshape(b, n // sub, sub)
     dev = scores.device
-    if _packed_mode(sub, t1):
-        lmask = sub - 1
-        s_i = s.view(torch.int32)
-        key_full = s_i ^ ((s_i >> 31) & 0x7FFFFFFF)
-        lane = torch.arange(sub, dtype=torch.int32, device=dev)
-        keys = (key_full & ~lmask) | (lmask - (lane & lmask))
-        cols = []
-        for _ in range(t1 - 1):
-            kmax = keys.amax(dim=-1, keepdim=True)
-            cols.append(kmax)
-            keys = torch.where(keys == kmax, torch.full_like(keys, _INT_MIN), keys)
-        cols.append(keys.amax(dim=-1, keepdim=True))
-        return _decode_keys(torch.cat(cols, dim=-1), sub)
     lane = torch.arange(sub, dtype=torch.int32, device=dev)
     base = (torch.arange(n // sub, dtype=torch.int32, device=dev) * sub)[None, :, None]
     vcols, icols = [], []

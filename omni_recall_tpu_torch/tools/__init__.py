@@ -6,6 +6,9 @@ beside its plain PyTorch version, and runs the tool's own sweep from
 
 - ``profile_kernel`` (T1): K6's body split into cosine, cosine + keyword and
   the full top-9 extraction.
+- ``probe_pipe`` (T2): K1's coarse scan, software-pipelined.
+- ``probe_keys_emit`` (T4): K1's scan with three emit layouts of its
+  packed-key extraction.
 - ``profile_bloomT`` (T5): K4's int8 body over row-major and transposed
   bloom.
 """
@@ -38,6 +41,15 @@ def median_ms(fn, device: torch.device, runs: int = 8) -> float:
             fn()
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape, dtype and bits (f32 compared through its int32 bits)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return bool(torch.equal(a, b))
 
 
 def device_name(device: torch.device) -> str:

@@ -12,7 +12,13 @@ import torch
 
 from omni_recall_tpu_torch.index.device_index import device_quantize
 from omni_recall_tpu_torch.ops import cuda, exact_cos, refine, scorer
-from omni_recall_tpu_torch.tools import profile_bloomT, profile_kernel
+from omni_recall_tpu_torch.ops.oracle import COSINE_WEIGHT
+from omni_recall_tpu_torch.tools import (
+    probe_keys_emit,
+    probe_pipe,
+    profile_bloomT,
+    profile_kernel,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -161,6 +167,72 @@ def test_profile_bloom_t5(dev, bits, b):
     assert cuda.LAUNCHES["profile_bloomT"] == before + 2
     want = profile_bloomT.bloom_scan_plain(emb8, bloom, q8, kw8, add, False)
     assert _same(row, want) and _same(cols, want)
+
+
+@pytest.mark.parametrize("sub, t, s", [(1024, 2, 16), (512, 4, 16), (512, 4, 3),
+                                       (1024, 1, 5), (256, 2, 1)])
+@pytest.mark.parametrize("b", [8, 45, 128, 448])
+def test_probe_pipe_t2(dev, sub, t, s, b):
+    """T2 at both query tiles (32 at sub 512 and 256, 16 at sub 1024), packed
+    and two-reduce extraction, blocks of S slices where S does not divide
+    the slice count, ragged batches; three launches of each, every one
+    bitwise against its plain version and against K1's kernel."""
+    n = 8192
+    o = _operands(dev, n, 768, b, 128, seed=10)
+    args = (o["emb8"], o["q8"], o["add_row"], o["scale_row"], COSINE_WEIGHT * o["q_scale"],
+            o["q_bias"])
+    before = cuda.LAUNCHES["probe_pipe"]
+    got = [probe_pipe.pipe_scan(*args, t, sub, sub, slices_per_block=s) for _ in range(3)]
+    assert cuda.LAUNCHES["probe_pipe"] == before + 3
+    want_v, want_i = probe_pipe.pipe_scan_plain(*args, t, sub, sub)
+    k1_v, k1_i = scorer.block_topt_int8_coarse(
+        *(o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")),
+        t=t, sub=sub, block=sub)
+    for v, i in got:
+        assert _same(v, want_v) and _same(i, want_i)
+        assert _same(v.transpose(0, 1).reshape(k1_v.shape), k1_v)
+        assert _same(i.transpose(0, 1).reshape(k1_i.shape), k1_i)
+    assert probe_pipe.query_tile(768, sub) == (16 if sub == 1024 else 32)
+
+
+def _keys_operands(dev, n, d, b, seed):
+    """T4's operands: random bits read as int8 (-128 occurs), every fifth
+    row a repeat of the one before (equal scores), random scales."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def bits(shape):
+        return torch.randint(0, 256, shape, generator=g, device=dev).to(torch.uint8).view(
+            torch.int8)
+
+    emb8, q8 = bits((n, d)), bits((b, d))
+    scale = torch.rand((1, n), generator=g, device=dev) * 1e-3 + 1e-5
+    twins = torch.arange(0, n - 1, 5, device=dev)
+    emb8[twins + 1] = emb8[twins]
+    scale[0, twins + 1] = scale[0, twins]
+    return emb8, q8, scale, torch.rand((b, 1), generator=g, device=dev) * 1e-2 + 1e-4
+
+
+@pytest.mark.parametrize("emit", list(probe_keys_emit.EMITS))
+@pytest.mark.parametrize("c, sub, t1", [(1024, 1024, 3), (1024, 512, 3), (2048, 256, 5),
+                                        (128, 2, 2), (256, 1, 1)])
+@pytest.mark.parametrize("b", [8, 45, 128, 448])
+def test_probe_keys_emit_t4(dev, emit, c, sub, t1, b):
+    """T4's three emits at the tool's layout, blocks of several slices and
+    slices of two rows and of one (keys that are whole scores), ragged
+    batches: bitwise against the plain version; P3 decoded against pair's
+    values."""
+    arrs = _keys_operands(dev, 8192, 768, b, seed=11)
+    before = cuda.LAUNCHES["probe_keys_emit"]
+    got = probe_keys_emit.keys_scan(*arrs, c, sub, t1, emit)
+    assert cuda.LAUNCHES["probe_keys_emit"] == before + 1
+    want = probe_keys_emit.keys_scan_plain(*arrs, c, sub, t1, emit)
+    if emit == "pair":
+        assert _same(got[0], want[0]) and _same(got[1], want[1])
+    else:
+        assert _same(got, want)
+    if emit == "p3":
+        vals, _ = probe_keys_emit.keys_scan(*arrs, c, sub, t1, "pair")
+        assert _same(probe_keys_emit.decode_up(got, sub), vals)
 
 
 @pytest.mark.parametrize("d", [768, 100])
