@@ -36,13 +36,22 @@ Phases, one JSON line each:
                 (tools/probe_keys_emit.py: K1's tiles with the tool's bare
                 epilogue) in its three emit layouts at c = sub = 1024, t1 = 3,
                 each bitwise against its plain version, P3 decoded against
-                pair's values.
+                pair's values. Last, T3 (tools/probe_serve.py: K3's body over
+                pre-gathered slabs, the whole [qg, qg·m] tile) on K3's
+                candidates at the tool's shape (B = 1536, m = 128, qg 16) and
+                at K3's select shape (448, 64, qg 16): bitwise against its
+                plain version, its block diagonal bitwise against K3's kernel,
+                timed beside K3 and the tool's gathers at the same shape.
 2b. ``profile`` the profiling path: the four tools' own sweeps
                 (``omni_recall_tpu_torch.tools.profile_kernel.main("all")``,
                 ``...profile_bloomT.main()``, ``...probe_pipe.main()``,
                 ``...probe_keys_emit.main()``) at the tools' shapes, each
-                configuration beside its bound. It must launch every probe and
-                no serving kernel; no serving path may launch a probe.
+                configuration beside its bound. It must launch every probe but
+                T3 and no serving kernel; no serving path may launch a probe.
+2c. ``probe_serve`` the serving-stage decomposition
+                (``omni_recall_tpu_torch.tools.probe_serve.main()``: S, SR, SR
+                without DD, DD, G, K, T, Q and R at N = 2^20, B = 1536,
+                m = 128). It must launch T3, K1, K3 and K2 and nothing else.
 3. ``server``   the app of ``python -m omni_recall_tpu_torch.server`` in
                 process on the card (Backend=pallas, int8, Refine=true,
                 DirectSelect=true, Hash embeddings): three uploads, five
@@ -71,7 +80,8 @@ Phases, one JSON line each:
                 path (the profiling path, the server of phase 3 and each path
                 of phase 4; the counts are zeroed just before a path and read
                 just after it, and each path must launch its kernels); T1, T2,
-                T4 and T5 with one sub-entry per variant, layout or emit.
+                T4 and T5 with one sub-entry per variant, layout or emit; T3
+                with its select-shape line and the stage times.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero; it needs CUDA and the repository beside it.
@@ -237,7 +247,7 @@ def kernel_phase(seed: int) -> dict:
         n * w + b * 8 * w + 4 * n + 4 * b + out_bytes(5, 1024),
         2.0 * n * b * 8 * w,
     )
-    results.update(refine_lines(g, emb8, bloom, kw_w8, kw_b[:, 0], scale_row[0]))
+    results.update(refine_lines(g, emb8, bloom, kw_w8, kw_b[:, 0], scale_row[0], seed))
     results["t5"] = t5_lines(g, emb8, bloom, q8, add_row)
     results["t2"] = t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias)
     del emb8
@@ -283,11 +293,12 @@ def kernel_phase(seed: int) -> dict:
 REFINE_SHAPES = {"select": (BATCH, 64), "rescue": (64, 2048)}
 
 
-def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1) -> dict:
+def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1, seed: int) -> dict:
     """K3 at the select stage's [448, 64] and the rescue stage's [64, 2048]
     candidate shapes over the 2^20-row planes: bitwise against its plain
     version; card ms (the kernel alone, given the recency term), wrapper ms
-    (the recency term + the launch, as the engine calls it) and plain ms."""
+    (the recency term + the launch, as the engine calls it) and plain ms.
+    Then T3 over the same planes (t3_lines)."""
     import torch
 
     from omni_recall_tpu_torch.ops import refine
@@ -335,8 +346,81 @@ def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1) -> dict:
         if not ok:
             raise AssertionError(f"refine[{stage}]: kernel disagrees with its plain version")
         out[f"refine_{stage}"] = line
+    out["refine_t3"] = t3_lines(seed, emb1, scale1, emb2, scale2, err2, bloom, created, valid)
     del emb2
     torch.cuda.empty_cache()
+    return out
+
+
+T3_SHAPES = {"tool": (1536, 128), "select": (BATCH, 64)}  # (B, m)
+
+
+def t3_lines(seed: int, emb1, scale1, emb2, scale2, err2, bloom, created, valid) -> dict:
+    """T3 at the tool's shape and at K3's select shape over the 2^20-row
+    planes, on K3's candidates (sentinel slots, invalid rows, -inf scan
+    bounds) gathered as the JAX K3 wrapper gathers them: bitwise against its
+    plain version, and its block diagonal bitwise against K3's kernel on the
+    same candidates. Card ms beside the bound; beside them at the same shape
+    K3's kernel (given the recency term) and wrapper, and the two stages
+    the TPU's design adds before T3: the tool's four gathers (G) and the
+    query quantization (Q). Inputs from a generator of their own, so the
+    other lines' inputs stay as they were."""
+    import torch
+
+    from omni_recall_tpu_torch.ops import refine
+    from omni_recall_tpu_torch.tools import probe_serve as t3
+
+    dev = emb1.device
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    (n, d), w = emb1.shape, bloom.shape[1]
+    sidecar = t3.stack_sidecar(scale1, scale2, err2, created, valid)
+    out = {}
+    for shape, (b, m) in T3_SHAPES.items():
+        q = torch.randn((b, d), generator=g, device=dev)
+        q /= q.norm(dim=1, keepdim=True)
+        kw = torch.where(torch.rand((b, 8 * w), generator=g, device=dev) < 0.03,
+                         torch.rand((b, 8 * w), generator=g, device=dev) * 0.1,
+                         torch.zeros((), device=dev))
+        kw_w8 = refine.quantize_kw_weights(kw)
+        kw_b = torch.rand((b,), generator=g, device=dev) * 0.05
+        rows = torch.randint(-1, n, (b, m), generator=g, device=dev).to(torch.int32)
+        vals = torch.randn((b, m), generator=g, device=dev)
+        vals[torch.rand((b, m), generator=g, device=dev) < 0.01] = float("-inf")
+        args = (emb1, scale1, emb2, scale2, err2, bloom, created, valid, q, kw_w8, kw_b,
+                365.0, rows, vals)
+        ops, qg = t3.k3_slab_operands(*args)
+        rec = refine.recency_term(created, 365.0, rows)
+        kern = lambda: refine.refine_slab_tile(*ops, qg)  # noqa: E731, B023
+        plain = lambda: refine.refine_slab_tile_plain(*ops, qg)  # noqa: E731, B023
+        k3 = lambda: refine.refine_bounds_cuda(  # noqa: E731
+            emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8, kw_b,  # noqa: B023
+            rows, vals, rec)  # noqa: B023
+        got, want, k3_out = kern(), plain(), k3()
+        torch.cuda.synchronize()
+        ok = bitwise(got, want)
+        diag_ok = bitwise(t3.block_diagonal(got, m, qg), k3_out)
+        safe = rows.clamp_min(0)
+        bms, by = bound_ms(*t3.slab_work(b, m, d, w, qg), INT8_OPS_PER_S)
+        line = dict(name=f"probe_serve[{shape}]", replaces="tools/probe_serve.py:210",
+                    shape=[b, m, d], qg=qg, ct=qg * m, out_shape=list(got.shape), bitwise=ok,
+                    k3_diagonal_bitwise=diag_ok, max_abs_err=float((got - want).abs().max()),
+                    ms=time_ms(kern, device_only=True), plain_ms=time_ms(plain), plain_runs=5,
+                    bound_ms=bms, bound_by=by, library_ms=None,
+                    k3_ms=time_ms(k3, device_only=True),
+                    k3_wrapper_ms=time_ms(lambda: refine._refine_dispatch(*args)),  # noqa: B023
+                    gather_ms=time_ms(lambda: t3.gather_slabs(  # noqa: B023
+                        emb1, emb2, bloom, sidecar, safe), device_only=True),  # noqa: B023
+                    quantize_ms=time_ms(lambda: refine.quantize_queries_int8_residual(q),  # noqa: B023
+                                        device_only=True))
+        line["gather_quantize_t3_ms"] = line["gather_ms"] + line["quantize_ms"] + line["ms"]
+        emit({"phase": "kernel", **line})
+        if not ok:
+            raise AssertionError(f"probe_serve[{shape}]: kernel disagrees with its plain version")
+        if not diag_ok:
+            raise AssertionError(f"probe_serve[{shape}]: block diagonal disagrees with K3")
+        out[shape] = line
+        del ops, got, want, k3_out
+        torch.cuda.empty_cache()
     return out
 
 
@@ -718,6 +802,36 @@ def profile_path(paths: dict) -> dict:
     return line
 
 
+def probe_serve_path(paths: dict) -> dict:
+    """The serving-stage decomposition: the tool's stage sweep at its shapes,
+    run with the launch counts zeroed just before and read just after. Every
+    stage must have a positive finite time, the records' T3 launches must add
+    up to the path's, and the scan's candidate bounds must come sorted."""
+    import math
+
+    import torch
+
+    from omni_recall_tpu_torch.tools import probe_serve
+
+    records = run_path(paths, "probe_serve", len(probe_serve.LABELS), probe_serve.main)
+    torch.cuda.empty_cache()
+    launches = paths["probe_serve"]["launches"]
+    if not all(0 < r["ms"] < math.inf for r in records.values()):
+        raise AssertionError(f"probe_serve: a stage has no time ({records})")
+    if sum(r["launches"].get("probe_serve", 0) for r in records.values()) != \
+            launches["probe_serve"]:
+        raise AssertionError(f"probe_serve: records do not add up to the path's launches "
+                             f"({launches})")
+    if not records["S"]["sorted_desc"]:
+        raise AssertionError("probe_serve: the scan's candidate bounds are not sorted")
+    ms = {name: r["ms"] for name, r in records.items()}
+    line = {"phase": "probe_serve", "stages": records, "launches": launches,
+            "sum_tool_design_ms": ms["S"] + ms["G"] + ms["K"] + ms["T"] + ms["Q"],
+            "sum_port_design_ms": ms["S"] + ms["R"]}
+    emit(line)
+    return line
+
+
 # ---------------------------------------------------------------- phase 3
 
 
@@ -856,11 +970,13 @@ PATH_KERNELS = {
     "f32_batches": ("fp_scan",),
     "reference_default_batches": (),
     "profile": ("profile_kernel", "profile_bloomT", "probe_pipe", "probe_keys_emit"),
+    "probe_serve": ("probe_serve", "coarse_scan", "refine", "dd_rows"),
 }
 # the int8 kernels: an f32/bf16 index must not reach them
 INT8_KERNELS = ("coarse_scan", "coarse_pair", "dd_rows", "refine", "fused_scan")
 SERVING_KERNELS = INT8_KERNELS + ("kw_scan", "fp_scan")
-PROBE_KERNELS = ("profile_kernel", "profile_bloomT", "probe_pipe", "probe_keys_emit")
+PROBE_KERNELS = ("profile_kernel", "profile_bloomT", "probe_pipe", "probe_keys_emit",
+                 "probe_serve")
 _SERVING_FORBIDS = {
     # the capacity configuration has no residual planes (K3) and, since
     # the device-exact cosine needs them, no raw plane (K2)
@@ -871,9 +987,15 @@ _SERVING_FORBIDS = {
     # backend xla: the plain-torch scorer, no kernel of the repository
     "reference_default_batches": SERVING_KERNELS,
 }
-# the profiling path reaches no serving kernel, and no serving path a probe
+# the profiling path reaches no serving kernel and not T3, no serving path a
+# probe, and the stage decomposition nothing but T3, K1, K3 and K2
+_OWN_FORBIDS = {
+    "profile": SERVING_KERNELS + ("probe_serve",),
+    "probe_serve": ("coarse_pair", "fused_scan", "kw_scan", "fp_scan")
+    + tuple(k for k in PROBE_KERNELS if k != "probe_serve"),
+}
 PATH_FORBIDS = {
-    name: SERVING_KERNELS if name == "profile" else _SERVING_FORBIDS.get(name, ()) + PROBE_KERNELS
+    name: _OWN_FORBIDS.get(name, _SERVING_FORBIDS.get(name, ()) + PROBE_KERNELS)
     for name in PATH_KERNELS
 }
 # the path whose launches a kernel's entry in the kernels line reports
@@ -882,7 +1004,7 @@ HOME_PATH = {"coarse_scan": "embedding_batches", "coarse_pair": "pair_emit_batch
              "fused_scan": "keyword_led_refine_batch", "kw_scan": "empty_vector_batch",
              "fp_scan": "bf16_batches", "profile_kernel": "profile",
              "profile_bloomT": "profile", "probe_pipe": "profile",
-             "probe_keys_emit": "profile"}
+             "probe_keys_emit": "profile", "probe_serve": "probe_serve"}
 KEYWORD_LED_EVERY = 8  # one query in 8 of the keyword-led batch
 
 
@@ -1287,6 +1409,7 @@ def main() -> int:
 
     paths: dict = {}
     profile = profile_path(paths)
+    stages = probe_serve_path(paths)
     run_path(paths, "server", len(QUERIES), server_phase)
     serve_phase(args.seed, paths)
 
@@ -1320,6 +1443,23 @@ def main() -> int:
             }
         return entry(name, route_key, source, lines[top], {
             "replaces": replaces, "sub_entries": subs, "plain_runs": lines[top]["plain_runs"]})
+
+    def t3_entry(lines, stages):
+        """T3's entry: its line at the tool's shape, the select shape's line,
+        and the stage decomposition's times."""
+        top = lines["tool"]
+        keep = ("shape", "qg", "ct", "ms", "plain_ms", "bound_ms", "bound_by", "k3_ms",
+                "k3_wrapper_ms", "gather_ms", "quantize_ms", "gather_quantize_t3_ms",
+                "max_abs_err")
+        return entry("T3 probe_serve", "probe_serve", "omni_recall_tpu_torch/csrc/refine.cu",
+                     top, {
+                         **{key: top[key] for key in keep}, "plain_runs": top["plain_runs"],
+                         "k3_diagonal": "bitwise" if all(
+                             x["k3_diagonal_bitwise"] for x in lines.values()) else "FAILED",
+                         "select_shape": {key: lines["select"][key] for key in keep},
+                         "stages_ms": {name: r["ms"] for name, r in stages["stages"].items()},
+                         "sum_tool_design_ms": stages["sum_tool_design_ms"],
+                         "sum_port_design_ms": stages["sum_port_design_ms"]})
 
     scan_src = "omni_recall_tpu_torch/csrc/scan.cu"
     fp_src = "omni_recall_tpu_torch/csrc/fp_scan.cu"
@@ -1358,6 +1498,7 @@ def main() -> int:
         probe_entry("T4 probe_keys_emit", "probe_keys_emit", scan_src,
                     "tools/probe_keys_emit.py:123", k["t4"], "pair",
                     profile["probe_keys_emit"], lambda r: r["emit"]),
+        t3_entry(k["refine_t3"], stages),
     ]
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -1,4 +1,5 @@
-// Hand-written Hopper (sm_90a) kernel for the residual refine stage (K3).
+// Hand-written Hopper (sm_90a) kernels for the residual refine stage: K3, and below it T3
+// (K3's body over pre-gathered slabs, the tool's launch).
 //
 // Replaces _make_refine_kernel_full of omni_recall_tpu/ops/refine.py (the TPU kernel
 // launched by _refine_bounds_fused). For each (query b, candidate slot j) it reads the
@@ -218,6 +219,180 @@ __global__ void __launch_bounds__(kThreads) refine_kernel(Args a) {
   }
 }
 
+// ---- T3: K3's body over pre-gathered slabs (tools/probe_serve.py:210) ----
+//
+// Replaces the tool's launch of _make_refine_kernel_full (k_body, tools/probe_serve.py
+// :202-233). Its grid step k takes the ct = qg * m slab rows [k * ct, (k + 1) * ct) and
+// the qg queries [k * qg, (k + 1) * qg) and writes the whole [qg, ct] tile:
+//
+//   out[k * qg + g, j] = fma(0.2, kw, 0.7 * (cos + delta)) + add[k * ct + j]
+//
+// with cos, delta and kw as in refine_kernel above (the same contractions: the tool's
+// body is K3's, and tests/test_torch_probe_serve.py holds them against the tool's launch
+// in interpret mode), over pre-quantized queries q1, q2 with t1, t2, eq2, qn passed in and
+// the slab sidecars s1, s2, ec2, add passed in. No masking, no query quantization, no
+// recency inside: those are the caller's, as in the tool. Every query of a tile is dotted
+// against every slab row of the tile: qg times K3's dot products, the off-diagonal ones
+// included, which the TPU paid for to fill its 128-lane tiles.
+//
+// What bounds it on the H100: bytes. Each slab row is 2 * d + W bytes plus four f32
+// sidecars (1.68 kB at d = 768, W = 128) and is read once; the [B, ct] f32 output is
+// written once. At the tool's shape (B = 1536, m = 128, qg 16) that is ~347 MB, 0.104 ms
+// at 3.35 TB/s, against 2.6e10 int8 operations (0.013 ms at the int8 peak). Design: a
+// block takes one tile's qg queries (both int8 planes and the keyword weights, reordered
+// word-major as in refine_kernel: 40 KB at qg 16) into shared memory and a run of the
+// tile's slab rows; eight lanes share a slab row, each reading 16-byte chunks of it once
+// and scoring them against all qg queries with __dp4a into 5 * kSlabQg register sums,
+// which three xor shuffles reduce over the eight lanes (exact integers, so the order is
+// free). Lane g % 8 of the row's group combines and writes column j of query g. A
+// separate kernel with its own argument block, so that refine_kernel's register
+// allocation stays as it was. This is the simple version: its card time beside the
+// bound is in PERF.md, and a tensor-core version is later work.
+
+constexpr int kSlabQg = 16;                     // most queries a tile holds (the tool's min(16, .))
+constexpr int kSlabLanes = 8;                   // lanes that share one slab row
+constexpr int kSlabGroups = kThreads / kSlabLanes;  // slab rows a block scores at once
+constexpr int kSlabRowsPerBlock = 2 * kSlabGroups;
+
+struct SlabArgs {
+  const int8_t* q1;
+  const int8_t* q2;
+  const float* t1;
+  const float* t2;
+  const float* eq2;
+  const float* qn;
+  const float* kwb;
+  const int8_t* kw_w8;
+  const int8_t* c1;
+  const int8_t* c2;
+  const uint8_t* bloom;
+  const float* s1;
+  const float* s2;
+  const float* ec2;
+  const float* add;
+  float* out;
+  int d, w, qg, ct;
+};
+
+__global__ void __launch_bounds__(kThreads) refine_slab_kernel(SlabArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  int8_t* sq1 = reinterpret_cast<int8_t*>(smem);   // [qg][d]
+  int8_t* sq2 = sq1 + a.qg * a.d;                  // [qg][d]
+  int8_t* skw = sq2 + a.qg * a.d;                  // [qg][W][8]
+  __shared__ float sterm[5][kSlabQg];              // t1, t2, eq2, qn, kwb of each query
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.y * a.qg;
+  const int kk = 8 * a.w;
+  {
+    const int4* g1 = reinterpret_cast<const int4*>(a.q1 + (size_t)q0 * a.d);
+    const int4* g2 = reinterpret_cast<const int4*>(a.q2 + (size_t)q0 * a.d);
+    int4* d1 = reinterpret_cast<int4*>(sq1);
+    int4* d2 = reinterpret_cast<int4*>(sq2);
+    for (int i = tid; i < a.qg * a.d / 16; i += kThreads) {
+      d1[i] = g1[i];
+      d2[i] = g2[i];
+    }
+    // JAX column j of the bit matrix is bit j / W of word j % W: word wd's eight
+    // weights (columns b * W + wd) go to skw[wd * 8 + b] in one 8-byte store
+    const int8_t* kw = a.kw_w8 + (size_t)q0 * kk;
+    for (int i = tid; i < a.qg * a.w; i += kThreads) {
+      const int g = i / a.w, wd = i - g * a.w;
+      const uint8_t* col = reinterpret_cast<const uint8_t*>(kw + (size_t)g * kk + wd);
+      uint32_t lo = 0, hi = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        lo |= (uint32_t)col[b * a.w] << (8 * b);
+        hi |= (uint32_t)col[(b + 4) * a.w] << (8 * b);
+      }
+      reinterpret_cast<uint2*>(skw + g * kk)[wd] = make_uint2(lo, hi);
+    }
+    if (tid < a.qg) {
+      sterm[0][tid] = a.t1[q0 + tid];
+      sterm[1][tid] = a.t2[q0 + tid];
+      sterm[2][tid] = a.eq2[q0 + tid];
+      sterm[3][tid] = a.qn[q0 + tid];
+      sterm[4][tid] = a.kwb[q0 + tid];
+    }
+  }
+  __syncthreads();
+
+  const int part = tid % kSlabLanes;   // this lane's share of its row
+  const int group = tid / kSlabLanes;  // the row group within the block
+  const int dv = a.d / 16;
+  const int j0 = blockIdx.x * kSlabRowsPerBlock;
+  const int j1 = min(j0 + kSlabRowsPerBlock, a.ct);
+  // every thread takes the same trips (the shuffles need whole warps); a group past the
+  // tile's end scores the block's first row again and writes nothing
+  for (int jb = j0; jb < j1; jb += kSlabGroups) {
+    const int j = jb + group;
+    const bool live = j < j1;
+    const size_t row = (size_t)blockIdx.y * a.ct + (live ? j : j0);
+    int acc[kSlabQg][5];
+#pragma unroll
+    for (int g = 0; g < kSlabQg; ++g)
+#pragma unroll
+      for (int v = 0; v < 5; ++v) acc[g][v] = 0;
+
+    const int4* r1 = reinterpret_cast<const int4*>(a.c1 + row * a.d);
+    const int4* r2 = reinterpret_cast<const int4*>(a.c2 + row * a.d);
+    for (int k = part; k < dv; k += kSlabLanes) {
+      const int4 x1 = r1[k], x2 = r2[k];
+#pragma unroll
+      for (int g = 0; g < kSlabQg; ++g) {
+        if (g < a.qg) {
+          const int4 y1 = reinterpret_cast<const int4*>(sq1 + g * a.d)[k];
+          const int4 y2 = reinterpret_cast<const int4*>(sq2 + g * a.d)[k];
+          acc[g][0] = dot16(y1, x1, acc[g][0]);  // d11
+          acc[g][1] = dot16(y1, x2, acc[g][1]);  // d12
+          acc[g][2] = dot16(y2, x1, acc[g][2]);  // d21
+          acc[g][3] = dot16(y2, x2, acc[g][3]);  // d22
+        }
+      }
+    }
+    const uint8_t* bl = a.bloom + row * a.w;
+    for (int wd = part; wd < a.w; wd += kSlabLanes) {
+      const uint32_t byte = bl[wd];
+      const int lo = (int)expand4(byte & 15u), hi = (int)expand4(byte >> 4);
+#pragma unroll
+      for (int g = 0; g < kSlabQg; ++g) {
+        if (g < a.qg) {
+          const int* kw2 = reinterpret_cast<const int*>(skw + g * kk + wd * 8);
+          acc[g][4] = __dp4a(lo, kw2[0], acc[g][4]);
+          acc[g][4] = __dp4a(hi, kw2[1], acc[g][4]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < kSlabQg; ++g) {
+      if (g < a.qg) {
+#pragma unroll
+        for (int v = 0; v < 5; ++v)
+#pragma unroll
+          for (int o = kSlabLanes / 2; o > 0; o >>= 1)
+            acc[g][v] += __shfl_xor_sync(0xffffffffu, acc[g][v], o);
+      }
+    }
+    if (live) {
+      const float s1 = a.s1[row], s2 = a.s2[row], ec2 = a.ec2[row], add = a.add[row];
+      const float ec2p1 = __fadd_rn(1.0f, ec2);
+#pragma unroll
+      for (int g = 0; g < kSlabQg; ++g) {
+        if (g < a.qg && g % kSlabLanes == part) {
+          const float t1 = sterm[0][g], t2 = sterm[1][g];
+          const float pa = __fmaf_rn(t1, (float)acc[g][0], __fmul_rn(t2, (float)acc[g][2]));
+          const float pb = __fmaf_rn(t1, (float)acc[g][1], __fmul_rn(t2, (float)acc[g][3]));
+          const float cos = __fmaf_rn(s1, pa, __fmul_rn(s2, pb));
+          const float delta = __fmaf_rn(sterm[3][g], ec2, __fmul_rn(sterm[2][g], ec2p1));
+          const float kw = fminf(__fmaf_rn((float)acc[g][4], kInv127, sterm[4][g]), 1.0f);
+          a.out[(size_t)(q0 + g) * a.ct + j] =
+              __fadd_rn(__fmaf_rn(kKwW, kw, __fmul_rn(kCosW, __fadd_rn(cos, delta))), add);
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 // emb1/emb2 i8[n, d], bloom u8[n, w], scale1/scale2/err2 f32[n], valid bool[n],
@@ -257,6 +432,47 @@ extern "C" int omni_refine(const void* emb1, const void* emb2, const void* bloom
   }
   dim3 grid((m + a.cand_per_block - 1) / a.cand_per_block, b);
   refine_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// T3. q1/q2 i8[b, d], t1/t2/eq2/qn/kwb f32[b], kw_w8 i8[b, 8w], c1/c2 i8[b*m, d],
+// bloom u8[b*m, w], s1/s2/ec2/add f32[b*m] -> out f32[b, qg*m]; b % qg == 0
+extern "C" int omni_refine_slab(const void* q1, const void* q2, const void* t1, const void* t2,
+                                const void* eq2, const void* qn, const void* kwb,
+                                const void* kw_w8, const void* c1, const void* c2,
+                                const void* bloom, const void* s1, const void* s2,
+                                const void* ec2, const void* add, void* out, int b, int d,
+                                int w, int m, int qg, void* stream) {
+  if (b <= 0 || d <= 0 || d % 16 != 0 || w <= 0 || m <= 0 || qg < 1 || qg > kSlabQg ||
+      b % qg != 0 || b / qg > 65535)
+    return -1;
+  const size_t smem = (size_t)qg * (2 * d + 8 * w);
+  if (smem > (size_t)kMaxSmem) return -1;
+  SlabArgs a;
+  a.q1 = static_cast<const int8_t*>(q1);
+  a.q2 = static_cast<const int8_t*>(q2);
+  a.t1 = static_cast<const float*>(t1);
+  a.t2 = static_cast<const float*>(t2);
+  a.eq2 = static_cast<const float*>(eq2);
+  a.qn = static_cast<const float*>(qn);
+  a.kwb = static_cast<const float*>(kwb);
+  a.kw_w8 = static_cast<const int8_t*>(kw_w8);
+  a.c1 = static_cast<const int8_t*>(c1);
+  a.c2 = static_cast<const int8_t*>(c2);
+  a.bloom = static_cast<const uint8_t*>(bloom);
+  a.s1 = static_cast<const float*>(s1);
+  a.s2 = static_cast<const float*>(s2);
+  a.ec2 = static_cast<const float*>(ec2);
+  a.add = static_cast<const float*>(add);
+  a.out = static_cast<float*>(out);
+  a.d = d; a.w = w; a.qg = qg; a.ct = qg * m;
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(refine_slab_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((a.ct + kSlabRowsPerBlock - 1) / kSlabRowsPerBlock, b / qg);
+  refine_slab_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

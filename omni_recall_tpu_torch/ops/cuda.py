@@ -54,6 +54,7 @@ LAUNCHES: dict[str, int] = {
     "profile_bloomT": 0,  # T5: K4's body over row or transposed bloom (tools/)
     "probe_pipe": 0,      # T2: K1 software-pipelined (tools/probe_pipe.py)
     "probe_keys_emit": 0,  # T4: K1's tiles with three emit layouts (tools/)
+    "probe_serve": 0,     # T3: K3's body over pre-gathered slabs (tools/probe_serve.py)
 }
 
 # shared memory one block may use on Hopper (bytes; opt-in above 48 KB)
@@ -186,14 +187,23 @@ _ARGTYPES = {
         _I, _I, _I, _I,                       # n d b t
         _P,                                   # stream
     ]},
-    "refine": {"omni_refine": [
-        _P, _P, _P, _P, _P, _P, _P,           # emb1 emb2 bloom scale1 scale2 err2 valid
-        _P, _P, _P,                           # q kw_w8 kw_b
-        _P, _P, _P,                           # rows vals rec
-        _P,                                   # out
-        _I, _I, _I, _I, _I,                   # n d w b m
-        _P,                                   # stream
-    ]},
+    "refine": {
+        "omni_refine": [
+            _P, _P, _P, _P, _P, _P, _P,           # emb1 emb2 bloom scale1 scale2 err2 valid
+            _P, _P, _P,                           # q kw_w8 kw_b
+            _P, _P, _P,                           # rows vals rec
+            _P,                                   # out
+            _I, _I, _I, _I, _I,                   # n d w b m
+            _P,                                   # stream
+        ],
+        "omni_refine_slab": [
+            _P, _P, _P, _P, _P, _P, _P, _P,       # q1 q2 t1 t2 eq2 qn kwb kw_w8
+            _P, _P, _P, _P, _P, _P, _P,           # c1 c2 bloom s1 s2 ec2 add
+            _P,                                   # out
+            _I, _I, _I, _I, _I,                   # b d w m qg
+            _P,                                   # stream
+        ],
+    },
 }
 
 

@@ -39,6 +39,13 @@ kernel (found by comparing against ``_refine_bounds_fused(interpret=True)``):
             live candidate
     out   = fma(0.2, kw, 0.7*(cos + delta)) + add
 
+T3 (``refine_slab_tile``), the tool ``tools/probe_serve.py``'s launch of
+the same TPU body, is the second kernel of csrc/refine.cu: it takes
+pre-gathered candidate slabs, pre-quantized queries and the add term from
+its caller and writes each tile's whole [qg, qg*m] block, in the same
+order (``_refined``). No serving path calls it; the probe
+``omni_recall_tpu_torch/tools/probe_serve.py`` times it.
+
 The JAX engine on a CPU serves ``refine_ub`` instead (scale products
 first); the two orders differ by f32 rounding only, inside REFINE_EPS.
 
@@ -114,29 +121,42 @@ def recency_term(created, now_days, rows) -> torch.Tensor:
     return torch.exp(torch.clamp_max(days - now_days, 0.0) * (1.0 / RECENCY_HALF_LIFE_DAYS))
 
 
-def _combine(d11, d12, d21, d22, kwd, s1, s2, ec2, live, rec, t1, t2, eq2, qn, kw_b):
-    """The f32 combine in the kernel's order (module docstring), [B, m];
-    the per-query operands are [B, 1]. ``live`` marks slots holding a live
-    candidate; the others get the add term -1e30 and come out -inf."""
+def _refined(d11, d12, d21, d22, kwd, s1, s2, ec2, add, t1, t2, eq2, qn, kw_b):
+    """The f32 combine in the kernels' order (module docstring), unmasked:
+    fma(0.2, kw, 0.7*(cos + delta)) + add. The per-query operands are
+    [B, 1], the others broadcast against them."""
     a = _fma32(t1, d11, t2 * d21)
     b = _fma32(t1, d12, t2 * d22)
     cos = _fma32(s1, a, s2 * b)
     delta = _fma32(qn, ec2, eq2 * (1.0 + ec2))
     kw = torch.clamp_max(_fma32(kwd, 1.0 / 127.0, kw_b), 1.0)
-    add = _fma32(RECENCY_WEIGHT, rec, REFINE_EPS)  # contracted, as in XLA
-    add = torch.where(live, add, torch.full_like(add, _NEG_INF))
-    out = _fma32(KEYWORD_WEIGHT, kw, COSINE_WEIGHT * (cos + delta)) + add
+    return _fma32(KEYWORD_WEIGHT, kw, COSINE_WEIGHT * (cos + delta)) + add
+
+
+def slot_add_term(created, valid, now_days, rows, vals) -> torch.Tensor:
+    """The add term of each candidate slot [B, m] as the JAX K3 wrapper
+    builds it (refine.py _refine_bounds_fused): fma(0.1, rec, REFINE_EPS)
+    (contracted, as in XLA) where the slot holds a live candidate (row >= 0,
+    the row valid, the scan bound above -inf), else -1e30."""
+    live = (rows >= 0) & valid[rows.clamp_min(0).long()] & (vals > float("-inf"))
+    add = _fma32(RECENCY_WEIGHT, recency_term(created, now_days, rows), REFINE_EPS)
+    return torch.where(live, add, torch.full_like(add, _NEG_INF))
+
+
+def mask_dead(out: torch.Tensor) -> torch.Tensor:
+    """K3's output mask: entries that carry the -1e30 add term -> -inf."""
     return torch.where(out <= _NEG_INF * 0.5, torch.full_like(out, float("-inf")), out)
 
 
 def _bdot(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """Exact integer dots a[B, K] . c[B, m, K] -> f32 [B, m]: f32 (f64 once
-    K*127^2 reaches 2^24) products and sums of small integers are exact in
-    any order, so this batched matmul stands in for the int32 one."""
-    k = a.shape[1]
+    """Exact integer dots of each row of a[T, r, K] with each row of
+    c[T, s, K] -> f32 [T, r, s]: f32 (f64 once K*127^2 reaches 2^24)
+    products and sums of small integers are exact in any order, so this
+    batched matmul stands in for the int32 one."""
+    k = a.shape[-1]
     dt = torch.float32 if k * 127 * 127 < 2**24 else torch.float64
     with _no_tf32():
-        return torch.bmm(c.to(dt), a.to(dt)[:, :, None])[:, :, 0].to(torch.float32)
+        return torch.bmm(a.to(dt), c.to(dt).transpose(1, 2)).to(torch.float32)
 
 
 def refine_bounds_plain(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
@@ -149,14 +169,17 @@ def refine_bounds_plain(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
     qn = (row_norm(q) * (1.0 + 1e-6))[:, None]
     safe = rows.clamp_min(0).long()
     c1, c2 = emb1[safe], emb2[safe]  # [B, m, d]
-    d11, d21 = _bdot(q1, c1), _bdot(q2, c1)
-    d12, d22 = _bdot(q1, c2), _bdot(q2, c2)
-    kwd = _bdot(kw_w8, _bloom_bits(bloom[safe].reshape(-1, bloom.shape[1]))
-                .reshape(*rows.shape, -1))
-    live = (rows >= 0) & valid[safe] & (vals > float("-inf"))
-    return _combine(d11, d12, d21, d22, kwd, scale1[safe], scale2[safe], err2[safe], live,
-                    recency_term(created, now_days, rows), t1, t2, eq2, qn,
-                    kw_bias.to(torch.float32).reshape(-1, 1))
+
+    def dot(a, c):  # [B, K] . [B, m, K] -> [B, m]
+        return _bdot(a[:, None], c)[:, 0]
+
+    kwd = dot(kw_w8, _bloom_bits(bloom[safe].reshape(-1, bloom.shape[1]))
+              .reshape(*rows.shape, -1))
+    return mask_dead(_refined(
+        dot(q1, c1), dot(q1, c2), dot(q2, c1), dot(q2, c2), kwd,
+        scale1[safe], scale2[safe], err2[safe],
+        slot_add_term(created, valid, now_days, rows, vals), t1, t2, eq2, qn,
+        kw_bias.to(torch.float32).reshape(-1, 1)))
 
 
 def refine_bounds_cuda(emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8, kw_bias,
@@ -192,6 +215,95 @@ def refine_bounds_cuda(emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8,
     cuda.check(lib, rc, "refine")
     cuda.count_launch("refine")
     return out
+
+
+# ---- T3: K3's body over pre-gathered slabs (tools/probe_serve.py:210) ----
+
+
+def slab_tile_queries(m: int) -> int:
+    """qg, the queries of one T3 tile (ct = qg * m slab rows): the tool's
+    max(1, min(16, 2048 // m))."""
+    return max(1, min(16, 2048 // m))
+
+
+def _slab_shapes(q1, gc1, gbloom, qg: int):
+    """(b, d, w, m) of T3's operands; raises where the tool's grid would not
+    cover them."""
+    b, d = q1.shape
+    rows, w = gc1.shape[0], gbloom.shape[1]
+    if not 1 <= qg <= 16 or b % qg:
+        raise ValueError(f"T3 needs 1 <= qg <= 16 and B % qg == 0, got B={b}, qg={qg}")
+    if rows % b or rows == 0:
+        raise ValueError(f"T3 needs B*m slab rows, got {rows} for B={b}")
+    return b, d, w, rows // b
+
+
+def refine_slab_tile_plain(q1, q2, t1, t2, eq2, qn, kwb, kw_w8, gc1, gc2, gbloom,
+                           s1, s2, ec2, add, qg: int):
+    """Plain PyTorch T3: the tool's launch of K3's body over pre-gathered
+    slabs. Queries q1, q2 i8 [B, d] with t1, t2, eq2, qn, kwb f32 [B, 1] and
+    kw_w8 i8 [B, 8W]; slabs gc1, gc2 i8 [B*m, d], gbloom u8 [B*m, W] and
+    s1, s2, ec2, add f32 [1, B*m]. Tile k holds queries [k*qg, (k+1)*qg)
+    and slab rows [k*ct, (k+1)*ct), ct = qg*m; every query is scored
+    against every slab row of its tile, unmasked: f32 [B, ct]."""
+    b, d, w, m = _slab_shapes(q1, gc1, gbloom, qg)
+    ct, tiles = qg * m, b // qg
+
+    def tile_dot(a, c):  # [B, K] . [B*m, K] within each tile -> [B, ct]
+        return _bdot(a.reshape(tiles, qg, -1), c.reshape(tiles, ct, -1)).reshape(b, ct)
+
+    def per_row(x):  # [1, B*m] -> [B, ct]: the tile's columns for each query
+        return x.reshape(tiles, 1, ct).expand(tiles, qg, ct).reshape(b, ct)
+
+    kwd = tile_dot(kw_w8, _bloom_bits(gbloom))
+    return _refined(tile_dot(q1, gc1), tile_dot(q1, gc2), tile_dot(q2, gc1), tile_dot(q2, gc2),
+                    kwd, per_row(s1), per_row(s2), per_row(ec2), per_row(add),
+                    t1, t2, eq2, qn, kwb)
+
+
+def _refine_slab_cuda(q1, q2, t1, t2, eq2, qn, kwb, kw_w8, gc1, gc2, gbloom,
+                      s1, s2, ec2, add, qg: int):
+    """Launch csrc/refine.cu's T3 kernel on the current stream; never
+    synchronizes."""
+    b, d, w, m = _slab_shapes(q1, gc1, gbloom, qg)
+    if d % 16:
+        raise ValueError(f"the CUDA T3 kernel needs d % 16 == 0, got d={d}")
+    f32, i8 = torch.float32, torch.int8
+    dev, rows = q1.device, b * m
+    per_query = {k: (x, f32, (b, 1)) for k, x in
+                 (("t1", t1), ("t2", t2), ("eq2", eq2), ("qn", qn), ("kwb", kwb))}
+    per_row = {k: (x, f32, (1, rows)) for k, x in
+               (("s1", s1), ("s2", s2), ("ec2", ec2), ("add", add))}
+    _check_cuda_operands(
+        dev, q1=(q1, i8, (b, d)), q2=(q2, i8, (b, d)), kw_w8=(kw_w8, i8, (b, 8 * w)),
+        gc1=(gc1, i8, (rows, d)), gc2=(gc2, i8, (rows, d)),
+        gbloom=(gbloom, torch.uint8, (rows, w)), **per_query, **per_row,
+    )
+    out = torch.empty((b, qg * m), dtype=f32, device=dev)
+    lib = cuda.library("refine")
+    rc = lib.omni_refine_slab(
+        q1.data_ptr(), q2.data_ptr(), t1.data_ptr(), t2.data_ptr(), eq2.data_ptr(),
+        qn.data_ptr(), kwb.data_ptr(), kw_w8.data_ptr(), gc1.data_ptr(), gc2.data_ptr(),
+        gbloom.data_ptr(), s1.data_ptr(), s2.data_ptr(), ec2.data_ptr(), add.data_ptr(),
+        out.data_ptr(), b, d, w, m, qg, cuda.stream_ptr(dev),
+    )
+    cuda.check(lib, rc, "probe_serve")
+    cuda.count_launch("probe_serve")
+    return out
+
+
+def refine_slab_tile(q1, q2, t1, t2, eq2, qn, kwb, kw_w8, gc1, gc2, gbloom,
+                     s1, s2, ec2, add, qg: int):
+    """T3 (operands as refine_slab_tile_plain): the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors, and an error for any other
+    device."""
+    if q1.is_cuda:
+        return _refine_slab_cuda(q1, q2, t1, t2, eq2, qn, kwb, kw_w8, gc1, gc2, gbloom,
+                                 s1, s2, ec2, add, qg)
+    if q1.device.type != "cpu":
+        raise ValueError(f"no kernel for device {q1.device}")
+    return refine_slab_tile_plain(q1, q2, t1, t2, eq2, qn, kwb, kw_w8, gc1, gc2, gbloom,
+                                  s1, s2, ec2, add, qg)
 
 
 def _refine_dispatch(emb1, scale1, emb2, scale2, err2, bloom, created, valid,

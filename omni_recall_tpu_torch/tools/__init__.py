@@ -11,6 +11,8 @@ beside its plain PyTorch version, and runs the tool's own sweep from
   packed-key extraction.
 - ``profile_bloomT`` (T5): K4's int8 body over row-major and transposed
   bloom.
+- ``probe_serve`` (T3): K3's body over pre-gathered candidate slabs, and the
+  tool's split of a serving batch into its device stages.
 """
 
 from __future__ import annotations

@@ -16,6 +16,7 @@ from omni_recall_tpu_torch.ops.oracle import COSINE_WEIGHT
 from omni_recall_tpu_torch.tools import (
     probe_keys_emit,
     probe_pipe,
+    probe_serve,
     profile_bloomT,
     profile_kernel,
 )
@@ -281,6 +282,42 @@ def test_refine_kernel(dev, b, m):
     assert cuda.LAUNCHES["refine"] == before + 1
     assert _same(got, want)
     assert bool(torch.isneginf(got).any()) and bool(torch.isfinite(got).any())
+
+
+@pytest.mark.parametrize("m", [16, 64, 128, 512])
+@pytest.mark.parametrize("b", [16, 48, 448])
+def test_probe_serve_t3(dev, b, m):
+    """T3 over K3's candidates (8192-row planes, d = 768, 1024 bloom bits) at
+    qg 16 (m <= 128) and qg 4 (m = 512): three launches, each bitwise
+    against its plain version, and its block diagonal against K3's kernel."""
+    args = _refine_inputs(dev, 8192, 768, b, m, 128, seed=b + m)
+    ops, qg = probe_serve.k3_slab_operands(*args)
+    before = cuda.LAUNCHES["probe_serve"]
+    got = [refine.refine_slab_tile(*ops, qg) for _ in range(3)]
+    assert cuda.LAUNCHES["probe_serve"] == before + 3
+    want = refine.refine_slab_tile_plain(*ops, qg)
+    assert want.shape == (b, qg * m) and qg == (4 if m == 512 else 16)
+    for out in got:
+        assert _same(out, want)
+    assert _same(probe_serve.block_diagonal(got[0], m, qg), refine._refine_dispatch(*args))
+
+
+def test_probe_serve_t3_rejects_what_the_kernel_does_not_take(dev):
+    args = _refine_inputs(dev, 4096, 768, 16, 64, 128, seed=12)
+    ops, qg = probe_serve.k3_slab_operands(*args)
+    narrow = list(ops)
+    narrow[0], narrow[1], narrow[8], narrow[9] = (x[:, :72].contiguous() for x in (
+        ops[0], ops[1], ops[8], ops[9]))
+    with pytest.raises(ValueError, match="d % 16"):
+        refine.refine_slab_tile(*narrow, qg)
+    wide = list(ops)
+    wide[7] = torch.zeros((16, 2048), dtype=torch.int8, device=dev)  # kw_w8 must be [B, 8W]
+    with pytest.raises(ValueError, match="kw_w8"):
+        refine.refine_slab_tile(*wide, qg)
+    with pytest.raises(ValueError, match="B % qg"):
+        refine.refine_slab_tile(*ops, 32)
+    with pytest.raises(ValueError, match="no kernel"):
+        refine.refine_slab_tile(*(x.to("meta") for x in ops), qg)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
