@@ -169,18 +169,18 @@ _ARGTYPES = {
     },
     "fp_scan": {
         "omni_fp_scan_topt": [
-            _P, _P, _P, _P, _P, _P,               # emb bloom q kw_w kw_b add
+            _P, _P, _P, _P, _P,                   # emb bloom qkw kw_b add
             _P, _P,                               # out vals, out idxs
-            _I, _I, _I, _I, _I, _I, _I, _I,       # n d w b sub t1 packed bf16
+            _I, _I, _I, _I, _I, _I, _I, _I, _I,   # n d w b bp sub t1 packed bf16
             _P,                                   # stream
         ],
         "omni_fp_scan_probe": [
-            _P, _P, _P, _P, _P, _P,               # emb bloom q kw_w kw_b add
+            _P, _P, _P, _P, _P,                   # emb bloom qkw kw_b add
             _P,                                   # out
-            _I, _I, _I, _I, _I, _I,               # n d w b c variant
+            _I, _I, _I, _I, _I, _I, _I,           # n d w b bp c variant
             _P,                                   # stream
         ],
-        "omni_fp_scan_probe_tile": [_I],          # c
+        "omni_fp_scan_query_tile": [_I, _I, _I, _I],  # variant rows d w
     },
     "dd_rows": {"omni_dd_rows": [
         _P, _P, _P, _P, _P, _P,               # raw rows q hi lo sabs

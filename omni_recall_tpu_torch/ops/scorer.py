@@ -18,12 +18,12 @@ it, written from the JAX graph:
   embedding (_make_topt_kernel_kw_only).
 - K6 ``block_topt`` — the fused scan over f32 or bf16 scan storage
   (_make_topt_kernel / _ub_block): bf16 operands, f32 sums, eps
-  PALLAS_CERT_EPS. The TPU sums its dot products in the MXU's order, which
-  nothing fixes; the port fixes one (each (row, query) pair sums its
-  products in k order, cosine terms then keyword terms, csrc/fp_scan.cu) and
-  the plain version follows it, so kernel and plain version agree bit for
-  bit. Against the TPU kernel the sums agree to within the rounding of a
-  reordered f32 sum (tests/test_torch_scorer.py states the bound).
+  PALLAS_CERT_EPS. The TPU sums its dot products in the MXU's order and the
+  card's kernel in its tensor cores' (csrc/fp_scan.cu, wgmma); neither order
+  is fixed. The plain version sums in k order (``_seq_dot``). Kernel, plain
+  version and TPU kernel agree bit for bit where every partial sum is exact,
+  and elsewhere within ``fp_order_bound``, the bound of two f32 sums of the
+  same terms in any order with truncating accumulation.
 
 Each returns the [B, N/sub, t1] (vals f32, idxs i32) contract of the TPU
 kernels: per extraction slice of ``sub`` rows the top-(t1-1) entries plus a
@@ -577,7 +577,9 @@ def _bf16_round(x: torch.Tensor) -> torch.Tensor:
 def _seq_dot(a: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
     """a[M, K] . bt[K, N] -> f32[M, N] summed in k order, one product and
     one f32 addition per term (``acc + a_k * b_k``, two roundings): the
-    order and the operations of csrc/fp_scan.cu. Columns of ``a`` that are
+    plain version's fixed order, which the tensor-core sums of
+    csrc/fp_scan.cu meet under the parity rule (``fp_order_bound``; bit for
+    bit on ``fp_exact_operands``). Columns of ``a`` that are
     zero in every row are skipped: their products are zeros, and adding a
     zero leaves a sum that starts at +0 unchanged."""
     acc = torch.zeros((a.shape[0], bt.shape[1]), dtype=torch.float32, device=a.device)
@@ -616,6 +618,65 @@ def block_topt_plain(emb, bloom, q, kw_weights, kw_bias, add_row, t: int,
         _fp_scores_plain, (q, kw_weights, kw_bias), (emb_t, bits_t, add_row), sub, t1)
 
 
+FP_CHUNK = 64       # K values of one 128-byte swizzle atom (csrc/fp_scan.cu kChunk)
+FP_TILE_ROWS = 128  # rows of one tile of the kernel (kTileRows)
+_FP_QT_MAX = 32     # its largest query tile: the operand's rows pad to a multiple
+_kw_columns_cache: dict = {}
+
+
+def fp_kw_columns(w: int, device=None) -> torch.Tensor:
+    """The keyword operand's column order in csrc/fp_scan.cu. Kernel column
+    16·ks + e, with ks = 8·s + p, is bit plane p of bloom byte
+    quad·W'/4 + 4·s + o (quad = (e mod 8) div 2, o = 2·(e div 8) + e mod 2,
+    W' = W rounded up to 16): one 32-bit load a row gives a thread its A
+    fragments for all eight planes. Entry: the JAX bit column p·W + byte, or
+    8W (a zero column) for a byte past W. Cached per (W, device)."""
+    key = (w, str(device))
+    cols = _kw_columns_cache.get(key)
+    if cols is None:
+        wp = -(-w // 16) * 16
+        kcol = np.arange(8 * wp)
+        ks, e = kcol // 16, kcol % 16
+        s, p = ks // 8, ks % 8
+        byte = (e % 8) // 2 * (wp // 4) + 4 * s + 2 * (e // 8) + e % 2
+        cols = torch.as_tensor(np.where(byte < w, p * w + byte, 8 * w), device=device)
+        _kw_columns_cache[key] = cols
+    return cols
+
+
+def fp_query_operand(q: torch.Tensor, kw_weights: torch.Tensor, w: int) -> torch.Tensor:
+    """The kernel's resident operand, bf16 [B', 64·ceil(d/64) + 8·W']: the
+    queries, then the keyword weights in ``fp_kw_columns`` order, each
+    rounded to bf16 once a batch (nearest, ties to even, as ``_bf16_round``),
+    zero-padded; B' is B rounded up to 32."""
+    b, d = q.shape
+    dp = -(-d // FP_CHUNK) * FP_CHUNK
+    cols = fp_kw_columns(w, q.device)
+    bp = -(-b // _FP_QT_MAX) * _FP_QT_MAX
+    out = torch.zeros((bp, dp + cols.numel()), dtype=torch.bfloat16, device=q.device)
+    out[:b, :d] = q
+    kw = torch.cat([kw_weights, kw_weights.new_zeros((b, 1))], dim=1)
+    out[:b, dp:] = kw[:, cols]
+    return out
+
+
+def fp_query_tile(variant: int, rows: int, d: int, w: int) -> int:
+    """Queries one block of csrc/fp_scan.cu scores (its wgmma N): variant 0
+    is K6 at extraction slices of ``rows``, 1-3 the T1 variants at blocks of
+    ``rows``. Needs the built library (the card)."""
+    return cuda.library("fp_scan").omni_fp_scan_query_tile(variant, rows, d, w)
+
+
+def _check_fp_cuda(n: int, d: int, rows: int) -> None:
+    if d % 4:
+        raise ValueError(f"the CUDA K6 scan needs d % 4 == 0, got d={d}")
+    if rows % FP_TILE_ROWS and FP_TILE_ROWS % rows:
+        raise ValueError(f"the CUDA K6 scan needs sub % {FP_TILE_ROWS} == 0 or "
+                         f"{FP_TILE_ROWS} % sub == 0, got {rows}")
+    if n % max(rows, FP_TILE_ROWS):
+        raise ValueError(f"the CUDA K6 scan needs N % max(sub, {FP_TILE_ROWS}) == 0, got N={n}")
+
+
 def block_topt(emb, bloom, q, kw_weights, kw_bias, add_row, t: int, sub: int = 512):
     """Fused f32/bf16 scan, K6. emb f32|bf16[N, d], bloom u8[N, W], q
     f32[B, d], kw_weights f32[B, 8W], kw_bias f32[B, 1], add_row f32[1, N].
@@ -625,12 +686,7 @@ def block_topt(emb, bloom, q, kw_weights, kw_bias, add_row, t: int, sub: int = 5
         return block_topt_plain(emb, bloom, q, kw_weights, kw_bias, add_row, t, sub)
     (n, d), b, w = emb.shape, q.shape[0], bloom.shape[1]
     sub, t1 = _fp_shape(n, emb.dtype, t, sub)
-    if d % 4:
-        raise ValueError(f"the CUDA K6 scan needs d % 4 == 0, got d={d}")
-    if sub % 64 and 64 % sub:
-        raise ValueError(f"the CUDA scan needs sub % 64 == 0 or 64 % sub == 0, got {sub}")
-    if n % max(sub, 64):
-        raise ValueError(f"the CUDA scan needs N % max(sub, 64) == 0, got N={n}")
+    _check_fp_cuda(n, d, sub)
     f32 = torch.float32
     kw_b, add_row = kw_bias.reshape(-1), add_row.reshape(-1)
     _check_cuda_operands(
@@ -638,17 +694,120 @@ def block_topt(emb, bloom, q, kw_weights, kw_bias, add_row, t: int, sub: int = 5
         q=(q, f32, (b, d)), kw_weights=(kw_weights, f32, (b, 8 * w)),
         kw_bias=(kw_b, f32, (b,)), add_row=(add_row, f32, (n,)),
     )
+    qkw = fp_query_operand(q, kw_weights, w)
     vals = torch.empty((b, n // sub, t1), dtype=f32, device=emb.device)
     idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=emb.device)
     lib = cuda.library("fp_scan")
     rc = lib.omni_fp_scan_topt(
-        _ptr(emb), _ptr(bloom), _ptr(q), _ptr(kw_weights), _ptr(kw_b), _ptr(add_row),
-        _ptr(vals), _ptr(idxs), n, d, w, b, sub, t1, int(_packed_mode(sub, t1)),
-        int(emb.dtype == torch.bfloat16), cuda.stream_ptr(emb.device),
+        _ptr(emb), _ptr(bloom), _ptr(qkw), _ptr(kw_b), _ptr(add_row),
+        _ptr(vals), _ptr(idxs), n, d, w, b, qkw.shape[0], sub, t1,
+        int(_packed_mode(sub, t1)), int(emb.dtype == torch.bfloat16),
+        cuda.stream_ptr(emb.device),
     )
     cuda.check(lib, rc, "fp_scan")
     cuda.count_launch("fp_scan")
     return vals, idxs
+
+
+# ---- the parity rule of the f32/bf16 scans (K6, T1) ----
+
+
+def _off_grid(g: torch.Generator, shape, exp: int, signed: bool) -> torch.Tensor:
+    """f32 values in the upper half of bf16's binade [2^(exp-1), 2^exp):
+    (16k + j + o/4)·u with u = 2^(exp-8) that binade's bf16 ulp, k in 9..15,
+    j in {0, 1} bf16's last bit, o in -2..2: 0, ±1/4 ulp or ±1/2 ulp (a
+    tie). Rounded to bf16 nearest-even they lie on the grid u."""
+    dev = g.device
+    k = torch.randint(9, 16, shape, generator=g, device=dev)
+    j = torch.randint(0, 2, shape, generator=g, device=dev)
+    o = torch.randint(-2, 3, shape, generator=g, device=dev)
+    x = (16 * k + j + 0.25 * o).to(torch.float32) * 2.0**(exp - 8)
+    if signed:
+        x = x * (2 * torch.randint(0, 2, shape, generator=g, device=dev) - 1)
+    return x
+
+
+def fp_exact_operands(g: torch.Generator, n: int, d: int, b: int, w: int):
+    """The parity rule's part (i) inputs, on ``g``'s device: rows f32
+    [n, d] and queries f32 [b, d] with six nonzero entries in (-1, 1), and
+    keyword weights f32 [b, 8w] in (2^-6, 2^-5) at min(5%, 51) a query.
+    Their bf16 roundings lie on grids of 2^-8 and 2^-13, so every partial
+    sum of either dot is exact in f32, whatever the order. The f32 values
+    are mostly not bf16's (``_off_grid``: offsets of a quarter and a half
+    ulp), so a scan that rounds an operand any other way than nearest-even
+    (truncating, ties away) or keeps it wider sums other products."""
+    dev = g.device
+
+    def sparse(rows):
+        cols = torch.randint(0, d, (rows, 6), generator=g, device=dev)
+        return torch.zeros((rows, d), device=dev).scatter_(
+            1, cols, _off_grid(g, (rows, 6), 0, signed=True))
+
+    hit = torch.rand((b, 8 * w), generator=g, device=dev) < min(0.05, 51 / (8 * w))
+    kw = torch.where(hit, _off_grid(g, (b, 8 * w), -5, signed=False),
+                     torch.zeros((), device=dev))
+    return sparse(n), sparse(b), kw
+
+
+def _order_g(n: int) -> float:
+    """g(n) = n·2^-23: the relative error of an f32 sum of n terms in any
+    order with truncating accumulation, on either side."""
+    return n * 2.0**-23
+
+
+def fp_cos_mass(q: torch.Tensor, rows: torch.Tensor, chunk: int = 1 << 16) -> torch.Tensor:
+    """max over rows of sum_i |bf16(q_i)·bf16(c_i)|, per query: f32 [B],
+    raised by d·2^-23 for its own f32 rounding. Rows in chunks (with TF32
+    refused), so the [B, N] products never exist at once."""
+    qa = _bf16_round(q.to(torch.float32)).abs()
+    out = torch.zeros(q.shape[0], dtype=torch.float32, device=q.device)
+    with _no_tf32():
+        for r0 in range(0, rows.shape[0], chunk):
+            ra = _bf16_round(rows[r0:r0 + chunk].to(torch.float32)).abs()
+            out = torch.maximum(out, (qa @ ra.T).amax(dim=1))
+    return out * (1 + q.shape[1] * 2.0**-23)
+
+
+def fp_order_bound(values: torch.Tensor, cos_mass: torch.Tensor, kw_weights=None, *,
+                   d: int, cos_weight: float = COSINE_WEIGHT, granule: int = 0) -> torch.Tensor:
+    """The parity rule's bound on |kernel - plain| for each entry of
+    ``values`` [B, ...] (the plain version's output), when the two sum the
+    same bf16 products in different orders:
+
+      cos_weight·2g(d)·cos_mass + 0.2·2g(8W)·sum_j|w_j|·(1 + 2^-8)
+        + (4 + granule) ulp(value)
+
+    with g(n) = n·2^-23 on each side (``_order_g``), ``cos_mass`` the
+    per-query max_r sum_i |q_i c_i| (``fp_cos_mass``), the keyword term only
+    when ``kw_weights`` [B, 8W] is given, 4 ulp for the f32 epilogue and
+    ``granule`` ulp for the lane bits of packed keys (sub in packed mode,
+    else 0)."""
+    per_q = cos_weight * 2 * _order_g(d) * cos_mass.to(torch.float64)
+    if kw_weights is not None:
+        kw_mass = kw_weights.to(torch.float64).abs().sum(dim=1) * (1 + 2.0**-8)
+        per_q = per_q + KEYWORD_WEIGHT * 2 * _order_g(kw_weights.shape[1]) * kw_mass
+    ulp = torch.from_numpy(np.spacing(np.abs(values.detach().cpu().numpy()))).to(
+        device=values.device, dtype=torch.float64)
+    return per_q.reshape(-1, *([1] * (values.dim() - 1))) + (4 + granule) * ulp
+
+
+def fp_order_check(kv, pv, bound, ki=None, pi=None) -> dict:
+    """Hold a kernel's output against its plain version under the parity
+    rule: every value within ``bound`` (``fp_order_bound``); and, for the
+    [B, slices, t1] contract (``ki``, ``pi`` given), the candidate indices
+    equal in every clear slice, one whose plain values lie further apart
+    than twice the slice's largest bound. Returns max_abs_err, within,
+    clear_share (None without indices) and indices_equal_where_clear."""
+    diff = (kv.to(torch.float64) - pv.to(torch.float64)).abs()
+    out = {"max_abs_err": float(diff.max()), "within": bool((diff <= bound).all()),
+           "clear_share": None, "indices_equal_where_clear": None}
+    if ki is not None:
+        gaps = (pv[..., :-1].to(torch.float64) - pv[..., 1:].to(torch.float64)).abs()
+        clear = (gaps > 2 * bound.amax(dim=-1, keepdim=True)).all(dim=-1)
+        same = (ki[..., :-1] == pi[..., :-1]).all(dim=-1)
+        out["clear_share"] = float(clear.to(torch.float64).mean())
+        out["indices_equal_where_clear"] = bool(same[clear].all())
+    return out
 
 
 # ---- merge + engine entry points ----

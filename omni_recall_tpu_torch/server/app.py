@@ -6,8 +6,9 @@ Mirrors the reference's Program.cs + Endpoints/: DI wiring by configuration
 (DocumentEndpoints.cs, RecallEndpoints.cs), /health (Program.cs:104-115),
 /metrics, CORS, and the global exception -> ProblemDetails handler
 (server/http.py). Chat, train, snapshot, swagger and the UI page wait for
-later slices (ROADMAP.md). The engine runs on CUDA unless ``device="cpu"``
-is passed.
+later slices: their routes are registered with the reference's methods and
+paths and answer a 501 problem that names their ROADMAP.md item. The engine
+runs on CUDA unless ``device="cpu"`` is passed.
 
 ``build_app`` accepts overrides for every dependency so tests can boot the
 whole app in-process with fakes — the reference's WebApplicationFactory
@@ -35,6 +36,26 @@ from omni_recall_tpu_torch.server.health import HealthProbeService
 from omni_recall_tpu_torch.server.http import Request, Response, Router, WsgiApp
 
 ALLOWED_EXTENSIONS = {".pdf", ".txt", ".md", ".markdown"}  # DocumentEndpoints.cs:8-14
+
+# routes of the reference app (omni_recall_tpu/server/app.py:254-268) that
+# the port does not serve yet: (method, path, what, its ROADMAP.md item)
+NOT_PORTED_ROUTES = (
+    ("POST", "/api/documents/train", "Embedder training",
+     '(ROADMAP.md, "Local models")'),
+    ("POST", "/api/chat", "Chat", '(ROADMAP.md, "Host-only providers and routes")'),
+    ("POST", "/api/snapshot", "Snapshots",
+     '(ROADMAP.md, "Snapshot, compact store and rebuild")'),
+    ("GET", "/swagger/v1/swagger.json", "The OpenAPI document",
+     '(ROADMAP.md, "Host-only providers and routes")'),
+    ("GET", "/swagger", "The Swagger UI", '(ROADMAP.md, "Host-only providers and routes")'),
+    ("GET", "/", "The UI page", '(ROADMAP.md, "Host-only providers and routes")'),
+)
+
+
+def _not_ported(what: str, item: str):
+    def handler(request: Request) -> Response:
+        return Response.problem("Not implemented", f"{what} is not ported yet {item}.", 501)
+    return handler
 
 
 def _parse_top_k(value) -> int | None:
@@ -69,6 +90,11 @@ class OmniRecallApp(WsgiApp):
         device: str = "cuda",
     ) -> None:
         self.config = config
+        if (config.ai.provider or "").strip().lower() == "local":
+            raise NotImplementedError(
+                "Ai:Provider=Local (the on-device chat decoder) is not ported yet "
+                '(ROADMAP.md, "Local models"); leave it unset'
+            )
         if (config.storage.snapshot_dir or "").strip():
             raise NotImplementedError(
                 "Storage:SnapshotDir (snapshot restore/save) is not ported yet "
@@ -148,6 +174,10 @@ class OmniRecallApp(WsgiApp):
 
         router = Router()
         router.add("POST", "/api/documents/upload", self._upload_document)
+        for method, path, what, item in NOT_PORTED_ROUTES:
+            # before the {document_id} routes: POST /api/documents/train
+            # would otherwise match POST /api/documents/{document_id} (405)
+            router.add(method, path, _not_ported(what, item))
         router.add("GET", "/api/documents", self._list_documents)
         router.add("GET", "/api/documents/{document_id}", self._get_document)
         router.add("GET", "/api/documents/{document_id}/chunks", self._get_document_chunks)

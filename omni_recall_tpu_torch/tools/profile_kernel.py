@@ -17,11 +17,12 @@ f32 [B, d], ``kw_w`` f32 [B, 8W], ``kw_b`` f32 [B, 1], ``add_row`` f32
 
 That is K6's body (``ops/scorer.py`` ``block_topt``) without the eps and
 with a plain top-9, so the kernel is K6's own (``csrc/fp_scan.cu``, a
-template variant of the same kernel: same tiling, staging and k-order sums)
-and the plain version is K6's (``_bf16_round``, ``_seq_dot``). Every variant
-computes all c rows of each block, as the TPU body computes the whole
-[B, c] product. A CUDA tensor launches the kernel or raises; a CPU tensor
-takes the plain version.
+template variant of the same kernel: same wgmma tiles, ring and resident
+query operand) and the plain version is K6's (``_bf16_round``, ``_seq_dot``),
+held to the kernel by K6's parity rule (``scorer.fp_order_bound``). Every
+variant computes all c rows of each block, as the TPU body computes the
+whole [B, c] product. A CUDA tensor launches the kernel or raises; a CPU
+tensor takes the plain version.
 
 ``python -m omni_recall_tpu_torch.tools.profile_kernel [cos|coskw|full|all]``
 runs the tool's sweep (N = 2^20, d = 768, B = 128, 1024 bloom bits,
@@ -48,6 +49,8 @@ from omni_recall_tpu_torch.ops.scorer import (
     _ptr,
     _require_cpu,
     _seq_dot,
+    fp_query_operand,
+    fp_query_tile,
 )
 from omni_recall_tpu_torch.tools import device_name, median_ms
 
@@ -76,8 +79,8 @@ def profile_scan(variant: str, emb, bloom, q, kw_w, kw_b, add_row, c: int):
         return profile_scan_plain(variant, emb, bloom, q, kw_w, kw_b, add_row, c)
     (n, d), b, w = emb.shape, q.shape[0], bloom.shape[1]
     _check_shape(variant, n, c)
-    if d % 4:
-        raise ValueError(f"the CUDA T1 probe needs d % 4 == 0, got d={d}")
+    if d % 8 or c % 128:
+        raise ValueError(f"the CUDA T1 probe needs d % 8 == 0 and c % 128 == 0, got d={d}, c={c}")
     f32 = torch.float32
     kw_b, add_row = kw_b.reshape(-1), add_row.reshape(-1)
     _check_cuda_operands(
@@ -88,20 +91,23 @@ def profile_scan(variant: str, emb, bloom, q, kw_w, kw_b, add_row, c: int):
     full = variant == "full"
     shape = (b, n // c, TOP) if full else (n // c, b, WIDE)
     out = torch.empty(shape, dtype=f32, device=emb.device)
+    qkw = fp_query_operand(q, kw_w, w)
     lib = cuda.library("fp_scan")
     rc = lib.omni_fp_scan_probe(
-        _ptr(emb), _ptr(bloom), _ptr(q), _ptr(kw_w), _ptr(kw_b), _ptr(add_row), _ptr(out),
-        n, d, w, b, c, VARIANTS[variant], cuda.stream_ptr(emb.device),
+        _ptr(emb), _ptr(bloom), _ptr(qkw), _ptr(kw_b), _ptr(add_row), _ptr(out),
+        n, d, w, b, qkw.shape[0], c, VARIANTS[variant], cuda.stream_ptr(emb.device),
     )
     cuda.check(lib, rc, f"profile_kernel[{variant}]")
     cuda.count_launch("profile_kernel")
     return out.transpose(0, 1) if full else out
 
 
-def query_tile(c: int) -> int:
-    """Queries one block of the CUDA kernel scores at block width c (its c
-    scores a query stay in shared memory): 32, 16 or 8."""
-    return cuda.library("fp_scan").omni_fp_scan_probe_tile(c)
+def query_tile(c: int, variant: str) -> int:
+    """Queries one block of the CUDA kernel scores (its wgmma N: 32, 16 or
+    8) at block width c and the tool's d and W: the largest whose resident
+    query operand and kept scores (c a query for full, 128 for cos and
+    coskw) fit in shared memory."""
+    return fp_query_tile(VARIANTS[variant], c, D, BITS // 8)
 
 
 def top_values_plain(s: torch.Tensor, t1: int = TOP):
@@ -188,7 +194,7 @@ def main(which: str = "all", n: int = N, device: str = "cuda", runs: int = 8) ->
                   flush=True)
             records.append({
                 "variant": variant, "c": c, "ms": ms, "qps": qps,
-                "query_tile": query_tile(c) if dev.type == "cuda" else None,
+                "query_tile": query_tile(c, variant) if dev.type == "cuda" else None,
                 "launches": cuda.LAUNCHES["profile_kernel"] - before,
             })
     print(json.dumps({"tool": "profile_kernel", "device": device_name(dev), "n": n, "d": D,

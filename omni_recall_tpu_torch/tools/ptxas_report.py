@@ -9,7 +9,10 @@ source: each kernel instantiation (its mangled name, the anonymous
 namespace's path hash dropped) with its registers and spill bytes.
 ``--against DIR`` also compiles the sources of the checkout at DIR and lists
 the instantiations whose numbers differ and those found on one side only.
-It needs ``nvcc``; it runs no kernel.
+Each line also counts the source's SASS opcodes of interest
+(``sass_counts``: ``HGMMA``, the tensor-core warpgroup products, and
+``UTMALDG``, the TMA loads), read with ``cuobjdump -sass``. It needs
+``nvcc``; it runs no kernel.
 """
 
 from __future__ import annotations
@@ -45,6 +48,18 @@ def parse(log: str) -> dict[str, dict[str, int]]:
     return kernels
 
 
+SASS_OPCODES = ("HGMMA", "UTMALDG")
+
+
+def sass_counts(lib: Path) -> dict[str, int]:
+    """How many instructions of each of ``SASS_OPCODES`` a built library's
+    SASS holds (``cuobjdump -sass``, beside nvcc)."""
+    cuobjdump = Path(cuda.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPCODES}
+
+
 def report(csrc_dirs: dict[str, Path]) -> dict[tuple[str, str], dict]:
     """Compile every source of each csrc directory (all at once) and parse
     ptxas's report: {(label, source): kernels}."""
@@ -77,7 +92,8 @@ def main() -> None:
     results = report(dirs)
     for src in cuda.SOURCES.values():
         mine = results[("this", src)]
-        line = {"source": src, "kernels": mine}
+        line = {"source": src, "kernels": mine,
+                "sass_counts": sass_counts(cuda.BUILD_DIR / "ptxas" / f"this_{Path(src).stem}.so")}
         if args.against:
             theirs = results[("against", src)]
             line["changed"] = {k: {"this": mine[k], "against": theirs[k]}

@@ -4,7 +4,9 @@ Marked ``cuda``: on a machine without a card every test here skips (the
 decision is taken in a fixture, so every worker collects the same tests).
 Run on the card with ``python -m pytest -m cuda --noconftest
 tests/test_torch_cuda.py``. Bitwise, except K2's sabs (any summation
-order, held to SABS_REL).
+order, held to SABS_REL) and K6 and T1 on inputs whose partial sums are not
+exact: their tensor-core sums are held to the parity rule's bound
+(ops/scorer.py fp_order_bound), bitwise on exactly-summable inputs.
 """
 
 import pytest
@@ -19,6 +21,7 @@ from omni_recall_tpu_torch.tools import (
     probe_serve,
     profile_bloomT,
     profile_kernel,
+    ptxas_report,
 )
 
 pytestmark = pytest.mark.cuda
@@ -97,54 +100,115 @@ def test_kw_scan_kernel(dev, w):
     assert _same(kv, pv) and _same(ki, pi)
 
 
+def _fp_inputs(dev, n, d, b, w, seed, exact):
+    """K6 / T1 operands. ``exact``: scorer.fp_exact_operands, whose partial
+    sums are exact in f32 whatever the order, while its f32 values are
+    mostly not bf16's (the bitwise check pins the rounding of every
+    operand). Rows 9 and 11 repeat row 4 (ties inside a slice). Otherwise
+    unit rows and queries and keyword weights in [0, 0.1) at min(5%, 51) a
+    query, one query's scaled so its keyword term clamps at 1."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if exact:
+        emb, q, kw = scorer.fp_exact_operands(g, n, d, b, w)
+    else:
+        # about 51 nonzero keyword weights a query, whatever the width: a
+        # query's terms hash to as many bits in a wider bloom
+        hit = torch.rand((b, 8 * w), generator=g, device=dev) < min(0.05, 51 / (8 * w))
+        emb = torch.randn((n, d), generator=g, device=dev)
+        emb /= emb.norm(dim=1, keepdim=True)
+        q = torch.randn((b, d), generator=g, device=dev)
+        q /= q.norm(dim=1, keepdim=True)
+        kw = torch.where(hit, torch.rand((b, 8 * w), generator=g, device=dev) * 0.1,
+                         torch.zeros((), device=dev))
+        kw[min(2, b - 1)] *= 20.0
+    o = _operands(dev, n, 16, b, w, seed=seed + 1)
+    bloom, add_row = o["bloom"], o["add_row"]
+    for r in (9, 11):  # exact score ties inside a slice
+        emb[r], bloom[r], add_row[0, r] = emb[4], bloom[4], add_row[0, 4]
+    return emb, bloom, q, kw, o["kw_b"], add_row
+
+
+def _fp_rule(kv, pv, q, rows, kw, d, granule=0, ki=None, pi=None, cos_weight=COSINE_WEIGHT):
+    """The parity rule's part (ii) (ops/scorer.py fp_order_bound): values
+    within the bound; with indices, equal in every clear slice, and at least
+    half the slices clear so the index check is not vacuous (chip_smoke.py
+    holds the serving shape to the 75% the rule states)."""
+    bound = scorer.fp_order_bound(pv, scorer.fp_cos_mass(q, rows), kw, d=d,
+                                  cos_weight=cos_weight, granule=granule)
+    got = scorer.fp_order_check(kv, pv, bound, ki, pi)
+    assert got["within"], got
+    if ki is not None:
+        assert got["indices_equal_where_clear"] and got["clear_share"] >= 0.5, got
+    return got
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("sub, t, d", [(512, 4, 768), (512, 1, 768), (256, 2, 100),
-                                       (1024, 4, 768)])
-def test_fp_scan_kernel(dev, dtype, sub, t, d):
-    """K6 on bf16 and f32 storage, packed (t1 >= 3) and two-reduce (t1 = 2)
-    extraction; bf16 at sub 1024 takes the 32-query tile, f32 rows cap the
-    block at 1024."""
-    g = torch.Generator(device=dev).manual_seed(5)
-    n, b, w = 8192, 45, 128
-    emb = torch.randn((n, d), generator=g, device=dev)
-    emb /= emb.norm(dim=1, keepdim=True)
-    q = torch.randn((b, d), generator=g, device=dev)
-    q /= q.norm(dim=1, keepdim=True)
-    o = _operands(dev, n, 16, b, w, seed=6)
-    kw = torch.where(torch.rand((b, 8 * w), generator=g, device=dev) < 0.05,
-                     torch.rand((b, 8 * w), generator=g, device=dev) * 0.1,
-                     torch.zeros((), device=dev))
-    args = (emb.to(dtype), o["bloom"], q, kw, o["kw_b"], o["add_row"])
+@pytest.mark.parametrize("sub, t, d, w, b", [(512, 4, 768, 128, 45), (512, 1, 768, 128, 45),
+                                             (256, 2, 100, 128, 45), (1024, 4, 768, 128, 45),
+                                             (512, 4, 768, 32, 45), (512, 4, 256, 16, 1),
+                                             (128, 4, 768, 24, 33), (512, 4, 768, 256, 45),
+                                             (512, 4, 256, 272, 20)])
+def test_fp_scan_kernel(dev, dtype, sub, t, d, w, b):
+    """K6 on bf16 and f32 storage (bf16 rows with d % 8 == 4 take the
+    producer's loads, not TMA), packed (t1 >= 3) and two-reduce (t1 = 2)
+    extraction, bloom widths a multiple of 16 and not (W = 24), the server's
+    default W = 256 (16-query tile) and W = 272 (bloom words past the first
+    256 bytes load in a second block), one query: bitwise on
+    exactly-summable inputs, within the order bound elsewhere."""
+    n = 8192
+    args = _fp_inputs(dev, n, d, b, w, seed=5, exact=True)
+    args = (args[0].to(dtype), *args[1:])
     before = cuda.LAUNCHES["fp_scan"]
     kv, ki = scorer.block_topt(*args, t=t, sub=sub)
     pv, pi = scorer.block_topt_plain(*args, t=t, sub=sub)
     assert cuda.LAUNCHES["fp_scan"] == before + 1
     assert _same(kv, pv) and _same(ki, pi)
 
+    emb, bloom, q, kw, kw_b, add_row = _fp_inputs(dev, n, d, b, w, seed=6, exact=False)
+    args = (emb.to(dtype), bloom, q, kw, kw_b, add_row)
+    kv, ki = scorer.block_topt(*args, t=t, sub=sub)
+    pv, pi = scorer.block_topt_plain(*args, t=t, sub=sub)
+    t1 = pv.shape[-1]
+    _fp_rule(kv, pv, q, args[0], kw, d, sub if scorer._packed_mode(sub, t1) else 0, ki, pi)
+
+
+# T1's query tile at d = 768, W = 128: cos and coskw keep 128 scores a query,
+# full keeps c
+T1_TILE = {"cos": {1024: 32, 2048: 32, 4096: 32}, "coskw": {1024: 32, 2048: 32, 4096: 32},
+           "full": {1024: 16, 2048: 8, 4096: 8}}
+
 
 @pytest.mark.parametrize("variant", list(profile_kernel.VARIANTS))
 @pytest.mark.parametrize("c, b", [(1024, 45), (2048, 45), (4096, 128), (1024, 8)])
 def test_profile_kernel_t1(dev, variant, c, b):
-    """T1's three variants over bf16 rows at each of the tool's blocks (query
-    tiles 32, 16 and 8), with batches that are not a multiple of the tile,
-    and serving-like sparse keyword weights."""
-    g = torch.Generator(device=dev).manual_seed(7)
+    """T1's three variants over bf16 rows at each of the tool's blocks, with
+    batches that are not a multiple of the tile: bitwise on exactly-summable
+    inputs, within the order bound elsewhere (T1-cos: the cosine itself)."""
     n, d, w = 8192, 768, 128
-    emb = torch.randn((n, d), generator=g, device=dev)
-    emb /= emb.norm(dim=1, keepdim=True)
-    q = torch.randn((b, d), generator=g, device=dev)
-    q /= q.norm(dim=1, keepdim=True)
-    kw = torch.where(torch.rand((b, 8 * w), generator=g, device=dev) < 0.03,
-                     torch.rand((b, 8 * w), generator=g, device=dev) * 0.1,
-                     torch.zeros((), device=dev))
-    o = _operands(dev, n, 16, b, w, seed=8)
-    args = (emb.to(torch.bfloat16), o["bloom"], q, kw, o["kw_b"], o["add_row"])
+    args = _fp_inputs(dev, n, d, b, w, seed=7, exact=True)
+    args = (args[0].to(torch.bfloat16), *args[1:])
     before = cuda.LAUNCHES["profile_kernel"]
     got = profile_kernel.profile_scan(variant, *args, c)
     want = profile_kernel.profile_scan_plain(variant, *args, c)
     assert cuda.LAUNCHES["profile_kernel"] == before + 1
     assert _same(got, want)
-    assert profile_kernel.query_tile(c) == {1024: 32, 2048: 16, 4096: 8}[c]
+    assert profile_kernel.query_tile(c, variant) == T1_TILE[variant][c]
+
+    emb, bloom, q, kw, kw_b, add_row = _fp_inputs(dev, n, d, b, w, seed=8, exact=False)
+    args = (emb.to(torch.bfloat16), bloom, q, kw, kw_b, add_row)
+    got = profile_kernel.profile_scan(variant, *args, c)
+    want = profile_kernel.profile_scan_plain(variant, *args, c)
+    cos_only = variant == "cos"
+    _fp_rule(got.transpose(0, 1), want.transpose(0, 1), q, args[0], None if cos_only else kw,
+             d, cos_weight=1.0 if cos_only else COSINE_WEIGHT)
+
+
+def test_fp_scan_sass_holds_hgmma(dev):
+    """K6 and T1's dots run on the tensor cores (HGMMA, the SASS of wgmma)
+    and the bf16 rows arrive by TMA (UTMALDG) in the built library."""
+    cuda.library("fp_scan")
+    counts = ptxas_report.sass_counts(cuda.BUILD_DIR / "libfp_scan.so")
+    assert counts["HGMMA"] > 0 and counts["UTMALDG"] > 0, counts
 
 
 @pytest.mark.parametrize("bits", [512, 1024])

@@ -223,3 +223,35 @@ def test_bf16_scan_storage_serves():
     tapp, jlog, tlog = _apps({**OVERRIDES, "Engine:ScanDtype": "bf16"})
     assert tapp.engine.device_index.scan_dtype == "bf16"
     assert tlog == jlog
+
+
+@pytest.mark.parametrize("method, path, title", [
+    ("POST", "/api/documents/train", "Local models"),
+    ("POST", "/api/chat", "Host-only providers and routes"),
+    ("POST", "/api/snapshot", "Snapshot, compact store and rebuild"),
+    ("GET", "/swagger/v1/swagger.json", "Host-only providers and routes"),
+    ("GET", "/swagger", "Host-only providers and routes"),
+    ("GET", "/", "Host-only providers and routes"),
+])
+def test_unported_routes_answer_501_naming_their_roadmap_item(method, path, title):
+    """The reference's six routes the port does not serve yet are registered
+    with its methods and paths: each answers a 501 problem naming its
+    ROADMAP.md item, never 404 or 405 (POST /api/documents/train must not
+    fall through to /api/documents/{document_id})."""
+    client = TClient(tbuild(tload(settings_file=None, env={}, overrides=OVERRIDES),
+                            device="cpu"))
+    call = client.post if method == "POST" else client.get
+    resp = call(path, json_body={}) if method == "POST" else call(path)
+    assert resp.status == 501
+    body = resp.json()
+    assert body["status"] == 501 and f'(ROADMAP.md, "{title}")' in body["detail"]
+
+
+def test_local_chat_provider_not_ported_raises():
+    """Ai:Provider=Local has no decoder or chat route behind it: the app
+    refuses it at construction instead of reporting ai-local healthy."""
+    config = tload(settings_file=None, env={}, overrides={**OVERRIDES, "Ai:Provider": "Local"})
+    with pytest.raises(NotImplementedError, match="Local models"):
+        tbuild(config, device="cpu")
+    remote = tload(settings_file=None, env={}, overrides={**OVERRIDES, "Ai:Provider": "Remote"})
+    assert tbuild(remote, device="cpu").config.ai.provider == "Remote"
