@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """On-card check of the PyTorch + CUDA port (omni_recall_tpu_torch) on one
-NVIDIA H100: ``python3 chip_smoke.py [--seed N]`` from the repository root.
+NVIDIA H100: ``python3 chip_smoke.py [--seed N] [--parent DIR]`` from the
+repository root.
 
 Phases, one JSON line each:
 
@@ -23,7 +24,13 @@ Phases, one JSON line each:
                 CUDA-event timed runs of each (K6's plain version, which
                 takes seconds, timed by the host clock over its one
                 comparison call), beside the least time the card could
-                take. Then the plain-torch xla scorer (no kernel of the
+                take. K1, K7a and K4 (csrc/int8_scan.cu, int8 wgmma) carry
+                the int8 cosine product alone (``torch._int_mm``) as their
+                yardstick, and, given ``--parent DIR`` (the root of an
+                earlier checkout whose csrc/scan.cu still serves them as
+                modes 0 and 1), that build's time on the same inputs,
+                timed before and after the kernel, and its output held
+                bitwise against the kernel's. Then the plain-torch xla scorer (no kernel of the
                 repository) at the same shape: its time beside its f32 floor,
                 its values against a float64 scan of a few queries. Then the
                 two profiling probes of tools/ at the same serving shapes:
@@ -178,8 +185,65 @@ def bound_ms(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, st
 # ---------------------------------------------------------------- phase 2
 
 
-def kernel_phase(seed: int) -> dict:
-    """Each kernel against its plain version at the serving shapes."""
+class ParentScan:
+    """The parent's K1 and K4, for the same-call A/B: csrc/scan.cu of an
+    earlier checkout (the root DIR of ``--parent``) whose omni_scan_topt
+    still serves them as modes 0 and 1 (__dp4a on the CUDA cores). Its nvcc
+    starts when this is made, beside the build of this checkout's kernels;
+    ``load`` waits for it."""
+
+    def __init__(self, root: str):
+        from omni_recall_tpu_torch.ops import cuda
+
+        src = os.path.join(root, "omni_recall_tpu_torch", "csrc", "scan.cu")
+        out = cuda.BUILD_DIR / "parent"
+        out.mkdir(parents=True, exist_ok=True)
+        self.path = out / "libscan.so"
+        self.proc = subprocess.Popen([cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-o", str(self.path),
+                                      src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                     text=True)
+        self.lib = None
+
+    def load(self) -> None:
+        import ctypes
+
+        log, _ = self.proc.communicate()
+        if self.proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the parent's scan.cu:\n{log}")
+        self.lib = ctypes.CDLL(str(self.path))
+        self.lib.omni_scan_topt.restype = ctypes.c_int
+        self.lib.omni_scan_topt.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                                            + [ctypes.c_void_p])
+
+    def __call__(self, mode: int, *, emb8, q8, add_row, scale_row, q_scale, q_bias, sub: int,
+                 t1: int, bloom=None, kw_w8=None, kw_b=None):
+        """Mode 0 (K1: q_scale takes the 0.7 weight here, as the wrapper
+        folds it) or 1 (K4) at slices of ``sub``, t1 entries a slice."""
+        import torch
+
+        from omni_recall_tpu_torch.ops import cuda, scorer
+        from omni_recall_tpu_torch.ops.oracle import COSINE_WEIGHT
+
+        (n, d), b = emb8.shape, q8.shape[0]
+        w = 0 if bloom is None else bloom.shape[1]
+        qs = (COSINE_WEIGHT * q_scale if mode == 0 else q_scale).reshape(-1)
+        kb = None if kw_b is None else kw_b.reshape(-1)
+        vals = torch.empty((b, n // sub, t1), dtype=torch.float32, device=emb8.device)
+        idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=emb8.device)
+        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+        rc = self.lib.omni_scan_topt(
+            ptr(emb8), ptr(bloom), ptr(q8), ptr(kw_w8), ptr(kb), ptr(add_row), ptr(scale_row),
+            ptr(qs), ptr(q_bias), ptr(vals), ptr(idxs), n, d, w, b, sub, t1, mode,
+            int(scorer._packed_mode(sub, t1)), cuda.stream_ptr(emb8.device))
+        if rc:
+            raise RuntimeError(f"the parent's scan.cu mode {mode} failed to launch ({rc})")
+        return vals, idxs
+
+
+
+def kernel_phase(seed: int, parent=None) -> dict:
+    """Each kernel against its plain version at the serving shapes;
+    ``parent`` (``ParentScan``) times the parent's K1 and K4 beside them."""
     import torch
 
     from omni_recall_tpu_torch.ops import exact_cos, scorer
@@ -207,24 +271,38 @@ def kernel_phase(seed: int) -> dict:
     q_bias = rf((b, 1), 0.01)
     results = {}
 
-    def scan_line(name, replaces, kern, plain, bytes_moved, ops):
+    def scan_line(name, replaces, kern, plain, bytes_moved, ops, library=(None, None),
+                  parent=None):
         kv, ki = kern()
         pv, pi = plain()
         torch.cuda.synchronize()
         ok = bitwise(kv, pv) and bitwise(ki, pi)
         err = float((kv - pv).abs().max())
+        ab = {}
+        if parent is not None:  # the same-call A/B: parent, kernel, kernel, parent
+            rv, ri = parent()
+            torch.cuda.synchronize()
+            ab["parent_bitwise"] = bitwise(rv, kv) and bitwise(ri, ki)
+            ab["parent_ms"] = time_ms(parent, device_only=True)
         ms = time_ms(kern, device_only=True)
+        if parent is not None:
+            ab["ms_after"] = time_ms(kern, device_only=True)
+            ab["parent_ms_after"] = time_ms(parent, device_only=True)
         plain_ms = time_ms(plain)
         bms, by = bound_ms(bytes_moved, ops, INT8_OPS_PER_S)
         line = dict(name=name, replaces=replaces, shape=list(kv.shape),
                     parity=bitwise_parity(ok), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=None)
+                    bound_ms=bms, bound_by=by, library_ms=library[0], library=library[1],
+                    **ab)
         emit({"phase": "kernel", **line})
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        if not ab.get("parent_bitwise", True):
+            raise AssertionError(f"{name}: kernel disagrees with the parent's build")
         return line
 
     out_bytes = lambda t1, sub: b * (n // sub) * t1 * 8  # noqa: E731
+    int_mm = int_mm_yardstick(q8, emb8)
     # K1 in the serving layout (sub 1024, t 2 -> packed keys), and its
     # two-reduce mode (t 1 -> t1 = 2) at the same shapes
     for mode, sub, t, replaces in (("packed", 1024, 2, 628), ("two_reduce", 1024, 1, 679)):
@@ -237,7 +315,10 @@ def kernel_phase(seed: int) -> dict:
             lambda: scorer.block_topt_int8_coarse_plain(
                 emb8, q8, add_row, scale_row, q_scale, q_bias, t=t, sub=sub),
             n * d + b * d + 8 * n + 8 * b + out_bytes(t1, sub),
-            2.0 * n * d * b,
+            2.0 * n * d * b, int_mm,
+            parent and (lambda: parent(  # noqa: B023
+                0, emb8=emb8, q8=q8, add_row=add_row, scale_row=scale_row,
+                q_scale=q_scale, q_bias=q_bias, sub=sub, t1=t1)),  # noqa: B023
         )
     # K4 at the rescue layout (_select_scorer: sub 512, t 4)
     results["fused"] = scan_line(
@@ -247,7 +328,10 @@ def kernel_phase(seed: int) -> dict:
         lambda: scorer.block_topt_int8_plain(
             emb8, bloom, q8, kw_w8, kw_b, add_row, scale_row, q_scale, q_bias, t=4, sub=512),
         n * d + n * w + b * d + b * 8 * w + 8 * n + 12 * b + out_bytes(5, 512),
-        2.0 * n * b * (d + 8 * w),
+        2.0 * n * b * (d + 8 * w), int_mm,
+        parent and (lambda: parent(
+            1, emb8=emb8, bloom=bloom, q8=q8, kw_w8=kw_w8, kw_b=kw_b, add_row=add_row,
+            scale_row=scale_row, q_scale=q_scale, q_bias=q_bias, sub=512, t1=5)),
     )
     # K5 at the keyword-scan layout (_coarse_layout: sub 1024, t 4)
     results["kw"] = scan_line(
@@ -1482,6 +1566,8 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--parent", help="root of an earlier checkout whose csrc/scan.cu "
+                        "serves K1 and K4 (modes 0, 1): their times beside the kernels'")
     args = parser.parse_args()
 
     import torch
@@ -1496,12 +1582,15 @@ def main() -> int:
     smi = nvidia_smi()
     nvcc = subprocess.run([cuda.nvcc_path(), "--version"], check=True,
                           capture_output=True, text=True).stdout.strip().splitlines()[-1]
+    parent = ParentScan(args.parent) if args.parent else None
     build_s = cuda.build_all(force=True)
+    if parent is not None:
+        parent.load()
     emit({"phase": "env", "torch": torch.__version__, "cuda": torch.version.cuda,
           "nvcc": nvcc, "gpu": smi, "kernel_build_s": build_s,
           "device": torch.cuda.get_device_name(0)})
 
-    k = kernel_phase(args.seed)
+    k = kernel_phase(args.seed, parent)
 
     paths: dict = {}
     profile = profile_path(paths)
@@ -1557,11 +1646,18 @@ def main() -> int:
                          "sum_port_design_ms": stages["sum_port_design_ms"]})
 
     scan_src = "omni_recall_tpu_torch/csrc/scan.cu"
+    int8_src = "omni_recall_tpu_torch/csrc/int8_scan.cu"
     fp_src = "omni_recall_tpu_torch/csrc/fp_scan.cu"
     rescue = k["refine_rescue"]
+    ab_keys = ("library", "parent_ms", "parent_ms_after", "ms_after", "parent_bitwise")
+
+    def int8_entry(name, route_key, line):
+        return entry(name, route_key, int8_src, line,
+                     {key: line[key] for key in ab_keys if key in line})
+
     kernels = [
-        entry("K1 coarse_scan", "coarse_scan", scan_src, k["coarse_packed"]),
-        entry("K7a coarse_scan pair mode", "coarse_pair", scan_src, k["coarse_two_reduce"]),
+        int8_entry("K1 coarse_scan", "coarse_scan", k["coarse_packed"]),
+        int8_entry("K7a coarse_scan pair mode", "coarse_pair", k["coarse_two_reduce"]),
         entry("K2 dd_rows", "dd_rows", "omni_recall_tpu_torch/csrc/dd_rows.cu", k["dd"],
               {"sabs_rel_err": k["dd"]["sabs_rel_err"]}),
         entry("K3 refine", "refine", "omni_recall_tpu_torch/csrc/refine.cu",
@@ -1571,7 +1667,7 @@ def main() -> int:
                   "rescue_shape": {key: rescue[key] for key in (
                       "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                       "max_abs_err")}}),
-        entry("K4 fused_scan", "fused_scan", scan_src, k["fused"]),
+        int8_entry("K4 fused_scan", "fused_scan", k["fused"]),
         entry("K5 kw_scan", "kw_scan", scan_src, k["kw"]),
         entry("K6 fp_scan", "fp_scan", fp_src, k["fp_bf16"], {
             "storage": "bf16", "plain_runs": 1,

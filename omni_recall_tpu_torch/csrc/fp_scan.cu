@@ -103,6 +103,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
 #include "topt_extract.cuh"
 
 namespace {
@@ -124,7 +125,6 @@ constexpr float kCosW = 0.7f;             // COSINE_WEIGHT
 constexpr float kKwW = 0.2f;              // KEYWORD_WEIGHT
 constexpr int kT1Wide = 128;              // rows of a block T1-cos / T1-coskw write
 constexpr int kT1Top = 9;                 // values of a block T1-full writes
-constexpr int kErrTensorMap = -3;         // cuTensorMapEncodeTiled refused a descriptor
 
 // what the kernel computes: K6, or one of the T1 probe's three bodies
 enum Variant : int { kK6 = 0, kT1Cos = 1, kT1CosKw = 2, kT1Full = 3 };
@@ -145,66 +145,10 @@ struct Args {
   int groups;             // G: groups a block walks
 };
 
-// ---- PTX helpers ----
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                            uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
+using namespace omni;
 
 __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart (the stride byte offset); the leading offset is unused
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
 // D[64 x N] += A[64 x 16] * B[16 x N]: A from shared memory (ss) or
@@ -299,101 +243,6 @@ __device__ __forceinline__ uint32_t bloom_word(const Args& a, const uint8_t* row
   for (int o = 0; o < 4; ++o)
     if (byte0 + o < a.w) x |= static_cast<uint32_t>(__ldg(row + byte0 + o)) << (8 * o);
   return x;
-}
-
-// The literal max-and-mask rounds of topt_extract.cuh's extract_query over
-// slices of sub = 32 PER rows, with each lane's PER scores of a slice in
-// registers: no shared-memory round trips inside the rounds. Same output,
-// bit for bit: lane k holds rows lane + 32 k, so the lowest row among equal
-// values is the lowest (k, lane). Lane r keeps round r's entry and the
-// first t1 (<= 32) lanes store them together.
-template <int PER, bool WRITE_IDXS>
-__device__ void extract_regs(const float* sc, int R, int t1, int packed, long row0,
-                             long n_slices, int qg, float* out_vals, int32_t* out_idxs,
-                             int lane) {
-  constexpr int sub = 32 * PER;
-  for (int sl = 0; sl < R / sub; ++sl) {
-    const float* ss = sc + sl * sub;
-    const long base = row0 + (long)sl * sub;
-    const size_t o = ((size_t)qg * n_slices + base / sub) * t1;
-    float my_v = 0.0f;
-    int my_i = 0;
-    if (packed) {
-      constexpr int lmask = sub - 1;
-      int key[PER];
-#pragma unroll
-      for (int k = 0; k < PER; ++k) {
-        const int e = lane + 32 * k;
-        const int si = __float_as_int(ss[e]);
-        const int kf = si ^ ((si >> 31) & 0x7FFFFFFF);
-        key[k] = (kf & ~lmask) | (lmask - (e & lmask));
-      }
-      for (int r = 0; r < t1; ++r) {
-        int m = key[0];
-#pragma unroll
-        for (int k = 1; k < PER; ++k) m = max(m, key[k]);
-        m = omni::warp_max_i(m);
-        if (lane == r) {
-          my_v = omni::decode_up(m, lmask);
-          my_i = (r == t1 - 1) ? -2 : (int)((lmask - (m & lmask)) + base);
-        }
-#pragma unroll
-        for (int k = 0; k < PER; ++k)
-          if (key[k] == m) key[k] = INT_MIN;
-      }
-    } else {
-      float val[PER];
-#pragma unroll
-      for (int k = 0; k < PER; ++k) val[k] = ss[lane + 32 * k];
-      for (int r = 0; r < t1; ++r) {
-        float v = __int_as_float(0xff800000);  // -inf
-#pragma unroll
-        for (int k = 0; k < PER; ++k) v = fmaxf(v, val[k]);
-        v = omni::warp_max_f(v);
-        if (r == t1 - 1) {
-          if (lane == r) { my_v = v; my_i = -2; }
-          break;
-        }
-        int hit = sub;  // lowest row among ties
-#pragma unroll
-        for (int k = PER - 1; k >= 0; --k)
-          if (val[k] == v) hit = lane + 32 * k;
-        hit = omni::warp_min_i(hit);
-        if (lane == r) { my_v = v; my_i = (int)(hit + base); }
-#pragma unroll
-        for (int k = 0; k < PER; ++k)
-          if (lane + 32 * k == hit) val[k] = omni::kExtractNegInf;
-      }
-    }
-    if (lane < t1) {
-      out_vals[o + lane] = my_v;
-      if (WRITE_IDXS) out_idxs[o + lane] = my_i;
-    }
-  }
-}
-
-// extraction of one query's R scores at slices of sub: in registers where
-// sub is 128, 256, 512 or 1024 and t1 <= 32, else topt_extract.cuh's rounds
-// in shared memory (which overwrite the scores)
-template <bool WRITE_IDXS>
-__device__ void extract_slices(float* sc, int R, int sub, int t1, int packed, long row0,
-                               long n_slices, int qg, float* out_vals, int32_t* out_idxs,
-                               int lane) {
-  if (t1 <= 32) {
-    switch (sub) {
-      case 128: return extract_regs<4, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
-                                                   out_vals, out_idxs, lane);
-      case 256: return extract_regs<8, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
-                                                   out_vals, out_idxs, lane);
-      case 512: return extract_regs<16, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
-                                                    out_vals, out_idxs, lane);
-      case 1024: return extract_regs<32, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
-                                                     out_vals, out_idxs, lane);
-      default: break;
-    }
-  }
-  omni::extract_query<WRITE_IDXS>(sc, R, sub, t1, packed, row0, n_slices, qg, out_vals,
-                                  out_idxs, lane);
 }
 
 // score columns a block keeps per query: the group's rows, or T1-cos /
@@ -639,42 +488,10 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 // ---- host side ----
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from libcuda, found by the runtime's entry-point query (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &status);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // a bf16 [rows, cols] row-major matrix read in [box_rows, 64] boxes with the
 // 128-byte swizzle; zero fill past its edges
 bool bf16_map(CUtensorMap* map, const void* ptr, long rows, long cols, int box_rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kChunk, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, rows, cols, box_rows);
 }
 
 struct Launch {

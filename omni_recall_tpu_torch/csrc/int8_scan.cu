@@ -1,0 +1,578 @@
+// Hand-written Hopper (sm_90a) kernels for the int8 hybrid scans K1 (with its
+// pair mode K7a) and K4, on the tensor cores (wgmma, s8 in, s32 accumulators).
+//
+// Replaces omni_recall_tpu/ops/pallas_scorer.py:
+//
+//   K1  block_topt_int8_coarse: the pallas_call at :628 (body
+//       _make_topt_kernel_int8_coarse_keys_t :347), its pair emit K7a (:679, body
+//       _make_topt_kernel_int8_coarse :269) and its B-major keys K7b (:655); all
+//       three decode to the same values, so one kernel serves them:
+//         score = fma(cosd * q_scale, scale_row, add_row) + q_bias + 4e-3
+//       (q_scale arrives pre-multiplied by the 0.7 cosine weight)
+//   K4  block_topt_int8: the pallas_call at :824 (body _make_topt_kernel_int8 :200,
+//       _ub_block_int8 :212), the certificate-miss rescue scan:
+//         kw    = min(fma(kwd, 1/127, kw_b), 1)
+//         score = fma(0.7, (cosd * q_scale) * scale_row, 0.2 * kw)
+//               + add_row + q_bias + 4e-3
+//
+// with cosd = sum_k q8[b, k] emb8[r, k] and kwd = sum_j kw_w8[b, j] bit_j(bloom[r])
+// (bit j of a bloom row is bit j / W of byte j % W), then the per-slice
+// top-(t1-1) + bound extraction of _extract_topt (pallas_scorer.py:105) in both
+// of its modes (topt_extract.cuh), writing the decoded [B, slices, t1] contract.
+// The dots sum int8 products in int32, exact in any order, and the f32
+// epilogue follows the JAX graphs operation by operation (__fmaf_rn where XLA's
+// compiler contracts them, one rounding per operation elsewhere; the library
+// builds with -fmad=false): the output is bit for bit the plain version's.
+//
+// What bounds it on the H100: at the serving shapes (N = 2^20, d = 768, W = 128,
+// B = 448) K1 does 2*N*d*B = 7.2e11 int8 operations over 805 MB of rows (0.365
+// ms at the 1979 TOP/s int8 tensor-core peak), K4 2*N*B*(d + 8W) = 1.7e12 over
+// 940 MB (0.851 ms): both operation-bound. This design streams every row once
+// per query tile of QT queries, so its own floor is the L2-to-SM traffic:
+// B / QT tiles x the rows' bytes (K1: 14 x 0.805 GB at QT = 32; K4 adds the
+// bloom bytes).
+//
+// Design (the shape of fp_scan.cu's K6, with int8 operands):
+// - Rows are wgmma operand A (m64nQTk32.s32.s8.s8: 64 rows a consumer
+//   warpgroup, two warpgroups, 128 rows a tile); the query tile is operand B
+//   (N = QT = 32, 16 or 8 queries, the largest whose operands, scores and a
+//   ring of three stages fit in shared memory). Both are K-major, as integer
+//   wgmma requires: rows [N, d] and queries [B, d] are laid out that way.
+// - A producer warpgroup (one thread issuing TMA) keeps a ring of stages full,
+//   each [128 rows x 128 bytes] in the 128-byte swizzle (zero fill past d),
+//   guarded by mbarriers (full: loaded; empty: both consumer warpgroups done);
+//   as many stages as shared memory leaves room for, up to eight.
+// - The query operand (q8, and for K4 the keyword weights) is loaded by TMA
+//   once a block and stays resident (zero fill past d and past the batch).
+// - K4's keyword dot takes operand A from registers. The wrapper permutes the
+//   keyword-weight columns (ops/scorer.py int8_kw_columns) so that in k-step
+//   ks = 4 v + p a thread's A bytes are bit planes 2p and 2p + 1 of its
+//   v-th word of four bloom bytes, quad * W'/4 + 4 v + 0..3 (W' = W rounded up
+//   to 16; bytes past W are 0): one 32-bit load a row gives four k-steps, a
+//   shift and a mask each register. The bloom bytes are read once a tile,
+//   with no divisions and no shared-memory staging.
+// - The scores stay on the SM: the epilogue runs on the accumulators and
+//   stores f32 scores into a [QT][R + 4] shared buffer (R = max(sub, 128)
+//   rows, one group of whole slices); the eight consumer warps then run the
+//   extraction rounds on it (extract_slices), while the producer already loads
+//   the next group's rows.
+// - Registers: each kernel has its own argument struct and
+//   __launch_bounds__(384, 1); the producer gives up registers (setmaxnreg.dec
+//   to 40) and the consumers take them (setmaxnreg.inc to 232).
+// - Launch order for L2: grid.x is the query tile, so the B / QT tiles of one
+//   row block are adjacent in launch order and read its rows from device
+//   memory once, from L2 after that. A block walks G groups (G a power of two,
+//   at least 8 waves of blocks), so the resident operand is loaded once for
+//   G * R rows.
+
+#include <climits>
+#include <cstdint>
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include "hopper.cuh"
+#include "topt_extract.cuh"
+
+namespace {
+
+using namespace omni;
+
+constexpr int kWg = 128;                  // threads of a warpgroup
+constexpr int kThreads = 3 * kWg;         // producer warpgroup + two consumers
+constexpr int kConsumers = 2 * kWg;
+constexpr int kMaxSmem = 232448;
+constexpr int kTileRows = 128;            // rows of a stage: 64 per consumer warpgroup
+constexpr int kChunk = 128;               // K bytes of a stage: one 128-byte swizzle atom
+constexpr int kStageBytes = kTileRows * kChunk;
+constexpr int kMinStages = 3;
+constexpr int kMaxStages = 8;
+constexpr int kScorePad = 4;              // floats of padding per score row
+constexpr int kWaveBlocks = 132 * 8;      // at least this many blocks, where the rows allow
+constexpr int kMaxGroups = 64;            // groups a block walks at most
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr int kKwWords = 8;               // bloom words of a row a thread holds at once
+constexpr float kEpsInt8 = 4e-3f;         // PALLAS_CERT_EPS_INT8
+constexpr float kCosW = 0.7f;             // COSINE_WEIGHT
+constexpr float kKwW = 0.2f;              // KEYWORD_WEIGHT
+constexpr float kInv127 = (float)(1.0 / 127.0);
+
+// K1's arguments
+struct CoarseArgs {
+  static constexpr bool kKw = false;
+  const float* add_row;   // [n]
+  const float* scale_row; // [n]
+  const float* q_scale;   // [b], 0.7 folded in
+  const float* q_bias;    // [b]
+  float* out_vals;
+  int32_t* out_idxs;
+  int n, b, sub, t1, packed;
+  int kq;                 // 128-byte K chunks of the rows and queries
+  int rows_per_group;     // R: whole slices
+  int groups;             // G: groups a block walks
+  int stages;             // ring stages
+};
+
+// K4's arguments: K1's and the keyword operands
+struct FusedArgs : CoarseArgs {
+  static constexpr bool kKw = true;
+  const uint8_t* bloom;   // [n, w]
+  const float* kw_b;      // [b]
+  int w;
+  int wp;                 // w rounded up to 16
+  int kk;                 // 128-byte K chunks of the keyword operand (wp / 16)
+};
+
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+// D[64 x N] += A[64 x 32] * B[32 x N] in s8 x s8 -> s32: A from shared memory
+// (ss) or registers (rs), B from shared memory
+template <int N>
+__device__ void wgmma_ss(int (&d)[N / 2], uint64_t da, uint64_t db);
+template <int N>
+__device__ void wgmma_rs(int (&d)[N / 2], const uint32_t (&a)[4], uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(int (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+      "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+      "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(int (&d)[16], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15 "
+      "}, {%16, %17, %18, %19}, %20, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+      "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+      "+r"(d[14]), "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(int (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, %8, %9, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+      "+r"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(int (&d)[8], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7 "
+      "}, {%8, %9, %10, %11}, %12, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+      "+r"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(int (&d)[4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3 "
+      "}, %4, %5, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "l"(da), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<8>(int (&d)[4], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k32.s32.s8.s8 {"
+      "%0, %1, %2, %3 "
+      "}, {%4, %5, %6, %7}, %8, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// bit plane k of four bloom bytes: four 0/1 int8 lanes
+__device__ __forceinline__ uint32_t plane(uint32_t x, int k) { return (x >> k) & 0x01010101u; }
+
+// the four bloom bytes byte0 .. byte0 + 3 of one row (0 past W)
+__device__ __forceinline__ uint32_t bloom_word(const FusedArgs& a, const uint8_t* row, int byte0) {
+  if ((a.w & 15) == 0) return __ldg(reinterpret_cast<const uint32_t*>(row + byte0));
+  uint32_t x = 0;
+#pragma unroll
+  for (int o = 0; o < 4; ++o)
+    if (byte0 + o < a.w) x |= static_cast<uint32_t>(__ldg(row + byte0 + o)) << (8 * o);
+  return x;
+}
+
+// a thread's next kKwWords bloom words of one row, from byte0 on (`words` of
+// them are inside W'; the rest 0): two 16-byte loads where W % 64 == 0
+__device__ __forceinline__ void bloom_words(const FusedArgs& a, const uint8_t* row, int byte0,
+                                            int words, uint32_t (&x)[kKwWords]) {
+  if ((a.w & 63) == 0 && words >= kKwWords) {
+    const uint4 lo = __ldg(reinterpret_cast<const uint4*>(row + byte0));
+    const uint4 hi = __ldg(reinterpret_cast<const uint4*>(row + byte0 + 16));
+    x[0] = lo.x; x[1] = lo.y; x[2] = lo.z; x[3] = lo.w;
+    x[4] = hi.x; x[5] = hi.y; x[6] = hi.z; x[7] = hi.w;
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kKwWords; ++j) x[j] = j < words ? bloom_word(a, row, byte0 + 4 * j) : 0u;
+}
+
+constexpr size_t smem_bytes(int qt, int kchunks, int stages, int rows) {
+  return 1024 + (size_t)qt * kChunk * kchunks + (size_t)stages * kStageBytes +
+         (size_t)qt * (rows + kScorePad) * 4 + (2 * stages + 1) * 8;
+}
+
+template <int QT, class A>
+__global__ void __launch_bounds__(kThreads, 1)
+    int8_scan_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap rmap, const A a) {
+  constexpr bool kKw = A::kKw;
+  constexpr int NACC = QT / 2;  // accumulator registers a thread, per dot
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  int kk = 0;
+  if constexpr (kKw) kk = a.kk;
+  const int kchunks = a.kq + kk;
+  unsigned char* bq = sm;                                  // [kchunks][QT][128 B]
+  unsigned char* ring = bq + (size_t)QT * kChunk * kchunks;  // [stages][128 rows][128 B]
+  float* sc = reinterpret_cast<float*>(ring + (size_t)a.stages * kStageBytes);
+  const int R = a.rows_per_group;
+  const int SS = R + kScorePad;                            // score row stride
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sc + (size_t)QT * SS);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + a.stages);
+  const uint32_t bq_full = smem_u32(bars + 2 * a.stages);
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * QT;
+  const long row_base = (long)blockIdx.y * a.groups * R;
+
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    mbar_init(bq_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < kWg) {
+    // ---- producer warpgroup: one thread issues every TMA load ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      mbar_expect_tx(bq_full, (uint32_t)(QT * kChunk * kchunks));
+      for (int c = 0; c < a.kq; ++c)
+        tma_load_2d(smem_u32(bq + (size_t)c * QT * kChunk), &qmap, c * kChunk, q0, bq_full);
+      for (int c = 0; c < kk; ++c)
+        tma_load_2d(smem_u32(bq + (size_t)(a.kq + c) * QT * kChunk), &kmap, c * kChunk, q0,
+                    bq_full);
+      int stage = 0;
+      uint32_t phase = 0;
+      const int tiles = a.groups * (R / kTileRows);
+      for (int t = 0; t < tiles; ++t) {
+        const int row0 = (int)(row_base + (long)t * kTileRows);
+        for (int kc = 0; kc < a.kq; ++kc) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full0 + 8 * stage, kStageBytes);
+          tma_load_2d(smem_u32(ring + (size_t)stage * kStageBytes), &rmap, kc * kChunk, row0,
+                      full0 + 8 * stage);
+          if (++stage == a.stages) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    const int ctid = tid - kWg, cw = ctid >> 5, lane = tid & 31;
+    const int g = cw >> 2;                                  // which 64 rows of a tile
+    const int rl0 = g * 64 + (cw & 3) * 16 + (lane >> 2);   // accumulator rows rl0, rl0 + 8
+    const int quad = lane & 3;
+    const uint32_t bq_addr = smem_u32(bq), ring_addr = smem_u32(ring);
+
+    // per-query terms of the thread's queries (j8 * 8 + quad * 2 + h)
+    float qsc[NACC / 2], qb[NACC / 2], kb[NACC / 2];
+#pragma unroll
+    for (int i = 0; i < NACC / 2; ++i) {
+      const int qg = q0 + (i >> 1) * 8 + quad * 2 + (i & 1);
+      const bool ok = qg < a.b;
+      qsc[i] = ok ? a.q_scale[qg] : 0.0f;
+      qb[i] = ok ? a.q_bias[qg] : 0.0f;
+      kb[i] = 0.0f;
+      if constexpr (kKw) kb[i] = ok ? a.kw_b[qg] : 0.0f;
+    }
+    mbar_wait(bq_full, 0);
+
+    int stage = 0;
+    uint32_t phase = 0;
+    const long n_slices = a.n / a.sub;
+    for (int grp = 0; grp < a.groups; ++grp) {
+      const long grow0 = row_base + (long)grp * R;
+      for (int tt = 0; tt < R / kTileRows; ++tt) {
+        const long trow = grow0 + (long)tt * kTileRows;
+        const float ar0 = a.add_row[trow + rl0], ar1 = a.add_row[trow + rl0 + 8];
+        const float sr0 = a.scale_row[trow + rl0], sr1 = a.scale_row[trow + rl0 + 8];
+        int acc_c[NACC], acc_k[NACC];
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc_c[i] = acc_k[i] = 0;
+
+        // K4: the thread's first bloom words of its two rows, in flight
+        // during the cosine dot
+        const uint8_t* row_a = nullptr;
+        const uint8_t* row_b = nullptr;
+        int words = 0, byte0 = 0;
+        uint32_t xa[kKwWords], xb[kKwWords];
+        if constexpr (kKw) {
+          row_a = a.bloom + (size_t)(trow + rl0) * a.w;
+          row_b = row_a + (size_t)8 * a.w;
+          words = a.wp >> 4;
+          byte0 = quad * (a.wp >> 2);
+          bloom_words(a, row_a, byte0, words, xa);
+          bloom_words(a, row_b, byte0, words, xb);
+        }
+
+        // cosine: A = the stage's rows, B = the resident queries; a stage
+        // goes back to the producer as soon as its wgmmas are done
+        for (int kc = 0; kc < a.kq; ++kc) {
+          mbar_wait(full0 + 8 * stage, phase);
+          wg_fence();
+          const uint32_t a_addr = ring_addr + stage * kStageBytes + g * 64 * kChunk;
+          const uint32_t b_addr = bq_addr + kc * QT * kChunk;
+#pragma unroll
+          for (int ks = 0; ks < kChunk / 32; ++ks)
+            wgmma_ss<QT>(acc_c, sw128_desc(a_addr + ks * 32), sw128_desc(b_addr + ks * 32));
+          wg_commit();
+          wg_wait_all();
+          mbar_arrive(empty0 + 8 * stage);
+          if (++stage == a.stages) { stage = 0; phase ^= 1; }
+        }
+
+        // keyword: A = bit planes of the bloom words in registers, B = the
+        // resident (permuted) keyword weights; word v is B's chunk kq + v
+        if constexpr (kKw) {
+          for (int v0 = 0; v0 < words; v0 += kKwWords) {
+            if (v0 > 0) {
+              bloom_words(a, row_a, byte0 + 4 * v0, words - v0, xa);
+              bloom_words(a, row_b, byte0 + 4 * v0, words - v0, xb);
+            }
+#pragma unroll
+            for (int j = 0; j < kKwWords; j += 2) {
+              if (v0 + j >= words) break;
+              uint32_t af[8][4];
+#pragma unroll
+              for (int u = 0; u < 2; ++u)
+#pragma unroll
+                for (int p = 0; p < 4; ++p) {
+                  af[4 * u + p][0] = plane(xa[j + u], 2 * p);
+                  af[4 * u + p][1] = plane(xb[j + u], 2 * p);
+                  af[4 * u + p][2] = plane(xa[j + u], 2 * p + 1);
+                  af[4 * u + p][3] = plane(xb[j + u], 2 * p + 1);
+                }
+              wg_fence();
+#pragma unroll
+              for (int u = 0; u < 2; ++u) {
+                if (v0 + j + u < words) {
+                  const uint32_t b_addr = bq_addr + (a.kq + v0 + j + u) * QT * kChunk;
+#pragma unroll
+                  for (int p = 0; p < 4; ++p)
+                    wgmma_rs<QT>(acc_k, af[4 * u + p], sw128_desc(b_addr + p * 32));
+                }
+              }
+              wg_commit();
+              wg_wait_all();
+            }
+          }
+        }
+
+        // f32 epilogue in the JAX operation order, into the score buffer
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) {
+          const int ql = (i >> 2) * 8 + quad * 2 + (i & 1);
+          const int rl = rl0 + 8 * ((i >> 1) & 1);
+          const int j = ((i >> 2) << 1) | (i & 1);
+          const float ar = (i & 2) ? ar1 : ar0, sr = (i & 2) ? sr1 : sr0;
+          float s;
+          if constexpr (kKw) {
+            const float kw = fminf(__fmaf_rn((float)acc_k[i], kInv127, kb[j]), 1.0f);
+            const float cos = __fmul_rn(__fmul_rn((float)acc_c[i], qsc[j]), sr);
+            s = __fmaf_rn(kCosW, cos, __fmul_rn(kKwW, kw));
+            s = __fadd_rn(__fadd_rn(__fadd_rn(s, ar), qb[j]), kEpsInt8);
+          } else {
+            s = __fmaf_rn(__fmul_rn((float)acc_c[i], qsc[j]), sr, ar);
+            s = __fadd_rn(__fadd_rn(s, qb[j]), kEpsInt8);
+          }
+          sc[ql * SS + tt * kTileRows + rl] = s;
+        }
+      }
+      consumer_sync();
+
+      // extraction: consumer warp cw owns queries cw, cw + 8, ...
+      for (int ql = cw; ql < QT; ql += kConsumers / 32) {
+        const int qg = q0 + ql;
+        if (qg >= a.b) break;  // warp-uniform; later queries are further out
+        extract_slices<true>(sc + ql * SS, R, a.sub, a.t1, a.packed, grow0, n_slices, qg,
+                             a.out_vals, a.out_idxs, lane);
+      }
+      consumer_sync();
+    }
+  }
+}
+
+// ---- host side ----
+
+// the largest query tile (32, 16, 8) whose operands, scores and a ring of
+// kMinStages stages fit; 0 if none
+int pick_tile(int kchunks, int rows) {
+  for (int qt = 32; qt >= 8; qt /= 2)
+    if (smem_bytes(qt, kchunks, kMinStages, rows) <= (size_t)kMaxSmem) return qt;
+  return 0;
+}
+
+// ring stages: as many as fit beside the tile, up to kMaxStages
+int pick_stages(int qt, int kchunks, int rows) {
+  int s = kMinStages;
+  while (s < kMaxStages && smem_bytes(qt, kchunks, s + 1, rows) <= (size_t)kMaxSmem) ++s;
+  return s;
+}
+
+// groups a block walks: the largest power of two (at most kMaxGroups) that
+// divides the row groups and leaves at least kWaveBlocks blocks
+int pick_groups(long row_groups, int q_tiles) {
+  int g = 1;
+  while (g * 2 <= kMaxGroups && row_groups % (g * 2) == 0 &&
+         (row_groups / (g * 2)) * q_tiles >= kWaveBlocks)
+    g *= 2;
+  return g;
+}
+
+bool uint8_map(CUtensorMap* map, const void* ptr, long rows, long cols, int box_rows) {
+  return sw128_map(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, ptr, rows, cols, box_rows);
+}
+
+// the operands' global layouts: rows i8 [n, d], queries i8 [b, d], and K4's
+// permuted keyword weights i8 [b, 8 wp]
+struct Operands {
+  const void* emb8;
+  const void* q8;
+  const void* kw8;
+  int d;
+};
+
+template <int QT, class A>
+int launch_tile(A a, const Operands& o, cudaStream_t stream) {
+  int kk = 0;
+  if constexpr (A::kKw) kk = a.kk;
+  const int kchunks = a.kq + kk;
+  CUtensorMap qmap, kmap, rmap;
+  if (!uint8_map(&qmap, o.q8, a.b, o.d, QT)) return kErrTensorMap;
+  if (!uint8_map(&rmap, o.emb8, a.n, o.d, kTileRows)) return kErrTensorMap;
+  kmap = qmap;  // K1: unused
+  if (kk && !uint8_map(&kmap, o.kw8, a.b, (long)kChunk * kk, QT)) return kErrTensorMap;
+  a.stages = pick_stages(QT, kchunks, a.rows_per_group);
+  const size_t smem = smem_bytes(QT, kchunks, a.stages, a.rows_per_group);
+  const int q_tiles = (a.b + QT - 1) / QT;
+  const long row_groups = a.n / a.rows_per_group;
+  a.groups = pick_groups(row_groups, q_tiles);
+  if (row_groups / a.groups > 65535) return -1;
+  auto kernel = int8_scan_kernel<QT, A>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(q_tiles, (unsigned)(row_groups / a.groups));
+  kernel<<<grid, kThreads, smem, stream>>>(qmap, kmap, rmap, a);
+  return (int)cudaGetLastError();
+}
+
+template <class A>
+int launch(const A& a, int kchunks, const Operands& o, cudaStream_t stream) {
+  switch (pick_tile(kchunks, a.rows_per_group)) {
+    case 32: return launch_tile<32>(a, o, stream);
+    case 16: return launch_tile<16>(a, o, stream);
+    case 8: return launch_tile<8>(a, o, stream);
+    default: return -1;  // no tile configuration fits this shape
+  }
+}
+
+// the shapes both kernels take; sets the fields K1 and K4 share
+bool common_args(CoarseArgs* a, const void* add_row, const void* scale_row, const void* q_scale,
+                 const void* q_bias, void* out_vals, void* out_idxs, int n, int d, int b, int sub,
+                 int t1, int packed) {
+  if (n <= 0 || n % kTileRows != 0 || d <= 0 || d % 16 != 0 || b <= 0 || sub <= 0 || t1 <= 0 ||
+      t1 > sub || n % sub != 0 || (sub % kTileRows != 0 && kTileRows % sub != 0))
+    return false;
+  a->add_row = static_cast<const float*>(add_row);
+  a->scale_row = static_cast<const float*>(scale_row);
+  a->q_scale = static_cast<const float*>(q_scale);
+  a->q_bias = static_cast<const float*>(q_bias);
+  a->out_vals = static_cast<float*>(out_vals);
+  a->out_idxs = static_cast<int32_t*>(out_idxs);
+  a->n = n; a->b = b; a->sub = sub; a->t1 = t1; a->packed = packed;
+  a->kq = (d + kChunk - 1) / kChunk;
+  a->rows_per_group = sub > kTileRows ? sub : kTileRows;
+  a->groups = 1;
+  a->stages = kMinStages;
+  return n % a->rows_per_group == 0;
+}
+
+}  // namespace
+
+// K1 (packed = 1) and K7a (packed = 0): emb8 i8 [n, d], q8 i8 [b, d], add_row,
+// scale_row f32 [n], q_scale (0.7 folded in), q_bias f32 [b] -> vals f32, idxs
+// i32 [b, n / sub, t1]. n % 128 == 0, d % 16 == 0, sub % 128 == 0 or
+// 128 % sub == 0.
+extern "C" int omni_int8_coarse_topt(const void* emb8, const void* q8, const void* add_row,
+                                     const void* scale_row, const void* q_scale,
+                                     const void* q_bias, void* out_vals, void* out_idxs, int n,
+                                     int d, int b, int sub, int t1, int packed, void* stream) {
+  CoarseArgs a;
+  if (!common_args(&a, add_row, scale_row, q_scale, q_bias, out_vals, out_idxs, n, d, b, sub, t1,
+                   packed))
+    return -1;
+  return launch(a, a.kq, Operands{emb8, q8, nullptr, d}, static_cast<cudaStream_t>(stream));
+}
+
+// K4: K1's operands, the bloom u8 [n, w], kw_b f32 [b] and the keyword weights
+// kw8 i8 [b, 8 wp] in int8_kw_columns order (wp = w rounded up to 16).
+extern "C" int omni_int8_fused_topt(const void* emb8, const void* bloom, const void* q8,
+                                    const void* kw8, const void* kw_b, const void* add_row,
+                                    const void* scale_row, const void* q_scale,
+                                    const void* q_bias, void* out_vals, void* out_idxs, int n,
+                                    int d, int w, int b, int sub, int t1, int packed,
+                                    void* stream) {
+  FusedArgs a;
+  if (w <= 0 || !common_args(&a, add_row, scale_row, q_scale, q_bias, out_vals, out_idxs, n, d,
+                             b, sub, t1, packed))
+    return -1;
+  a.bloom = static_cast<const uint8_t*>(bloom);
+  a.kw_b = static_cast<const float*>(kw_b);
+  a.w = w;
+  a.wp = (w + 15) / 16 * 16;
+  a.kk = a.wp / 16;
+  return launch(a, a.kq + a.kk, Operands{emb8, q8, kw8, d}, static_cast<cudaStream_t>(stream));
+}
+
+// the query tile K1 (w = 0) or K4 takes at extraction slices of `sub` rows,
+// width d and W bloom bytes; 0 if none fits
+extern "C" int omni_int8_scan_query_tile(int sub, int d, int w) {
+  const int kchunks = (d + kChunk - 1) / kChunk + (w > 0 ? (w + 15) / 16 : 0);
+  return pick_tile(kchunks, sub > kTileRows ? sub : kTileRows);
+}
+
+extern "C" const char* omni_cuda_error_string(int code) {
+  if (code == kErrTensorMap) return "cuTensorMapEncodeTiled refused a tensor map";
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

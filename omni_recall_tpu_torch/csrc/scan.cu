@@ -1,17 +1,14 @@
-// Hand-written Hopper (sm_90a) kernels for the int8 hybrid scans.
+// Hand-written Hopper (sm_90a) kernels for the keyword-only scan and three
+// profiling probes, on the CUDA cores (int32 __dp4a dots).
 //
-// One templated source serves three TPU kernels of omni_recall_tpu/ops/pallas_scorer.py
-// and three probes of the repository's tools/:
+// One templated source serves one TPU kernel of omni_recall_tpu/ops/pallas_scorer.py
+// and three probes of the repository's tools/ (the coarse scan K1 and the fused
+// scan K4 run on the tensor cores in int8_scan.cu; the probes T2, T4 and T5 keep
+// the __dp4a design those two first had, so they split that design, not the
+// served one):
 //
-//   MODE 0, K1  coarse int8 scan   _make_topt_kernel_int8_coarse_keys_t (transposed
-//               packed emit) and its pair-emit twin _make_topt_kernel_int8_coarse (K7a):
-//               score = fma(cosd * q_scale, scale_row, add_row) + q_bias + 4e-3
-//               (q_scale arrives pre-multiplied by the 0.7 cosine weight)
-//   MODE 1, K4  full fused int8 scan  _make_topt_kernel_int8 / _ub_block_int8:
-//               kw    = min(fma(kwd, 1/127, kw_b), 1)
-//               score = fma(0.7, (cosd * q_scale) * scale_row, 0.2 * kw)
-//                     + add_row + q_bias + 4e-3
 //   MODE 2, K5  keyword-only scan  _make_topt_kernel_kw_only:
+//               kw    = min(fma(kwd, 1/127, kw_b), 1)
 //               score = fma(0.2, kw, add_row) + 4e-3
 //   MODE 3, T5  the profiling probe of tools/profile_bloomT.py (the pallas_call of
 //               `variant` at :39, body `kernel` :22): K4's int8 cosine and keyword
@@ -31,13 +28,13 @@
 //               :34): K1's body and extraction, software-pipelined. Its own kernel,
 //               pipe_kernel below: a block owns S consecutive extraction slices of
 //               one query tile and two shared-memory score slots of [QT][sub] f32;
-//               8 scoring warps score slice s into slot s % 2 (K1's dot_tile and
+//               8 scoring warps score slice s into slot s % 2 (dot_tile and K1's
 //               epilogue) while 4 extraction warps extract slice s - 1 from the
 //               other slot. The slots change hands at named barriers (bar.arrive by
 //               the side that hands a slot over, bar.sync by the side that takes
 //               it). Same scores, same rounds: the output is K1's, bit for bit.
 //   MODE 5, T4  tools/probe_keys_emit.py (kern_pair :123, kern_p3 :136,
-//               kern_pf :142): K1's dp4a tiles with the tool's bare epilogue
+//               kern_pf :142): K1's cosine in dp4a tiles with the tool's bare epilogue
 //               score = (cosd * qs) * scale (no add_row, bias or eps; the order
 //               found against the interpret-mode body), the packed-key rounds at
 //               every t1, and one of three emits, each layout written by the kernel:
@@ -50,12 +47,10 @@
 // idxs i32, bound entries carry index -2), bit for bit what the TPU kernels decode to.
 //
 // What bounds it on the H100: at the serving shapes (N = 2^20, d = 768, W = 128,
-// B = 448) K1 does 2*N*d*B = 7.2e11 int8 operations over 805 MB of rows (0.36 ms at
-// the 1979 TOP/s int8 tensor-core peak), K4 1.7e12 over 940 MB, K5 9.6e11 over 134 MB:
-// all three are operation-bound on the tensor cores. This first version is the
-// simple, exact one: int32 __dp4a dot products on the CUDA cores (exact, like the
-// MXU's int32 accumulation), no tensor cores, no TMA, so it runs well below that
-// bound; a wgmma version is later work.
+// B = 448) K5 does 9.6e11 int8 operations over 134 MB, operation-bound on the tensor
+// cores. This version is the simple, exact one: int32 __dp4a dot products on the
+// CUDA cores (exact, like the MXU's int32 accumulation), no tensor cores, no TMA, so
+// it runs well below that bound.
 //
 // Design: Hopper blocks run in parallel and in no order, so one block owns whole
 // extraction slices (R = max(sub, ROWS) rows) for a tile of QT queries and nothing
@@ -64,9 +59,10 @@
 // so the 128-bit shared loads are conflict free), scores them with a 2-rows x 4-query
 // register tile per thread, and keeps the f32 scores of all R rows in shared memory.
 // Then each warp runs the literal max-and-mask rounds of _extract_topt for its
-// queries with warp shuffles (topt_extract.cuh, shared with fp_scan.cu). The keyword dot unpacks each bloom byte into eight
-// 0/1 int8 lanes (column j of the JAX bit matrix is bit j / W of word j % W) and
-// reorders kw_w8 word-major to match, so it is the same exact int8 dot.
+// queries with warp shuffles (topt_extract.cuh). The keyword dot unpacks each bloom
+// byte into eight 0/1 int8 lanes (column j of the JAX bit matrix is bit j / W of
+// word j % W) and reorders kw_w8 word-major to match, so it is the same exact int8
+// dot.
 //
 // f32 arithmetic follows the JAX graphs operation by operation with __fmul_rn /
 // __fadd_rn / __fmaf_rn (and the library builds with -fmad=false, so the compiler
@@ -90,7 +86,7 @@ constexpr float kCosW = 0.7f;           // COSINE_WEIGHT
 constexpr float kKwW = 0.2f;            // KEYWORD_WEIGHT
 constexpr float kInv127 = (float)(1.0 / 127.0);
 
-enum Mode : int { kCoarse = 0, kFused = 1, kKwOnly = 2, kProbe = 3, kPipe = 4, kKeys = 5 };
+enum Mode : int { kKwOnly = 2, kProbe = 3, kKeys = 5 };  // T2 has its own kernel
 enum KeysEmit : int { kEmitPair = 0, kEmitP3 = 1, kEmitPF = 2 };  // T4's emits
 
 // T5's constants, each folded to one f32 as XLA folds the tool's graph
@@ -199,7 +195,7 @@ struct BlockMajor {
 template <int MODE, int ROWS, int QT, bool BLOOM_T = false>
 __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
   constexpr bool kEmb = MODE != kKwOnly;
-  constexpr bool kKw = MODE != kCoarse && MODE != kKeys;
+  constexpr bool kKw = MODE != kKeys;
   constexpr int RPT = ROWS / 32;
   constexpr int QPT = QT / kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -240,13 +236,12 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
       kws[qi * a.sk + (j % a.w) * 8 + j / a.w] = v;
     }
   }
-  float qsc[QPT], qb[QPT], kb[QPT];
+  float qsc[QPT], kb[QPT];
 #pragma unroll
   for (int j = 0; j < QPT; ++j) {
     const int qg = q0 + warp * QPT + j;
     const bool ok = qg < a.b;
     qsc[j] = (kEmb && MODE != kProbe && ok) ? a.q_scale[qg] : 0.0f;
-    qb[j] = (MODE != kKwOnly && MODE != kProbe && MODE != kKeys && ok) ? a.q_bias[qg] : 0.0f;
     kb[j] = (kKw && MODE != kProbe && ok) ? a.kw_b[qg] : 0.0f;
   }
 
@@ -293,23 +288,14 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < QPT; ++j) {
         float s;
-        if (MODE == kCoarse) {
-          s = __fmaf_rn(__fmul_rn((float)acc_c[i][j], qsc[j]), sr, ar);
-          s = __fadd_rn(__fadd_rn(s, qb[j]), kEpsInt8);
-        } else if (MODE == kProbe) {
+        if (MODE == kProbe) {
           s = __fmaf_rn((float)acc_c[i][j], kProbeCos, __fmul_rn((float)acc_k[i][j], kProbeKw));
           s = __fadd_rn(s, ar);
         } else if (MODE == kKeys) {
           s = __fmul_rn(__fmul_rn((float)acc_c[i][j], qsc[j]), sr);
         } else {
           const float kw = fminf(__fmaf_rn((float)acc_k[i][j], kInv127, kb[j]), 1.0f);
-          if (MODE == kFused) {
-            const float cos = __fmul_rn(__fmul_rn((float)acc_c[i][j], qsc[j]), sr);
-            s = __fmaf_rn(kCosW, cos, __fmul_rn(kKwW, kw));
-            s = __fadd_rn(__fadd_rn(__fadd_rn(s, ar), qb[j]), kEpsInt8);
-          } else {
-            s = __fadd_rn(__fmaf_rn(kKwW, kw, ar), kEpsInt8);
-          }
+          s = __fadd_rn(__fmaf_rn(kKwW, kw, ar), kEpsInt8);
         }
         sc[(warp * QPT + j) * R + rt + rl] = s;
       }
@@ -346,7 +332,7 @@ int try_launch(Args a, cudaStream_t stream, bool* launched) {
   if (a.sub % ROWS != 0 && ROWS % a.sub != 0) return 0;
   a.rows_per_block = a.sub > ROWS ? a.sub : ROWS;
   if (a.n % a.rows_per_block != 0) return 0;
-  const bool emb = MODE != kKwOnly, kw = MODE != kCoarse && MODE != kKeys;
+  const bool emb = MODE != kKwOnly, kw = MODE != kKeys;
   const int se = emb ? a.se : 0, sk = kw ? a.sk : 0;
   const int tile_stride = se > sk ? se : sk;
   const size_t smem = (emb ? (size_t)QT * a.se : 0) + (kw ? (size_t)QT * a.sk : 0) +
@@ -461,8 +447,7 @@ __global__ void __launch_bounds__(kPipeThreads) pipe_kernel(Args a) {
 #pragma unroll
           for (int j = 0; j < QPT; ++j) acc[i][j] = 0;
         dot_tile<RPT, QPT>(tile, a.se, qs, a.d, lane, warp, acc);
-        // K1's epilogue (scan_kernel, MODE 0), written out: sharing it would touch
-        // scan_kernel's code, whose register allocation moves on any change
+        // K1's epilogue (int8_scan.cu), written out in this kernel's order
 #pragma unroll
         for (int i = 0; i < RPT; ++i) {
           const int rl = lane + 32 * i;
@@ -512,37 +497,23 @@ int launch_pipe(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-extern "C" int omni_scan_topt(const void* emb8, const void* bloom, const void* q8,
-                              const void* kw_w8, const void* kw_b, const void* add_row,
-                              const void* scale_row, const void* q_scale, const void* q_bias,
-                              void* out_vals, void* out_idxs, int n, int d, int w, int b,
-                              int sub, int t1, int mode, int packed, void* stream) {
-  Args a;
-  a.emb8 = static_cast<const int8_t*>(emb8);
+// K5: bloom u8 [n, w], kw_w8 i8 [b, 8w], kw_b f32 [b], add_row f32 [n] -> vals
+// f32, idxs i32 [b, n / sub, t1]
+extern "C" int omni_scan_topt(const void* bloom, const void* kw_w8, const void* kw_b,
+                              const void* add_row, void* out_vals, void* out_idxs, int n, int w,
+                              int b, int sub, int t1, int packed, void* stream) {
+  Args a = {};
   a.bloom = static_cast<const uint8_t*>(bloom);
-  a.q8 = static_cast<const int8_t*>(q8);
   a.kw_w8 = static_cast<const int8_t*>(kw_w8);
   a.kw_b = static_cast<const float*>(kw_b);
   a.add_row = static_cast<const float*>(add_row);
-  a.scale_row = static_cast<const float*>(scale_row);
-  a.q_scale = static_cast<const float*>(q_scale);
-  a.q_bias = static_cast<const float*>(q_bias);
   a.out_vals = static_cast<float*>(out_vals);
   a.out_idxs = static_cast<int32_t*>(out_idxs);
-  a.n = n; a.d = d; a.w = w; a.b = b; a.sub = sub; a.t1 = t1; a.packed = packed;
-  a.rows_per_block = 0;
-  a.se = mode != kKwOnly ? pad_stride(d) : 0;
-  a.sk = mode != kCoarse ? pad_stride(8 * w) : 0;
+  a.n = n; a.w = w; a.b = b; a.sub = sub; a.t1 = t1; a.packed = packed;
+  a.sk = pad_stride(8 * w);
   if (n <= 0 || b <= 0 || sub <= 0 || t1 <= 0 || t1 > sub || n % sub != 0) return -1;
-  if (mode != kKwOnly && (d <= 0 || d % 16 != 0)) return -1;
-  if (mode != kCoarse && (w <= 0 || w % 2 != 0)) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kCoarse: return launch_mode<kCoarse>(a, st);
-    case kFused: return launch_mode<kFused>(a, st);
-    case kKwOnly: return launch_mode<kKwOnly>(a, st);
-    default: return -1;
-  }
+  if (w <= 0 || w % 2 != 0) return -1;
+  return launch_mode<kKwOnly>(a, static_cast<cudaStream_t>(stream));
 }
 
 // T5: emb8 i8 [n, d], bloom u8 [n, w] (transposed = 0) or [w, n] (transposed = 1),

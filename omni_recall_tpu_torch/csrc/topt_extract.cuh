@@ -1,11 +1,13 @@
 // The per-slice top-(t1-1) + bound extraction of _extract_topt
-// (omni_recall_tpu/ops/pallas_scorer.py), shared by the scans of scan.cu and
-// fp_scan.cu. One warp extracts every slice of one query from the f32 scores
-// a block holds in shared memory and writes the decoded [B, slices, t1]
-// contract (vals f32, idxs i32, bound entries at index -2), in both of the
-// JAX code's modes: packed keys when sub is a power of two and t1 >= 3, else
-// the value/index two-reduce. The rounds are the literal max-and-mask rounds
-// of the JAX code, so the output is bit for bit what the TPU kernels decode to.
+// (omni_recall_tpu/ops/pallas_scorer.py), shared by the scans of scan.cu,
+// fp_scan.cu and int8_scan.cu. One warp extracts every slice of one query
+// from the f32 scores a block holds in shared memory and writes the decoded
+// [B, slices, t1] contract (vals f32, idxs i32, bound entries at index -2),
+// in both of the JAX code's modes: packed keys when sub is a power of two and
+// t1 >= 3, else the value/index two-reduce. The rounds are the literal
+// max-and-mask rounds of the JAX code, so the output is bit for bit what the
+// TPU kernels decode to. extract_slices, the tensor-core scans' entry, holds
+// each lane's scores of a slice in registers for slices of 128-1024 rows.
 
 #pragma once
 
@@ -117,6 +119,101 @@ __device__ void extract_query(float* sc, int R, int sub, int t1, int packed, lon
       }
     }
   }
+}
+
+// The literal max-and-mask rounds of extract_query over slices of
+// sub = 32 PER rows, with each lane's PER scores of a slice in registers:
+// no shared-memory round trips inside the rounds. Same output,
+// bit for bit: lane k holds rows lane + 32 k, so the lowest row among equal
+// values is the lowest (k, lane). Lane r keeps round r's entry and the
+// first t1 (<= 32) lanes store them together.
+template <int PER, bool WRITE_IDXS>
+static __device__ void extract_regs(const float* sc, int R, int t1, int packed, long row0,
+                                    long n_slices, int qg, float* out_vals, int32_t* out_idxs,
+                                    int lane) {
+  constexpr int sub = 32 * PER;
+  for (int sl = 0; sl < R / sub; ++sl) {
+    const float* ss = sc + sl * sub;
+    const long base = row0 + (long)sl * sub;
+    const size_t o = ((size_t)qg * n_slices + base / sub) * t1;
+    float my_v = 0.0f;
+    int my_i = 0;
+    if (packed) {
+      constexpr int lmask = sub - 1;
+      int key[PER];
+#pragma unroll
+      for (int k = 0; k < PER; ++k) {
+        const int e = lane + 32 * k;
+        const int si = __float_as_int(ss[e]);
+        const int kf = si ^ ((si >> 31) & 0x7FFFFFFF);
+        key[k] = (kf & ~lmask) | (lmask - (e & lmask));
+      }
+      for (int r = 0; r < t1; ++r) {
+        int m = key[0];
+#pragma unroll
+        for (int k = 1; k < PER; ++k) m = max(m, key[k]);
+        m = warp_max_i(m);
+        if (lane == r) {
+          my_v = decode_up(m, lmask);
+          my_i = (r == t1 - 1) ? -2 : (int)((lmask - (m & lmask)) + base);
+        }
+#pragma unroll
+        for (int k = 0; k < PER; ++k)
+          if (key[k] == m) key[k] = INT_MIN;
+      }
+    } else {
+      float val[PER];
+#pragma unroll
+      for (int k = 0; k < PER; ++k) val[k] = ss[lane + 32 * k];
+      for (int r = 0; r < t1; ++r) {
+        float v = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+        for (int k = 0; k < PER; ++k) v = fmaxf(v, val[k]);
+        v = warp_max_f(v);
+        if (r == t1 - 1) {
+          if (lane == r) { my_v = v; my_i = -2; }
+          break;
+        }
+        int hit = sub;  // lowest row among ties
+#pragma unroll
+        for (int k = PER - 1; k >= 0; --k)
+          if (val[k] == v) hit = lane + 32 * k;
+        hit = warp_min_i(hit);
+        if (lane == r) { my_v = v; my_i = (int)(hit + base); }
+#pragma unroll
+        for (int k = 0; k < PER; ++k)
+          if (lane + 32 * k == hit) val[k] = kExtractNegInf;
+      }
+    }
+    if (lane < t1) {
+      out_vals[o + lane] = my_v;
+      if (WRITE_IDXS) out_idxs[o + lane] = my_i;
+    }
+  }
+}
+
+// extraction of one query's R scores at slices of sub: in registers where
+// sub is 128, 256, 512 or 1024 and t1 <= 32, else extract_query's rounds
+// in shared memory (which overwrite the scores)
+template <bool WRITE_IDXS>
+static __device__ void extract_slices(float* sc, int R, int sub, int t1, int packed, long row0,
+                                      long n_slices, int qg, float* out_vals,
+                                      int32_t* out_idxs, int lane) {
+  if (t1 <= 32) {
+    switch (sub) {
+      case 128: return extract_regs<4, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
+                                                   out_vals, out_idxs, lane);
+      case 256: return extract_regs<8, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
+                                                   out_vals, out_idxs, lane);
+      case 512: return extract_regs<16, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
+                                                    out_vals, out_idxs, lane);
+      case 1024: return extract_regs<32, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
+                                                     out_vals, out_idxs, lane);
+      default: break;
+    }
+  }
+  extract_query<WRITE_IDXS>(sc, R, sub, t1, packed, row0, n_slices, qg, out_vals,
+                            out_idxs, lane);
 }
 
 }  // namespace omni

@@ -32,8 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel library name -> source file
-SOURCES = {"scan": "scan.cu", "fp_scan": "fp_scan.cu", "dd_rows": "dd_rows.cu",
-           "refine": "refine.cu"}
+SOURCES = {"scan": "scan.cu", "int8_scan": "int8_scan.cu", "fp_scan": "fp_scan.cu",
+           "dd_rows": "dd_rows.cu", "refine": "refine.cu"}
 
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -143,9 +143,9 @@ _I = ctypes.c_int
 _ARGTYPES = {
     "scan": {
         "omni_scan_topt": [
-            _P, _P, _P, _P, _P, _P, _P, _P, _P,   # emb8 bloom q8 kw_w8 kw_b add scale qs qb
+            _P, _P, _P, _P,                       # bloom kw_w8 kw_b add
             _P, _P,                               # out vals, out idxs
-            _I, _I, _I, _I, _I, _I, _I, _I,       # n d w b sub t1 mode packed
+            _I, _I, _I, _I, _I, _I,               # n w b sub t1 packed
             _P,                                   # stream
         ],
         "omni_scan_probe": [
@@ -166,6 +166,21 @@ _ARGTYPES = {
             _I, _I, _I, _I, _I, _I, _I,           # n d b c sub t1 emit
             _P,                                   # stream
         ],
+    },
+    "int8_scan": {
+        "omni_int8_coarse_topt": [
+            _P, _P, _P, _P, _P, _P,               # emb8 q8 add scale qs qb
+            _P, _P,                               # out vals, out idxs
+            _I, _I, _I, _I, _I, _I,               # n d b sub t1 packed
+            _P,                                   # stream
+        ],
+        "omni_int8_fused_topt": [
+            _P, _P, _P, _P, _P, _P, _P, _P, _P,   # emb8 bloom q8 kw8 kw_b add scale qs qb
+            _P, _P,                               # out vals, out idxs
+            _I, _I, _I, _I, _I, _I, _I,           # n d w b sub t1 packed
+            _P,                                   # stream
+        ],
+        "omni_int8_scan_query_tile": [_I, _I, _I],  # sub d w
     },
     "fp_scan": {
         "omni_fp_scan_topt": [

@@ -1,9 +1,9 @@
 """Hybrid upper-bound scans: CUDA kernels and their plain versions.
 
 Counterpart of omni_recall_tpu/ops/pallas_scorer.py (the fused Pallas TPU
-kernels). Four scans, each a hand-written CUDA kernel (csrc/scan.cu,
-csrc/fp_scan.cu) with a plain PyTorch version of the same function beside
-it, written from the JAX graph:
+kernels). Four scans, each a hand-written CUDA kernel (csrc/int8_scan.cu,
+csrc/scan.cu, csrc/fp_scan.cu) with a plain PyTorch version of the same
+function beside it, written from the JAX graph:
 
 - K1 ``block_topt_int8_coarse`` — cosine-only scan, keyword capped per query
   (pallas_scorer.py _make_topt_kernel_int8_coarse_keys_t, and the pair emit
@@ -13,7 +13,10 @@ it, written from the JAX graph:
   parameter; the config's ``packed_emit`` / ``transposed_emit`` keys select
   nothing here.
 - K4 ``block_topt_int8`` — full fused int8 cosine + bloom keyword scan
-  (_make_topt_kernel_int8), the certificate-miss rescue scan.
+  (_make_topt_kernel_int8), the certificate-miss rescue scan. K1 and K4 run
+  on the tensor cores (csrc/int8_scan.cu, int8 ``wgmma``; the keyword
+  weights in ``int8_kw_columns`` order); their int32 sums are exact in any
+  order, so they match their plain versions bit for bit.
 - K5 ``block_topt_kw_only`` — bloom-only scan for queries without an
   embedding (_make_topt_kernel_kw_only).
 - K6 ``block_topt`` — the fused scan over f32 or bf16 scan storage
@@ -71,9 +74,6 @@ PALLAS_CERT_EPS = 8e-3
 # candidates emitted per extraction slice at most (engine PALLAS_BLOCK_T)
 PALLAS_BLOCK_T = 8
 
-_MODE_COARSE, _MODE_FUSED, _MODE_KW = 0, 1, 2
-_KERNEL_NAME = {_MODE_COARSE: "coarse_scan", _MODE_FUSED: "fused_scan",
-                _MODE_KW: "kw_scan"}
 # scan storage types of K6 (DeviceIndex scan_dtype f32 / bf16)
 FP_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -323,7 +323,7 @@ def _fma32(a, b, c) -> torch.Tensor:
     XLA's CPU compiler contracts these multiply-adds of the JAX graphs into
     FMAs (measured: the interpret-mode kernels agree bitwise with nothing
     else), so the port makes the same contractions explicit, here and as
-    __fmaf_rn in csrc/scan.cu. Soundness is unaffected: an FMA evaluates
+    __fmaf_rn in the CUDA sources. Soundness is unaffected: an FMA evaluates
     the same expression with one rounding fewer, inside the certificate's
     f32 slack. Emulated exactly in f64: a*b is exact there, TwoSum gives the
     exact remainder of the sum, and rounding to odd before the final f32
@@ -435,43 +435,116 @@ def _check_cuda_operands(device, **tensors) -> None:
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _scan_cuda(mode: int, n: int, b: int, sub: int, t1: int, *, emb8=None,
-               bloom=None, q8=None, kw_w8=None, kw_b=None, add_row,
-               scale_row=None, q_scale=None, q_bias=None):
-    """Launch csrc/scan.cu for one scan; returns (vals, idxs) [B, N/sub, t1]."""
-    dev = add_row.device
+def _outputs(b: int, n: int, sub: int, t1: int, device):
+    return (torch.empty((b, n // sub, t1), dtype=torch.float32, device=device),
+            torch.empty((b, n // sub, t1), dtype=torch.int32, device=device))
+
+
+INT8_TILE_ROWS = 128  # rows of one tile of csrc/int8_scan.cu (kTileRows)
+_kw8_columns_cache: dict = {}
+
+
+def int8_kw_columns(w: int, device=None) -> torch.Tensor:
+    """K4's keyword operand's column order in csrc/int8_scan.cu. Kernel
+    column 32·ks + c, with ks = 4·v + p, is bit plane 2p + c div 16 of bloom
+    byte quad·W'/4 + 4·v + c mod 4 (quad = (c mod 16) div 4, W' = W rounded
+    up to 16): the four A bytes a thread holds for a row in k-step ks are one
+    bit plane of its v-th word of four bloom bytes, so one 32-bit load a row
+    gives four k-steps. Entry: the JAX bit column bit·W + byte, or 8W (a zero
+    column) for a byte past W. Cached per (W, device)."""
+    key = (w, str(device))
+    cols = _kw8_columns_cache.get(key)
+    if cols is None:
+        wp = -(-w // 16) * 16
+        kcol = np.arange(8 * wp)
+        ks, c = kcol // 32, kcol % 32
+        v, p = ks // 4, ks % 4
+        byte = (c % 16) // 4 * (wp // 4) + 4 * v + c % 4
+        bit = 2 * p + c // 16
+        cols = torch.as_tensor(np.where(byte < w, bit * w + byte, 8 * w), device=device)
+        _kw8_columns_cache[key] = cols
+    return cols
+
+
+def int8_kw_operand(kw_w8: torch.Tensor, w: int) -> torch.Tensor:
+    """The kernel's keyword operand, i8 [B, 8·W']: kw_w8's columns in
+    ``int8_kw_columns`` order, zero columns past W."""
+    kw = torch.cat([kw_w8, kw_w8.new_zeros((kw_w8.shape[0], 1))], dim=1)
+    return kw[:, int8_kw_columns(w, kw_w8.device)]
+
+
+def int8_query_tile(sub: int, d: int, w: int = 0) -> int:
+    """Queries one block of csrc/int8_scan.cu scores (its wgmma N): K1 at
+    ``w`` = 0, else K4 over W bloom bytes, at extraction slices of ``sub``.
+    Needs the built library (the card)."""
+    return cuda.library("int8_scan").omni_int8_scan_query_tile(sub, d, w)
+
+
+def _int8_cuda(n: int, b: int, sub: int, t1: int, *, emb8, q8, add_row, scale_row, q_scale,
+               q_bias, bloom=None, kw_w8=None, kw_b=None):
+    """Launch csrc/int8_scan.cu: K1 (K7a in the two-reduce mode) without
+    ``bloom``, K4 with it; returns (vals, idxs) [B, N/sub, t1]."""
+    dev = emb8.device
     f32, i8 = torch.float32, torch.int8
-    ops = {"add_row": (add_row, f32, (n,))}
-    d = w = 0
-    if mode != _MODE_KW:
-        d = emb8.shape[1]
-        if d % 16:
-            raise ValueError(f"the CUDA scan needs d % 16 == 0, got d={d}")
-        ops.update(emb8=(emb8, i8, (n, d)), q8=(q8, i8, (b, d)),
-                   scale_row=(scale_row, f32, (n,)), q_scale=(q_scale, f32, (b,)),
-                   q_bias=(q_bias, f32, (b,)))
-    if mode != _MODE_COARSE:
+    d = emb8.shape[1]
+    if d % 16:
+        raise ValueError(f"the CUDA scan needs d % 16 == 0, got d={d}")
+    if sub % INT8_TILE_ROWS and INT8_TILE_ROWS % sub:
+        raise ValueError(f"the CUDA scan needs sub % {INT8_TILE_ROWS} == 0 or "
+                         f"{INT8_TILE_ROWS} % sub == 0, got {sub}")
+    if n % max(sub, INT8_TILE_ROWS):
+        raise ValueError(f"the CUDA scan needs N % max(sub, {INT8_TILE_ROWS}) == 0, got N={n}")
+    ops = dict(emb8=(emb8, i8, (n, d)), q8=(q8, i8, (b, d)), add_row=(add_row, f32, (n,)),
+               scale_row=(scale_row, f32, (n,)), q_scale=(q_scale, f32, (b,)),
+               q_bias=(q_bias, f32, (b,)))
+    if bloom is not None:
         w = bloom.shape[1]
-        if w % 2:
-            raise ValueError(f"the CUDA scan needs an even bloom width, got W={w}")
         ops.update(bloom=(bloom, torch.uint8, (n, w)), kw_w8=(kw_w8, i8, (b, 8 * w)),
                    kw_b=(kw_b, f32, (b,)))
+    _check_cuda_operands(dev, **ops)
+    vals, idxs = _outputs(b, n, sub, t1, dev)
+    packed = _packed_mode(sub, t1)
+    lib = cuda.library("int8_scan")
+    stream = cuda.stream_ptr(dev)
+    if bloom is None:
+        name = "coarse_scan" if packed else "coarse_pair"
+        rc = lib.omni_int8_coarse_topt(
+            _ptr(emb8), _ptr(q8), _ptr(add_row), _ptr(scale_row), _ptr(q_scale), _ptr(q_bias),
+            _ptr(vals), _ptr(idxs), n, d, b, sub, t1, int(packed), stream)
+    else:
+        name = "fused_scan"
+        kw8 = int8_kw_operand(kw_w8, w)
+        rc = lib.omni_int8_fused_topt(
+            _ptr(emb8), _ptr(bloom), _ptr(q8), _ptr(kw8), _ptr(kw_b), _ptr(add_row),
+            _ptr(scale_row), _ptr(q_scale), _ptr(q_bias), _ptr(vals), _ptr(idxs),
+            n, d, w, b, sub, t1, int(packed), stream)
+    cuda.check(lib, rc, name)
+    cuda.count_launch(name)
+    return vals, idxs
+
+
+def _kw_scan_cuda(n: int, b: int, sub: int, t1: int, *, bloom, kw_w8, kw_b, add_row):
+    """Launch csrc/scan.cu's keyword-only scan (K5); returns (vals, idxs)
+    [B, N/sub, t1]."""
+    dev = add_row.device
+    w = bloom.shape[1]
+    if w % 2:
+        raise ValueError(f"the CUDA scan needs an even bloom width, got W={w}")
     if sub % 64 and 64 % sub:
         raise ValueError(f"the CUDA scan needs sub % 64 == 0 or 64 % sub == 0, got {sub}")
     if n % max(sub, 64):
         raise ValueError(f"the CUDA scan needs N % max(sub, 64) == 0, got N={n}")
-    _check_cuda_operands(dev, **ops)
-    vals = torch.empty((b, n // sub, t1), dtype=f32, device=dev)
-    idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=dev)
+    _check_cuda_operands(
+        dev, add_row=(add_row, torch.float32, (n,)), bloom=(bloom, torch.uint8, (n, w)),
+        kw_w8=(kw_w8, torch.int8, (b, 8 * w)), kw_b=(kw_b, torch.float32, (b,)))
+    vals, idxs = _outputs(b, n, sub, t1, dev)
     lib = cuda.library("scan")
     rc = lib.omni_scan_topt(
-        _ptr(emb8), _ptr(bloom), _ptr(q8), _ptr(kw_w8), _ptr(kw_b), _ptr(add_row),
-        _ptr(scale_row), _ptr(q_scale), _ptr(q_bias), _ptr(vals), _ptr(idxs),
-        n, d, w, b, sub, t1, mode, int(_packed_mode(sub, t1)), cuda.stream_ptr(dev),
+        _ptr(bloom), _ptr(kw_w8), _ptr(kw_b), _ptr(add_row), _ptr(vals), _ptr(idxs),
+        n, w, b, sub, t1, int(_packed_mode(sub, t1)), cuda.stream_ptr(dev),
     )
-    cuda.check(lib, rc, _KERNEL_NAME[mode])
-    pair = mode == _MODE_COARSE and not _packed_mode(sub, t1)
-    cuda.count_launch("coarse_pair" if pair else _KERNEL_NAME[mode])
+    cuda.check(lib, rc, "kw_scan")
+    cuda.count_launch("kw_scan")
     return vals, idxs
 
 
@@ -503,8 +576,8 @@ def block_topt_int8_coarse(emb8, q8, add_row, scale_row, q_scale, q_bias,
             emb8, q8, add_row, scale_row, q_scale, q_bias, t, sub, block)
     n, b = emb8.shape[0], q8.shape[0]
     sub, t1 = _coarse_shape(n, b, t, sub, block)
-    return _scan_cuda(
-        _MODE_COARSE, n, b, sub, t1, emb8=emb8, q8=q8,
+    return _int8_cuda(
+        n, b, sub, t1, emb8=emb8, q8=q8,
         add_row=add_row.reshape(-1), scale_row=scale_row.reshape(-1),
         q_scale=(COSINE_WEIGHT * q_scale).reshape(-1), q_bias=q_bias.reshape(-1),
     )
@@ -533,11 +606,10 @@ def block_topt_int8(emb8, bloom, q8, kw_w8, kw_b, add_row, scale_row, q_scale,
                                      scale_row, q_scale, q_bias, t, sub)
     n, b = emb8.shape[0], q8.shape[0]
     sub, t1 = _fused_shape(n, b, t, sub)
-    return _scan_cuda(
-        _MODE_FUSED, n, b, sub, t1, emb8=emb8, bloom=bloom, q8=q8, kw_w8=kw_w8,
-        kw_b=kw_b.reshape(-1), add_row=add_row.reshape(-1),
+    return _int8_cuda(
+        n, b, sub, t1, emb8=emb8, q8=q8, add_row=add_row.reshape(-1),
         scale_row=scale_row.reshape(-1), q_scale=q_scale.reshape(-1),
-        q_bias=q_bias.reshape(-1),
+        q_bias=q_bias.reshape(-1), bloom=bloom, kw_w8=kw_w8, kw_b=kw_b.reshape(-1),
     )
 
 
@@ -559,8 +631,8 @@ def block_topt_kw_only(bloom, kw_w8, kw_b, add_row, t: int, sub: int = 512):
         return block_topt_kw_only_plain(bloom, kw_w8, kw_b, add_row, t, sub)
     n, w = bloom.shape
     sub, t1 = _kw_shape(n, w, t, sub)
-    return _scan_cuda(
-        _MODE_KW, n, kw_w8.shape[0], sub, t1, bloom=bloom, kw_w8=kw_w8,
+    return _kw_scan_cuda(
+        n, kw_w8.shape[0], sub, t1, bloom=bloom, kw_w8=kw_w8,
         kw_b=kw_b.reshape(-1), add_row=add_row.reshape(-1),
     )
 
@@ -695,8 +767,7 @@ def block_topt(emb, bloom, q, kw_weights, kw_bias, add_row, t: int, sub: int = 5
         kw_bias=(kw_b, f32, (b,)), add_row=(add_row, f32, (n,)),
     )
     qkw = fp_query_operand(q, kw_weights, w)
-    vals = torch.empty((b, n // sub, t1), dtype=f32, device=emb.device)
-    idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=emb.device)
+    vals, idxs = _outputs(b, n, sub, t1, emb.device)
     lib = cuda.library("fp_scan")
     rc = lib.omni_fp_scan_topt(
         _ptr(emb), _ptr(bloom), _ptr(qkw), _ptr(kw_b), _ptr(add_row),

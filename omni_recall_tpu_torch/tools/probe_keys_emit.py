@@ -21,9 +21,10 @@ then the largest left (the bound). Three emits, with nb = N/c and n_sub = c/sub:
 - ``p3``: the raw packed keys i32 in the same layout;
 - ``pf``: the raw packed keys i32 flat, [B, nb·n_sub·t1].
 
-The kernel is K1's (``csrc/scan.cu`` mode 5: the same dp4a tiles, staging
-and extraction rounds) with the emit as its argument; it writes each layout
-itself, since the layout is what the probe measures. A CUDA tensor launches
+The kernel is K1's former CUDA-core design (``csrc/scan.cu`` mode 5: its
+dp4a tiles, staging and extraction rounds; K1 itself now runs on the tensor
+cores, ``csrc/int8_scan.cu``) with the emit as its argument; it writes each
+layout itself, since the layout is what the probe measures. A CUDA tensor launches
 the kernel or raises; a CPU tensor takes the plain version.
 
 ``python -m omni_recall_tpu_torch.tools.probe_keys_emit`` runs the tool's

@@ -16,7 +16,9 @@ two-reduce), returned in the tool's layout: (vals f32, idxs i32)
 
 The tool defers the extraction of each block by one grid step, so that the
 scoring of the next block can overlap it. The kernel (``csrc/scan.cu`` mode
-4, ``pipe_kernel``) makes that overlap real inside one block: the block owns
+4, ``pipe_kernel``, on the dp4a tiles of K1's former CUDA-core design; K1
+itself now runs on the tensor cores, ``csrc/int8_scan.cu``) makes that
+overlap real inside one block: the block owns
 ``slices_per_block`` consecutive slices of one query tile, eight scoring
 warps score a slice into one of two shared-memory slots while four
 extraction warps extract the slice before it from the other, and named

@@ -15,9 +15,10 @@ cosine term contracted, as XLA compiles it: found against the
 interpret-mode body). Out: f32 [N/c, B, c/512], the maximum of each 512-row
 slice; the values do not depend on c, only their layout does.
 
-The kernel is K4's own (``csrc/scan.cu`` mode 3: the same dp4a dot tiles and
-staging of rows and queries), keeping the maximum of each slice, values
-only. It writes [B, N/512]; the wrapper returns that as a view in the tool's
+The kernel is K4's former CUDA-core design (``csrc/scan.cu`` mode 3: its
+dp4a dot tiles and staging of rows, queries and bloom bits; K4 itself now
+runs on the tensor cores, ``csrc/int8_scan.cu``), keeping the maximum of
+each slice, values only. It writes [B, N/512]; the wrapper returns that as a view in the tool's
 layout. A CUDA tensor launches the kernel or raises; a CPU tensor takes the
 plain version.
 

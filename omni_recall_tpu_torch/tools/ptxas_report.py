@@ -7,12 +7,13 @@ flags plus ``-Xptxas -v`` (one ``nvcc`` for each source, all started
 together, into the git-ignored build directory) and prints one JSON line a
 source: each kernel instantiation (its mangled name, the anonymous
 namespace's path hash dropped) with its registers and spill bytes.
-``--against DIR`` also compiles the sources of the checkout at DIR and lists
-the instantiations whose numbers differ and those found on one side only.
+``--against DIR`` also compiles the sources of the checkout at DIR (those
+it has) and lists the instantiations whose numbers differ and those found on
+one side only.
 Each line also counts the source's SASS opcodes of interest
-(``sass_counts``: ``HGMMA``, the tensor-core warpgroup products, and
-``UTMALDG``, the TMA loads), read with ``cuobjdump -sass``. It needs
-``nvcc``; it runs no kernel.
+(``sass_counts``: ``HGMMA`` and ``IGMMA``, the tensor-core warpgroup
+products in bf16 and in int8, and ``UTMALDG``, the TMA loads), read with
+``cuobjdump -sass``. It needs ``nvcc``; it runs no kernel.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def parse(log: str) -> dict[str, dict[str, int]]:
     return kernels
 
 
-SASS_OPCODES = ("HGMMA", "UTMALDG")
+SASS_OPCODES = ("HGMMA", "IGMMA", "UTMALDG")
 
 
 def sass_counts(lib: Path) -> dict[str, int]:
@@ -68,6 +69,8 @@ def report(csrc_dirs: dict[str, Path]) -> dict[tuple[str, str], dict]:
     procs = {}
     for label, csrc in csrc_dirs.items():
         for src in cuda.SOURCES.values():
+            if not (csrc / src).is_file():  # a source the other checkout does not have
+                continue
             lib = out_dir / f"{label}_{Path(src).stem}.so"
             cmd = [cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
                    str(csrc / src)]
@@ -95,7 +98,7 @@ def main() -> None:
         line = {"source": src, "kernels": mine,
                 "sass_counts": sass_counts(cuda.BUILD_DIR / "ptxas" / f"this_{Path(src).stem}.so")}
         if args.against:
-            theirs = results[("against", src)]
+            theirs = results.get(("against", src), {})
             line["changed"] = {k: {"this": mine[k], "against": theirs[k]}
                                for k in mine.keys() & theirs.keys() if mine[k] != theirs[k]}
             line["only_this"] = sorted(mine.keys() - theirs.keys())

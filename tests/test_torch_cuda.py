@@ -6,7 +6,9 @@ Run on the card with ``python -m pytest -m cuda --noconftest
 tests/test_torch_cuda.py``. Bitwise, except K2's sabs (any summation
 order, held to SABS_REL) and K6 and T1 on inputs whose partial sums are not
 exact: their tensor-core sums are held to the parity rule's bound
-(ops/scorer.py fp_order_bound), bitwise on exactly-summable inputs.
+(ops/scorer.py fp_order_bound), bitwise on exactly-summable inputs. K1 and
+K4 sum int8 products in int32 on the tensor cores, exact in any order:
+bitwise.
 """
 
 import pytest
@@ -61,11 +63,16 @@ def _operands(dev, n, d, b, w, seed=0):
     )
 
 
+# K1's query tile at sub (d = 768): its [QT][sub] f32 scores bind
+K1_TILE = {32: 32, 64: 32, 512: 32, 1024: 32, 2048: 16}
+
+
 @pytest.mark.parametrize("sub, t, d", [(512, 2, 768), (512, 1, 768), (1024, 2, 768),
                                        (64, 3, 768), (32, 2, 768), (1024, 4, 1024),
-                                       (512, 2, 384), (2048, 2, 768)])
+                                       (512, 2, 384), (2048, 2, 768), (1024, 1, 768)])
 def test_coarse_scan_kernel(dev, sub, t, d):
-    """sub=2048 needs the 16-query shared-memory tile."""
+    """sub=2048 needs the 16-query shared-memory tile; (1024, t 1) is the
+    two-reduce (pair) mode at the serving slice."""
     o = _operands(dev, 8192, d, 40, 128)
     args = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
     # the two-reduce (pair) extraction mode counts as K7a
@@ -76,18 +83,59 @@ def test_coarse_scan_kernel(dev, sub, t, d):
     pv, pi = scorer.block_topt_int8_coarse_plain(*args, t=t, sub=sub)
     assert cuda.LAUNCHES[key] == before + 1
     assert _same(kv, pv) and _same(ki, pi)
+    if d == 768:
+        assert scorer.int8_query_tile(sub, d) == K1_TILE[sub]
+
+
+@pytest.mark.parametrize("sub, t", [(1024, 2), (1024, 1)])
+@pytest.mark.parametrize("b", [1, 45, 448])
+def test_coarse_scan_batches(dev, sub, t, b):
+    """K1 in both modes at the serving slice over one query, a partial query
+    tile and the serving batch (448 = 14 tiles of 32; 1 and 45 leave rows of
+    the last tile past the batch)."""
+    o = _operands(dev, 16384, 768, b, 128, seed=3)
+    args = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
+    kv, ki = scorer.block_topt_int8_coarse(*args, t=t, sub=sub)
+    pv, pi = scorer.block_topt_int8_coarse_plain(*args, t=t, sub=sub)
+    assert _same(kv, pv) and _same(ki, pi)
 
 
 @pytest.mark.parametrize("sub, t, w", [(512, 4, 128), (512, 1, 128), (256, 2, 128),
                                        (512, 4, 256)])
 def test_fused_scan_kernel(dev, sub, t, w):
-    """w=256 (2048 bloom bits, the server default) needs the 16-query
-    shared-memory tile."""
+    """w=256 (2048 bloom bits, the server default) takes 16 keyword
+    operand chunks beside the queries' six, and a thread reads its bloom
+    words of a row in two batches of eight."""
     o = _operands(dev, 8192, 768, 448, w, seed=1)
     keys = ("emb8", "bloom", "q8", "kw_w8", "kw_b", "add_row", "scale_row", "q_scale", "q_bias")
+    before = cuda.LAUNCHES["fused_scan"]
     kv, ki = scorer.block_topt_int8(*(o[k] for k in keys), t=t, sub=sub)
     pv, pi = scorer.block_topt_int8_plain(*(o[k] for k in keys), t=t, sub=sub)
+    assert cuda.LAUNCHES["fused_scan"] == before + 1
     assert _same(kv, pv) and _same(ki, pi)
+    assert scorer.int8_query_tile(sub, 768, w) == 32
+
+
+@pytest.mark.parametrize("w", [128, 24])
+@pytest.mark.parametrize("b", [1, 45, 448])
+def test_fused_scan_batches(dev, w, b):
+    """K4 at the rescue layout over one query, a partial query tile and 448
+    queries, at 1024 bloom bits and at W = 24 (bloom words past W read as
+    0; byte loads)."""
+    o = _operands(dev, 8192, 768, b, w, seed=4)
+    keys = ("emb8", "bloom", "q8", "kw_w8", "kw_b", "add_row", "scale_row", "q_scale", "q_bias")
+    kv, ki = scorer.block_topt_int8(*(o[k] for k in keys), t=4, sub=512)
+    pv, pi = scorer.block_topt_int8_plain(*(o[k] for k in keys), t=4, sub=512)
+    assert _same(kv, pv) and _same(ki, pi)
+
+
+def test_int8_scan_sass_holds_igmma(dev):
+    """K1 and K4's dots run on the tensor cores (IGMMA, the SASS of an
+    integer wgmma) and their rows arrive by TMA (UTMALDG) in the built
+    library."""
+    cuda.library("int8_scan")
+    counts = ptxas_report.sass_counts(cuda.BUILD_DIR / "libint8_scan.so")
+    assert counts["IGMMA"] > 0 and counts["UTMALDG"] > 0, counts
 
 
 @pytest.mark.parametrize("w", [128, 16, 256])
@@ -389,6 +437,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     args = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
     with pytest.raises(ValueError, match="d % 16"):
         scorer.block_topt_int8_coarse(*args, t=2, sub=512)
+    o = _operands(dev, 4160, 64, 8, 16)  # N % 128 != 0
+    args = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
+    with pytest.raises(ValueError, match="N % max"):
+        scorer.block_topt_int8_coarse(*args, t=2, sub=64, block=64)
     with pytest.raises(ValueError, match="d % 4"):
         scorer.block_topt(torch.zeros((4096, 70), device=dev), o["bloom"],
                           torch.zeros((8, 70), device=dev), torch.zeros((8, 128), device=dev),
