@@ -26,11 +26,14 @@ Phases, one JSON line each:
                 comparison call), beside the least time the card could
                 take. K1, K7a and K4 (csrc/int8_scan.cu, int8 wgmma) carry
                 the int8 cosine product alone (``torch._int_mm``) as their
-                yardstick, and, given ``--parent DIR`` (the root of an
-                earlier checkout whose csrc/scan.cu still serves them as
-                modes 0 and 1), that build's time on the same inputs,
-                timed before and after the kernel, and its output held
-                bitwise against the kernel's. Then the plain-torch xla scorer (no kernel of the
+                yardstick, K5 (int8_scan.cu too) the keyword product alone
+                over the pre-expanded bit matrix, and K5's line also times
+                it at slices of 512, where it takes its 64-query tile. Given
+                ``--parent DIR`` (the root of an earlier checkout whose
+                csrc/scan.cu still serves K5 and T5 on the CUDA cores, as
+                omni_scan_topt and omni_scan_probe), that build's K5 and T5
+                on the same inputs, timed before and after the kernel, and
+                its output held bitwise against the kernel's. Then the plain-torch xla scorer (no kernel of the
                 repository) at the same shape: its time beside its f32 floor,
                 its values against a float64 scan of a few queries. Then the
                 two profiling probes of tools/ at the same serving shapes:
@@ -38,7 +41,8 @@ Phases, one JSON line each:
                 + keyword, and the full top-9, blocks of 1024 rows, bf16
                 rows, sparse keyword weights) and T5 (tools/profile_bloomT.py:
                 K4's body, slice maxima, on row and transposed bloom, which
-                must agree bitwise), each against its plain version,
+                must agree bitwise; the parent's T5 beside it), each against
+                its plain version,
                 with one PyTorch call's time as a yardstick where one computes
                 the product at its heart. Then the two variants of K1 in
                 tools/: T2 (tools/probe_pipe.py: K1 software-pipelined) at
@@ -79,7 +83,8 @@ Phases, one JSON line each:
                 eight is keyword-led (its certificate misses, so the rescue
                 loop's K4 and K3 serve it), one in K1's pair mode (K7a), one
                 with the coarse prepass off (K4 + K3 serve every query) and
-                one of empty-vector queries (K5). Last, the same corpus in an
+                one of empty-vector queries (K5, with its dispatch / device
+                wait / finalize split). Last, the same corpus in an
                 index without the residual planes (refine=False, the capacity
                 configuration) serves a keyword-led batch: its rescue runs
                 without K3. Then the same corpus in three more indexes, each
@@ -186,11 +191,11 @@ def bound_ms(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, st
 
 
 class ParentScan:
-    """The parent's K1 and K4, for the same-call A/B: csrc/scan.cu of an
+    """The parent's K5 and T5, for the same-call A/B: csrc/scan.cu of an
     earlier checkout (the root DIR of ``--parent``) whose omni_scan_topt
-    still serves them as modes 0 and 1 (__dp4a on the CUDA cores). Its nvcc
-    starts when this is made, beside the build of this checkout's kernels;
-    ``load`` waits for it."""
+    serves K5 and omni_scan_probe T5 (__dp4a on the CUDA cores, the keyword
+    weights in the JAX column order). Its nvcc starts when this is made,
+    beside the build of this checkout's kernels; ``load`` waits for it."""
 
     def __init__(self, root: str):
         from omni_recall_tpu_torch.ops import cuda
@@ -211,39 +216,78 @@ class ParentScan:
         if self.proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the parent's scan.cu:\n{log}")
         self.lib = ctypes.CDLL(str(self.path))
-        self.lib.omni_scan_topt.restype = ctypes.c_int
-        self.lib.omni_scan_topt.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
-                                            + [ctypes.c_void_p])
+        p, i = ctypes.c_void_p, ctypes.c_int
+        for name, argtypes in (
+                # bloom kw_w8 kw_b add, vals idxs; n w b sub t1 packed; stream
+                ("omni_scan_topt", [p] * 6 + [i] * 6 + [p]),
+                # emb8 bloom q8 kw8 add out; n d w b transposed; stream
+                ("omni_scan_probe", [p] * 6 + [i] * 5 + [p])):
+            fn = getattr(self.lib, name)
+            fn.restype, fn.argtypes = ctypes.c_int, argtypes
 
-    def __call__(self, mode: int, *, emb8, q8, add_row, scale_row, q_scale, q_bias, sub: int,
-                 t1: int, bloom=None, kw_w8=None, kw_b=None):
-        """Mode 0 (K1: q_scale takes the 0.7 weight here, as the wrapper
-        folds it) or 1 (K4) at slices of ``sub``, t1 entries a slice."""
+    def kw_scan(self, bloom, kw_w8, kw_b, add_row, sub: int, t1: int):
+        """K5 at slices of ``sub``, t1 entries a slice: (vals, idxs)."""
         import torch
 
         from omni_recall_tpu_torch.ops import cuda, scorer
-        from omni_recall_tpu_torch.ops.oracle import COSINE_WEIGHT
 
-        (n, d), b = emb8.shape, q8.shape[0]
-        w = 0 if bloom is None else bloom.shape[1]
-        qs = (COSINE_WEIGHT * q_scale if mode == 0 else q_scale).reshape(-1)
-        kb = None if kw_b is None else kw_b.reshape(-1)
-        vals = torch.empty((b, n // sub, t1), dtype=torch.float32, device=emb8.device)
-        idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=emb8.device)
-        ptr = lambda x: None if x is None else x.data_ptr()  # noqa: E731
+        (n, w), b = bloom.shape, kw_w8.shape[0]
+        vals = torch.empty((b, n // sub, t1), dtype=torch.float32, device=bloom.device)
+        idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=bloom.device)
         rc = self.lib.omni_scan_topt(
-            ptr(emb8), ptr(bloom), ptr(q8), ptr(kw_w8), ptr(kb), ptr(add_row), ptr(scale_row),
-            ptr(qs), ptr(q_bias), ptr(vals), ptr(idxs), n, d, w, b, sub, t1, mode,
-            int(scorer._packed_mode(sub, t1)), cuda.stream_ptr(emb8.device))
+            bloom.data_ptr(), kw_w8.data_ptr(), kw_b.data_ptr(), add_row.data_ptr(),
+            vals.data_ptr(), idxs.data_ptr(), n, w, b, sub, t1,
+            int(scorer._packed_mode(sub, t1)), cuda.stream_ptr(bloom.device))
         if rc:
-            raise RuntimeError(f"the parent's scan.cu mode {mode} failed to launch ({rc})")
+            raise RuntimeError(f"the parent's K5 failed to launch ({rc})")
         return vals, idxs
 
+    def probe(self, emb8, bloom, q8, kw8, add, transposed: bool):
+        """T5 in the tool's layout [N/c, B, c/512] (c = the tool's block)."""
+        import torch
+
+        from omni_recall_tpu_torch.ops import cuda
+        from omni_recall_tpu_torch.tools import profile_bloomT as t5
+
+        (n, d), b = emb8.shape, q8.shape[0]
+        w = bloom.shape[0] if transposed else bloom.shape[1]
+        out = torch.empty((b, n // t5.SLICE), dtype=torch.float32, device=emb8.device)
+        rc = self.lib.omni_scan_probe(
+            emb8.data_ptr(), bloom.data_ptr(), q8.data_ptr(), kw8.data_ptr(), add.data_ptr(),
+            out.data_ptr(), n, d, w, b, int(transposed), cuda.stream_ptr(emb8.device))
+        if rc:
+            raise RuntimeError(f"the parent's T5 failed to launch ({rc})")
+        return out.view(b, n // t5.C, t5.C // t5.SLICE).transpose(0, 1)
+
+
+def timed_ab(kern, parent=None, same=None) -> tuple[float, dict]:
+    """The kernel's device time; given ``parent`` (the parent's build of the
+    same function), the same-call A/B around it (parent, kernel, kernel,
+    parent) and whether ``same`` holds the parent's output to the kernel's."""
+    import torch
+
+    if parent is None:
+        return time_ms(kern, device_only=True), {}
+    got, want = parent(), kern()
+    torch.cuda.synchronize()
+    ab = {"parent_bitwise": same(got, want), "parent_ms": time_ms(parent, device_only=True)}
+    ms = time_ms(kern, device_only=True)
+    ab["ms_after"] = time_ms(kern, device_only=True)
+    ab["parent_ms_after"] = time_ms(parent, device_only=True)
+    return ms, ab
+
+
+# what a kernel line carries of the same-call A/B with the parent's build
+PARENT_KEYS = ("parent_ms", "parent_ms_after", "ms_after", "parent_bitwise")
+
+
+def pair_bitwise(a, b) -> bool:
+    return bitwise(a[0], b[0]) and bitwise(a[1], b[1])
 
 
 def kernel_phase(seed: int, parent=None) -> dict:
     """Each kernel against its plain version at the serving shapes;
-    ``parent`` (``ParentScan``) times the parent's K1 and K4 beside them."""
+    ``parent`` (``ParentScan``) times the parent's K5 and T5 beside them."""
     import torch
 
     from omni_recall_tpu_torch.ops import exact_cos, scorer
@@ -278,16 +322,7 @@ def kernel_phase(seed: int, parent=None) -> dict:
         torch.cuda.synchronize()
         ok = bitwise(kv, pv) and bitwise(ki, pi)
         err = float((kv - pv).abs().max())
-        ab = {}
-        if parent is not None:  # the same-call A/B: parent, kernel, kernel, parent
-            rv, ri = parent()
-            torch.cuda.synchronize()
-            ab["parent_bitwise"] = bitwise(rv, kv) and bitwise(ri, ki)
-            ab["parent_ms"] = time_ms(parent, device_only=True)
-        ms = time_ms(kern, device_only=True)
-        if parent is not None:
-            ab["ms_after"] = time_ms(kern, device_only=True)
-            ab["parent_ms_after"] = time_ms(parent, device_only=True)
+        ms, ab = timed_ab(kern, parent, pair_bitwise)
         plain_ms = time_ms(plain)
         bms, by = bound_ms(bytes_moved, ops, INT8_OPS_PER_S)
         line = dict(name=name, replaces=replaces, shape=list(kv.shape),
@@ -316,9 +351,6 @@ def kernel_phase(seed: int, parent=None) -> dict:
                 emb8, q8, add_row, scale_row, q_scale, q_bias, t=t, sub=sub),
             n * d + b * d + 8 * n + 8 * b + out_bytes(t1, sub),
             2.0 * n * d * b, int_mm,
-            parent and (lambda: parent(  # noqa: B023
-                0, emb8=emb8, q8=q8, add_row=add_row, scale_row=scale_row,
-                q_scale=q_scale, q_bias=q_bias, sub=sub, t1=t1)),  # noqa: B023
         )
     # K4 at the rescue layout (_select_scorer: sub 512, t 4)
     results["fused"] = scan_line(
@@ -329,9 +361,6 @@ def kernel_phase(seed: int, parent=None) -> dict:
             emb8, bloom, q8, kw_w8, kw_b, add_row, scale_row, q_scale, q_bias, t=4, sub=512),
         n * d + n * w + b * d + b * 8 * w + 8 * n + 12 * b + out_bytes(5, 512),
         2.0 * n * b * (d + 8 * w), int_mm,
-        parent and (lambda: parent(
-            1, emb8=emb8, bloom=bloom, q8=q8, kw_w8=kw_w8, kw_b=kw_b, add_row=add_row,
-            scale_row=scale_row, q_scale=q_scale, q_bias=q_bias, sub=512, t1=5)),
     )
     # K5 at the keyword-scan layout (_coarse_layout: sub 1024, t 4)
     results["kw"] = scan_line(
@@ -339,10 +368,13 @@ def kernel_phase(seed: int, parent=None) -> dict:
         lambda: scorer.block_topt_kw_only(bloom, kw_w8, kw_b, add_row, t=4, sub=1024),
         lambda: scorer.block_topt_kw_only_plain(bloom, kw_w8, kw_b, add_row, t=4, sub=1024),
         n * w + b * 8 * w + 4 * n + 4 * b + out_bytes(5, 1024),
-        2.0 * n * b * 8 * w,
+        2.0 * n * b * 8 * w, kw_mm_yardstick(kw_w8, bloom),
+        parent and (lambda: parent.kw_scan(bloom, kw_w8, kw_b, add_row, 1024, 5)),
     )
+    results["kw"]["query_tile"] = scorer.int8_kw_query_tile(1024, w)
+    results["kw"]["sub512"] = kw_sub512_line(bloom, kw_w8, kw_b, add_row)
     results.update(refine_lines(g, emb8, bloom, kw_w8, kw_b[:, 0], scale_row[0], seed))
-    results["t5"] = t5_lines(g, emb8, bloom, q8, add_row)
+    results["t5"] = t5_lines(g, emb8, bloom, q8, add_row, parent)
     results["t2"] = t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias)
     del emb8
     torch.cuda.empty_cache()
@@ -776,11 +808,48 @@ def int_mm_yardstick(q8, emb8) -> tuple[float | None, str]:
         return None, f"none: torch._int_mm: {exc}"
 
 
-def t5_lines(g, emb8, bloom, q8, add_row) -> dict:
+def kw_mm_yardstick(kw_w8, bloom) -> tuple[float | None, str]:
+    """One PyTorch call's time for K5's keyword product alone
+    (``torch._int_mm`` of the keyword weights against the bit matrix,
+    expanded beforehand to int8 [N, 8W], 1 GiB at the serving shape), where
+    this build has one for these shapes."""
+    import torch
+
+    bits = torch.cat([(bloom >> s) & 1 for s in range(8)], dim=1).view(torch.int8)
+    try:
+        return time_ms(lambda: torch._int_mm(kw_w8, bits.t()), device_only=True), \
+            "torch._int_mm(kw_w8, bits.t()): the keyword product alone, over the " \
+            "pre-expanded int8 bit matrix"
+    except RuntimeError as exc:  # a yardstick only: record why there is none
+        return None, f"none: torch._int_mm: {exc}"
+    finally:
+        del bits
+        torch.cuda.empty_cache()
+
+
+def kw_sub512_line(bloom, kw_w8, kw_b, add_row) -> dict:
+    """K5 at slices of 512 (t 4), where it takes its 64-query tile: its
+    time, held bitwise against the plain version."""
+    from omni_recall_tpu_torch.ops import scorer
+
+    def kern():
+        return scorer.block_topt_kw_only(bloom, kw_w8, kw_b, add_row, t=4, sub=512)
+
+    ok = pair_bitwise(kern(), scorer.block_topt_kw_only_plain(bloom, kw_w8, kw_b, add_row,
+                                                              t=4, sub=512))
+    line = dict(sub=512, query_tile=scorer.int8_kw_query_tile(512, bloom.shape[1]),
+                parity=bitwise_parity(ok), ms=time_ms(kern, device_only=True))
+    if not ok:
+        raise AssertionError(f"kw_scan at sub 512 disagrees with its plain version: {line}")
+    return line
+
+
+def t5_lines(g, emb8, bloom, q8, add_row, parent=None) -> dict:
     """T5 on row and transposed bloom at the serving shapes (c 2048, the
     tool's 0/1 keyword weights), each bitwise against its plain version and
     the two against each other; beside the int8 cosine product alone
-    (torch._int_mm), where this build has one for these shapes."""
+    (torch._int_mm), where this build has one for these shapes, and, given
+    ``parent`` (``ParentScan``), the parent's T5 on the same inputs."""
     import torch
 
     from omni_recall_tpu_torch.tools import profile_bloomT as t5
@@ -797,16 +866,21 @@ def t5_lines(g, emb8, bloom, q8, add_row) -> dict:
         want, plain_ms = plain_once(
             lambda: t5.bloom_scan_plain(emb8, bl, q8, kw8, add_row, transposed, t5.C))  # noqa: B023
         ok = bitwise(got[layout], want)
+        ms, ab = timed_ab(kern, parent and (
+            lambda: parent.probe(emb8, bl, q8, kw8, add_row, transposed)), bitwise)  # noqa: B023
         line = dict(name=f"profile_bloomT[{layout}]", replaces="tools/profile_bloomT.py:22",
                     shape=[b, n, d], bits=8 * w, c=t5.C, out_shape=list(want.shape),
                     parity=bitwise_parity(ok),
                     max_abs_err=float((got[layout] - want).abs().max()),
-                    ms=time_ms(kern, device_only=True), plain_ms=plain_ms, plain_runs=1,
-                    bound_ms=bms, bound_by=by, library_ms=library_ms, library=library)
+                    ms=ms, plain_ms=plain_ms, plain_runs=1,
+                    bound_ms=bms, bound_by=by, library_ms=library_ms, library=library, **ab)
         emit({"phase": "kernel", **line})
         if not ok:
             raise AssertionError(f"profile_bloomT[{layout}]: kernel disagrees with its "
                                  "plain version")
+        if not ab.get("parent_bitwise", True):
+            raise AssertionError(f"profile_bloomT[{layout}]: kernel disagrees with the "
+                                 "parent's build")
         out[layout] = line
         del want
     if not bitwise(got["row"], got["transposed"]):
@@ -1461,9 +1535,15 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
              one_batch(engine, "prepass_off_batch_ms", make_requests(seed + 500)),
              engine.stats)
     engine.options.coarse_prepass = True
-    # empty query vectors: the keyword-only scan (K5)
-    run_path(paths, "empty_vector_batch", 1, one_batch(
-        engine, "empty_vector_batch_ms", make_requests(seed + 600, empty=True)), engine.stats)
+    # empty query vectors: the keyword-only scan (K5), and where such a
+    # batch's time goes (the breakdown's own two batches)
+    def empty_vector_batch():
+        one_batch(engine, "empty_vector_batch_ms", make_requests(seed + 600, empty=True))()
+        timing["empty_vector_breakdown"] = breakdown(make_requests(seed + 601, empty=True),
+                                                     make_requests(seed + 602, empty=True))
+
+    run_path(paths, "empty_vector_batch", 3, empty_vector_batch, engine.stats)
+    timing["empty_vector_stats"] = paths["empty_vector_batch"]["stats"]
     direct_gate = {"select_direct_last": engine._last_select_direct,
                    "query_count": engine._direct_query_count,
                    "skip_until": engine._direct_skip_until}
@@ -1567,7 +1647,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", help="root of an earlier checkout whose csrc/scan.cu "
-                        "serves K1 and K4 (modes 0, 1): their times beside the kernels'")
+                        "serves K5 and T5 (omni_scan_topt, omni_scan_probe): their times "
+                        "beside the kernels'")
     args = parser.parse_args()
 
     import torch
@@ -1626,7 +1707,8 @@ def main() -> int:
                 "tool_sweep": [{key: r[key] for key in r if key != "launches"} for r in mine],
             }
         return entry(name, route_key, source, lines[top], {
-            "replaces": replaces, "sub_entries": subs, "plain_runs": lines[top]["plain_runs"]})
+            "replaces": replaces, "sub_entries": subs, "plain_runs": lines[top]["plain_runs"],
+            **{key: lines[top][key] for key in PARENT_KEYS if key in lines[top]}})
 
     def t3_entry(lines, stages):
         """T3's entry: its line at the tool's shape, the select shape's line,
@@ -1649,11 +1731,11 @@ def main() -> int:
     int8_src = "omni_recall_tpu_torch/csrc/int8_scan.cu"
     fp_src = "omni_recall_tpu_torch/csrc/fp_scan.cu"
     rescue = k["refine_rescue"]
-    ab_keys = ("library", "parent_ms", "parent_ms_after", "ms_after", "parent_bitwise")
+    ab_keys = ("library", *PARENT_KEYS)
 
-    def int8_entry(name, route_key, line):
+    def int8_entry(name, route_key, line, keys=()):
         return entry(name, route_key, int8_src, line,
-                     {key: line[key] for key in ab_keys if key in line})
+                     {key: line[key] for key in ab_keys + keys if key in line})
 
     kernels = [
         int8_entry("K1 coarse_scan", "coarse_scan", k["coarse_packed"]),
@@ -1668,7 +1750,7 @@ def main() -> int:
                       "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
                       "max_abs_err")}}),
         int8_entry("K4 fused_scan", "fused_scan", k["fused"]),
-        entry("K5 kw_scan", "kw_scan", scan_src, k["kw"]),
+        int8_entry("K5 kw_scan", "kw_scan", k["kw"], ("query_tile", "sub512")),
         entry("K6 fp_scan", "fp_scan", fp_src, k["fp_bf16"], {
             "storage": "bf16", "plain_runs": 1,
             **{key: k["fp_bf16"][key] for key in FP_RULE_KEYS},
@@ -1680,7 +1762,7 @@ def main() -> int:
         probe_entry("T1 profile_kernel", "profile_kernel", fp_src,
                     "tools/profile_kernel.py:26", k["t1"], "full",
                     profile["profile_kernel"], lambda r: r["variant"]),
-        probe_entry("T5 profile_bloomT", "profile_bloomT", scan_src,
+        probe_entry("T5 profile_bloomT", "profile_bloomT", int8_src,
                     "tools/profile_bloomT.py:39", k["t5"], "row", profile["profile_bloomT"],
                     lambda r: "transposed" if r["transposed"] else "row"),
         # T2's sweep at sub 512 goes with its line at the tool's layout, at

@@ -1,5 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the int8 hybrid scans K1 (with its
-// pair mode K7a) and K4, on the tensor cores (wgmma, s8 in, s32 accumulators).
+// pair mode K7a), K4 and K5, and the profiling probe T5, on the tensor cores
+// (wgmma, s8 in, s32 accumulators).
 //
 // Replaces omni_recall_tpu/ops/pallas_scorer.py:
 //
@@ -14,11 +15,27 @@
 //         kw    = min(fma(kwd, 1/127, kw_b), 1)
 //         score = fma(0.7, (cosd * q_scale) * scale_row, 0.2 * kw)
 //               + add_row + q_bias + 4e-3
+//   K5  block_topt_kw_only: the pallas_call at :519 (body
+//       _make_topt_kernel_kw_only :466), the keyword-only scan of queries
+//       without an embedding (no rows operand, no cosine):
+//         kw    = min(fma(kwd, 1/127, kw_b), 1)
+//         score = fma(0.2, kw, add_row) + 4e-3
 //
 // with cosd = sum_k q8[b, k] emb8[r, k] and kwd = sum_j kw_w8[b, j] bit_j(bloom[r])
 // (bit j of a bloom row is bit j / W of byte j % W), then the per-slice
 // top-(t1-1) + bound extraction of _extract_topt (pallas_scorer.py:105) in both
 // of its modes (topt_extract.cuh), writing the decoded [B, slices, t1] contract.
+//
+// And the probe of the repository's tools/profile_bloomT.py (the pallas_call of
+// `variant` at :39, body `kernel` :22), T5: K4's int8 body with the tool's
+// epilogue, its constants folded as XLA folds them and the cosine term
+// contracted (found against the interpret-mode tool body):
+//         score = fma(cosd, f32(0.7 * 1e-4), kwd * f32(0.2 * f32(1/127))) + add
+// and only the maximum of each 512-row slice (the bound entry of the
+// two-reduce extraction at t1 = 1), values only, [B, N/512]. The bloom arrives
+// as rows [N, W] or transposed [W, N] (bit j is bit j / W of byte j % W in
+// both).
+//
 // The dots sum int8 products in int32, exact in any order, and the f32
 // epilogue follows the JAX graphs operation by operation (__fmaf_rn where XLA's
 // compiler contracts them, one rounding per operation elsewhere; the library
@@ -26,11 +43,12 @@
 //
 // What bounds it on the H100: at the serving shapes (N = 2^20, d = 768, W = 128,
 // B = 448) K1 does 2*N*d*B = 7.2e11 int8 operations over 805 MB of rows (0.365
-// ms at the 1979 TOP/s int8 tensor-core peak), K4 2*N*B*(d + 8W) = 1.7e12 over
-// 940 MB (0.851 ms): both operation-bound. This design streams every row once
-// per query tile of QT queries, so its own floor is the L2-to-SM traffic:
-// B / QT tiles x the rows' bytes (K1: 14 x 0.805 GB at QT = 32; K4 adds the
-// bloom bytes).
+// ms at the 1979 TOP/s int8 tensor-core peak), K4 and T5 2*N*B*(d + 8W) = 1.7e12
+// over 940 MB (0.851 ms), K5 2*N*B*8W = 9.6e11 over 134 MB (0.486 ms): all
+// operation-bound. K1, K4 and T5 stream every row once per query tile of QT
+// queries, so their own floor is the L2-to-SM traffic: B / QT tiles x the rows'
+// bytes (K1: 14 x 0.805 GB at QT = 32; K4 adds the bloom bytes). K5 reads only
+// the bloom bytes, B / QT times each; its floor is the tensor cores' own rate.
 //
 // Design (the shape of fp_scan.cu's K6, with int8 operands):
 // - Rows are wgmma operand A (m64nQTk32.s32.s8.s8: 64 rows a consumer
@@ -42,15 +60,16 @@
 //   each [128 rows x 128 bytes] in the 128-byte swizzle (zero fill past d),
 //   guarded by mbarriers (full: loaded; empty: both consumer warpgroups done);
 //   as many stages as shared memory leaves room for, up to eight.
-// - The query operand (q8, and for K4 the keyword weights) is loaded by TMA
-//   once a block and stays resident (zero fill past d and past the batch).
-// - K4's keyword dot takes operand A from registers. The wrapper permutes the
+// - The query operand (q8, and for K4 and T5 the keyword weights) is loaded by
+//   TMA once a block and stays resident (zero fill past d and past the batch).
+// - The keyword dot takes operand A from registers. The wrapper permutes the
 //   keyword-weight columns (ops/scorer.py int8_kw_columns) so that in k-step
 //   ks = 4 v + p a thread's A bytes are bit planes 2p and 2p + 1 of its
 //   v-th word of four bloom bytes, quad * W'/4 + 4 v + 0..3 (W' = W rounded up
 //   to 16; bytes past W are 0): one 32-bit load a row gives four k-steps, a
 //   shift and a mask each register. The bloom bytes are read once a tile,
-//   with no divisions and no shared-memory staging.
+//   with no divisions and no shared-memory staging (but for T5's transposed
+//   bloom, below).
 // - The scores stay on the SM: the epilogue runs on the accumulators and
 //   stores f32 scores into a [QT][R + 4] shared buffer (R = max(sub, 128)
 //   rows, one group of whole slices); the eight consumer warps then run the
@@ -64,6 +83,18 @@
 //   memory once, from L2 after that. A block walks G groups (G a power of two,
 //   at least 8 waves of blocks), so the resident operand is loaded once for
 //   G * R rows.
+// - K5 (kw_scan_kernel) has no rows operand to stream, so no ring and no
+//   producer: four warpgroups, all consumers, take the 64-row tiles of a
+//   group in turn, each running K4's keyword dot (kw_dot) against the
+//   resident keyword weights (B, one TMA load a block); the shared memory K1
+//   gives its ring goes to the score buffer and the weights, which allows a
+//   64-query tile (wgmma N = 64) where sub <= 512. Then all 16 warps extract.
+// - T5's transposed bloom [W, N] holds a row's bytes N apart. Each consumer
+//   warpgroup stages its 64 rows of a tile into shared memory as rows
+//   [64][W + 4]: 32-bit loads along the rows (started before the cosine dot),
+//   a 4 x 4 byte transpose in registers (__byte_perm), one 32-bit store a
+//   row; then its threads read their words as the row layout does, so the
+//   operand, and the column order, are the row layout's.
 
 #include <climits>
 #include <cstdint>
@@ -96,10 +127,17 @@ constexpr float kEpsInt8 = 4e-3f;         // PALLAS_CERT_EPS_INT8
 constexpr float kCosW = 0.7f;             // COSINE_WEIGHT
 constexpr float kKwW = 0.2f;              // KEYWORD_WEIGHT
 constexpr float kInv127 = (float)(1.0 / 127.0);
+// T5's constants, each folded to one f32 as XLA folds the tool's graph
+constexpr float kProbeCos = kCosW * 1e-4f;
+constexpr float kProbeKw = kKwW * kInv127;
+constexpr int kProbeSlice = 512;          // rows whose maximum T5 keeps
+constexpr int kKwTileRows = 64;           // K5: rows of a tile, one warpgroup's
+constexpr int kKwWarpgroups = 4;          // K5: warpgroups a block, all consumers
 
 // K1's arguments
 struct CoarseArgs {
   static constexpr bool kKw = false;
+  static constexpr bool kProbe = false;
   const float* add_row;   // [n]
   const float* scale_row; // [n]
   const float* q_scale;   // [b], 0.7 folded in
@@ -121,6 +159,29 @@ struct FusedArgs : CoarseArgs {
   int w;
   int wp;                 // w rounded up to 16
   int kk;                 // 128-byte K chunks of the keyword operand (wp / 16)
+};
+
+// T5's arguments: K4's operands less scale_row, q_scale, q_bias, kw_b and
+// out_idxs (unused), the bloom [n, w] or, transposed, [w, n]; w % 16 == 0
+struct ProbeArgs : FusedArgs {
+  static constexpr bool kProbe = true;
+  int transposed;
+};
+
+// K5's arguments: no rows, no cosine terms
+struct KwOnlyArgs {
+  static constexpr bool kProbe = false;
+  const uint8_t* bloom;   // [n, w]
+  const float* kw_b;      // [b]
+  const float* add_row;   // [n]
+  float* out_vals;
+  int32_t* out_idxs;
+  int n, b, sub, t1, packed;
+  int w;
+  int wp;                 // w rounded up to 16
+  int kk;                 // 128-byte K chunks of the keyword operand (wp / 16)
+  int rows_per_group;     // R: whole slices
+  int groups;             // G: groups a block walks
 };
 
 __device__ __forceinline__ void consumer_sync() {
@@ -203,11 +264,29 @@ __device__ __forceinline__ void wgmma_rs<8>(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// K5's 64-query tile (register A only)
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(int (&d)[32], const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
+      "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
+      "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+      "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
+      "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // bit plane k of four bloom bytes: four 0/1 int8 lanes
 __device__ __forceinline__ uint32_t plane(uint32_t x, int k) { return (x >> k) & 0x01010101u; }
 
 // the four bloom bytes byte0 .. byte0 + 3 of one row (0 past W)
-__device__ __forceinline__ uint32_t bloom_word(const FusedArgs& a, const uint8_t* row, int byte0) {
+template <class A>
+__device__ __forceinline__ uint32_t bloom_word(const A& a, const uint8_t* row, int byte0) {
   if ((a.w & 15) == 0) return __ldg(reinterpret_cast<const uint32_t*>(row + byte0));
   uint32_t x = 0;
 #pragma unroll
@@ -218,7 +297,8 @@ __device__ __forceinline__ uint32_t bloom_word(const FusedArgs& a, const uint8_t
 
 // a thread's next kKwWords bloom words of one row, from byte0 on (`words` of
 // them are inside W'; the rest 0): two 16-byte loads where W % 64 == 0
-__device__ __forceinline__ void bloom_words(const FusedArgs& a, const uint8_t* row, int byte0,
+template <class A>
+__device__ __forceinline__ void bloom_words(const A& a, const uint8_t* row, int byte0,
                                             int words, uint32_t (&x)[kKwWords]) {
   if ((a.w & 63) == 0 && words >= kKwWords) {
     const uint4 lo = __ldg(reinterpret_cast<const uint4*>(row + byte0));
@@ -231,9 +311,98 @@ __device__ __forceinline__ void bloom_words(const FusedArgs& a, const uint8_t* r
   for (int j = 0; j < kKwWords; ++j) x[j] = j < words ? bloom_word(a, row, byte0 + 4 * j) : 0u;
 }
 
-constexpr size_t smem_bytes(int qt, int kchunks, int stages, int rows) {
+// T5's transposed bloom [w, n] (w % 16 == 0), staged a warpgroup at a time:
+// unit u of a warpgroup's 64 rows from r0 is bytes 4 (u / 16) .. + 3 of rows
+// 4 (u % 16) .. + 3, four 32-bit loads along the rows (a warp reads two
+// 64-byte runs a load); thread t fetches units t, t + 128, ... (the first
+// kStageUnits into registers before the cosine dot, any more after it)
+constexpr int kStageUnits = 4;  // all of a thread's units where W <= 128
+
+template <class A>
+__device__ __forceinline__ void fetch_unit(const A& a, long r0, int u, uint32_t (&x)[4]) {
+  const uint8_t* p = a.bloom + (size_t)(4 * (u >> 4)) * a.n + r0 + 4 * (u & 15);
+#pragma unroll
+  for (int o = 0; o < 4; ++o) x[o] = __ldg(reinterpret_cast<const uint32_t*>(p + (size_t)o * a.n));
+}
+
+// a unit's 4 x 4 bytes transposed (x[o] byte i is byte o of row i) into the
+// staged rows [64][stride]: row i gets one 32-bit word
+__device__ __forceinline__ void store_unit(unsigned char* rows, int stride, int u,
+                                           const uint32_t (&x)[4]) {
+  const uint32_t t0 = __byte_perm(x[0], x[1], 0x5140), t1 = __byte_perm(x[0], x[1], 0x7362);
+  const uint32_t t2 = __byte_perm(x[2], x[3], 0x5140), t3 = __byte_perm(x[2], x[3], 0x7362);
+  unsigned char* p = rows + (size_t)(4 * (u & 15)) * stride + 4 * (u >> 4);
+  *reinterpret_cast<uint32_t*>(p) = __byte_perm(t0, t2, 0x5410);
+  *reinterpret_cast<uint32_t*>(p + stride) = __byte_perm(t0, t2, 0x7632);
+  *reinterpret_cast<uint32_t*>(p + 2 * stride) = __byte_perm(t1, t3, 0x5410);
+  *reinterpret_cast<uint32_t*>(p + 3 * stride) = __byte_perm(t1, t3, 0x7632);
+}
+
+__device__ __forceinline__ void wg_bar(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kWg) : "memory");
+}
+
+// a row's bloom words: from the bloom rows in global memory, or (T5's
+// transposed bloom) from the warpgroup's staged rows in shared memory
+template <class A>
+__device__ __forceinline__ void row_words(const A& a, const uint8_t* row, int byte0, int words,
+                                          uint32_t (&x)[kKwWords]) {
+  if constexpr (A::kProbe) {
+    if (a.transposed) {
+#pragma unroll
+      for (int j = 0; j < kKwWords; ++j)
+        x[j] = j < words ? *reinterpret_cast<const uint32_t*>(row + byte0 + 4 * j) : 0u;
+      return;
+    }
+  }
+  bloom_words(a, row, byte0, words, x);
+}
+
+// The keyword dot of K4, T5 and K5 over a warpgroup's 64 rows: A = bit
+// planes of the bloom words of the thread's two rows (row_a, row_b, from
+// byte0) in registers, B = the resident keyword weights in int8_kw_columns
+// order, word v at chunk b0 + v * QT * 128 bytes. xa and xb hold the first
+// kKwWords words on entry (loaded early, to be in flight meanwhile).
+template <int QT, class A>
+__device__ __forceinline__ void kw_dot(const A& a, int (&acc)[QT / 2], const uint8_t* row_a,
+                                       const uint8_t* row_b, int byte0, int words, uint32_t b0,
+                                       uint32_t (&xa)[kKwWords], uint32_t (&xb)[kKwWords]) {
+  for (int v0 = 0; v0 < words; v0 += kKwWords) {
+    if (v0 > 0) {
+      row_words(a, row_a, byte0 + 4 * v0, words - v0, xa);
+      row_words(a, row_b, byte0 + 4 * v0, words - v0, xb);
+    }
+#pragma unroll
+    for (int j = 0; j < kKwWords; j += 2) {
+      if (v0 + j >= words) break;
+      uint32_t af[8][4];
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          af[4 * u + p][0] = plane(xa[j + u], 2 * p);
+          af[4 * u + p][1] = plane(xb[j + u], 2 * p);
+          af[4 * u + p][2] = plane(xa[j + u], 2 * p + 1);
+          af[4 * u + p][3] = plane(xb[j + u], 2 * p + 1);
+        }
+      wg_fence();
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (v0 + j + u < words) {
+          const uint32_t b_addr = b0 + (v0 + j + u) * QT * kChunk;
+#pragma unroll
+          for (int p = 0; p < 4; ++p) wgmma_rs<QT>(acc, af[4 * u + p], sw128_desc(b_addr + p * 32));
+        }
+      }
+      wg_commit();
+      wg_wait_all();
+    }
+  }
+}
+
+constexpr size_t smem_bytes(int qt, int kchunks, int stages, int rows, size_t staged = 0) {
   return 1024 + (size_t)qt * kChunk * kchunks + (size_t)stages * kStageBytes +
-         (size_t)qt * (rows + kScorePad) * 4 + (2 * stages + 1) * 8;
+         (size_t)qt * (rows + kScorePad) * 4 + (2 * stages + 1) * 8 + staged;
 }
 
 template <int QT, class A>
@@ -303,13 +472,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int rl0 = g * 64 + (cw & 3) * 16 + (lane >> 2);   // accumulator rows rl0, rl0 + 8
     const int quad = lane & 3;
     const uint32_t bq_addr = smem_u32(bq), ring_addr = smem_u32(ring);
+    // T5's transposed bloom: this warpgroup's staged rows, after the barriers
+    bool transposed = false;
+    unsigned char* staged = nullptr;
+    if constexpr (A::kProbe) {
+      transposed = a.transposed;
+      staged = reinterpret_cast<unsigned char*>(bars + 2 * a.stages + 1) +
+               (size_t)g * 64 * (a.w + 4);
+    }
 
-    // per-query terms of the thread's queries (j8 * 8 + quad * 2 + h)
+    // per-query terms of the thread's queries (j8 * 8 + quad * 2 + h); T5
+    // has none
     float qsc[NACC / 2], qb[NACC / 2], kb[NACC / 2];
 #pragma unroll
     for (int i = 0; i < NACC / 2; ++i) {
       const int qg = q0 + (i >> 1) * 8 + quad * 2 + (i & 1);
-      const bool ok = qg < a.b;
+      const bool ok = qg < a.b && !A::kProbe;
       qsc[i] = ok ? a.q_scale[qg] : 0.0f;
       qb[i] = ok ? a.q_bias[qg] : 0.0f;
       kb[i] = 0.0f;
@@ -325,24 +503,35 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int tt = 0; tt < R / kTileRows; ++tt) {
         const long trow = grow0 + (long)tt * kTileRows;
         const float ar0 = a.add_row[trow + rl0], ar1 = a.add_row[trow + rl0 + 8];
-        const float sr0 = a.scale_row[trow + rl0], sr1 = a.scale_row[trow + rl0 + 8];
+        float sr0 = 0.0f, sr1 = 0.0f;
+        if constexpr (!A::kProbe) sr0 = a.scale_row[trow + rl0], sr1 = a.scale_row[trow + rl0 + 8];
         int acc_c[NACC], acc_k[NACC];
 #pragma unroll
         for (int i = 0; i < NACC; ++i) acc_c[i] = acc_k[i] = 0;
 
         // K4: the thread's first bloom words of its two rows, in flight
-        // during the cosine dot
+        // during the cosine dot (T5's transposed bloom: its units of the
+        // warpgroup's rows)
         const uint8_t* row_a = nullptr;
         const uint8_t* row_b = nullptr;
         int words = 0, byte0 = 0;
-        uint32_t xa[kKwWords], xb[kKwWords];
+        uint32_t xa[kKwWords], xb[kKwWords], tb[kStageUnits][4];
         if constexpr (kKw) {
-          row_a = a.bloom + (size_t)(trow + rl0) * a.w;
-          row_b = row_a + (size_t)8 * a.w;
           words = a.wp >> 4;
           byte0 = quad * (a.wp >> 2);
-          bloom_words(a, row_a, byte0, words, xa);
-          bloom_words(a, row_b, byte0, words, xb);
+          if (transposed) {
+            row_a = staged + (size_t)(rl0 - 64 * g) * (a.w + 4);
+            row_b = row_a + (size_t)8 * (a.w + 4);
+#pragma unroll
+            for (int k = 0; k < kStageUnits; ++k)
+              if (ctid % kWg + kWg * k < 4 * a.w)
+                fetch_unit(a, trow + 64 * g, ctid % kWg + kWg * k, tb[k]);
+          } else {
+            row_a = a.bloom + (size_t)(trow + rl0) * a.w;
+            row_b = row_a + (size_t)8 * a.w;
+            bloom_words(a, row_a, byte0, words, xa);
+            bloom_words(a, row_b, byte0, words, xb);
+          }
         }
 
         // cosine: A = the stage's rows, B = the resident queries; a stage
@@ -364,38 +553,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         // keyword: A = bit planes of the bloom words in registers, B = the
         // resident (permuted) keyword weights; word v is B's chunk kq + v
         if constexpr (kKw) {
-          for (int v0 = 0; v0 < words; v0 += kKwWords) {
-            if (v0 > 0) {
-              bloom_words(a, row_a, byte0 + 4 * v0, words - v0, xa);
-              bloom_words(a, row_b, byte0 + 4 * v0, words - v0, xb);
+          // T5's transposed bloom: the warpgroup stages its rows (once the
+          // previous tile's are read), then each thread reads its words
+          if (transposed) {
+            wg_bar(2 + g);
+#pragma unroll
+            for (int k = 0; k < kStageUnits; ++k)
+              if (ctid % kWg + kWg * k < 4 * a.w)
+                store_unit(staged, a.w + 4, ctid % kWg + kWg * k, tb[k]);
+            for (int u = ctid % kWg + kWg * kStageUnits; u < 4 * a.w; u += kWg) {
+              uint32_t x[4];
+              fetch_unit(a, trow + 64 * g, u, x);
+              store_unit(staged, a.w + 4, u, x);
             }
-#pragma unroll
-            for (int j = 0; j < kKwWords; j += 2) {
-              if (v0 + j >= words) break;
-              uint32_t af[8][4];
-#pragma unroll
-              for (int u = 0; u < 2; ++u)
-#pragma unroll
-                for (int p = 0; p < 4; ++p) {
-                  af[4 * u + p][0] = plane(xa[j + u], 2 * p);
-                  af[4 * u + p][1] = plane(xb[j + u], 2 * p);
-                  af[4 * u + p][2] = plane(xa[j + u], 2 * p + 1);
-                  af[4 * u + p][3] = plane(xb[j + u], 2 * p + 1);
-                }
-              wg_fence();
-#pragma unroll
-              for (int u = 0; u < 2; ++u) {
-                if (v0 + j + u < words) {
-                  const uint32_t b_addr = bq_addr + (a.kq + v0 + j + u) * QT * kChunk;
-#pragma unroll
-                  for (int p = 0; p < 4; ++p)
-                    wgmma_rs<QT>(acc_k, af[4 * u + p], sw128_desc(b_addr + p * 32));
-                }
-              }
-              wg_commit();
-              wg_wait_all();
-            }
+            wg_bar(2 + g);
+            row_words(a, row_a, byte0, words, xa);
+            row_words(a, row_b, byte0, words, xb);
           }
+          kw_dot<QT>(a, acc_k, row_a, row_b, byte0, words, bq_addr + a.kq * QT * kChunk, xa, xb);
         }
 
         // f32 epilogue in the JAX operation order, into the score buffer
@@ -406,7 +581,10 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int j = ((i >> 2) << 1) | (i & 1);
           const float ar = (i & 2) ? ar1 : ar0, sr = (i & 2) ? sr1 : sr0;
           float s;
-          if constexpr (kKw) {
+          if constexpr (A::kProbe) {
+            s = __fmaf_rn((float)acc_c[i], kProbeCos, __fmul_rn((float)acc_k[i], kProbeKw));
+            s = __fadd_rn(s, ar);
+          } else if constexpr (kKw) {
             const float kw = fminf(__fmaf_rn((float)acc_k[i], kInv127, kb[j]), 1.0f);
             const float cos = __fmul_rn(__fmul_rn((float)acc_c[i], qsc[j]), sr);
             s = __fmaf_rn(kCosW, cos, __fmul_rn(kKwW, kw));
@@ -424,29 +602,136 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int ql = cw; ql < QT; ql += kConsumers / 32) {
         const int qg = q0 + ql;
         if (qg >= a.b) break;  // warp-uniform; later queries are further out
-        extract_slices<true>(sc + ql * SS, R, a.sub, a.t1, a.packed, grow0, n_slices, qg,
-                             a.out_vals, a.out_idxs, lane);
+        extract_slices<!A::kProbe>(sc + ql * SS, R, a.sub, a.t1, a.packed, grow0, n_slices, qg,
+                                   a.out_vals, a.out_idxs, lane);
       }
       consumer_sync();
     }
   }
 }
 
+
+// K5: kKwWarpgroups warpgroups, all consumers. Thread 0 loads the resident
+// keyword weights (operand B, [kk][QT][128 B]) by TMA; warpgroup wg takes the
+// 64-row tiles wg, wg + 4, ... of each group of R rows, runs the keyword dot
+// (kw_dot) and stores the epilogue's scores into the [QT][R + 4] buffer;
+// then every warp extracts queries warp, warp + 16, ... The 512 threads get
+// 128 registers each, so the row indices are 32-bit (n < 2^31) and at QT 64
+// the tile's kw_b is read from shared memory (in registers it would spill).
+template <int QT>
+__global__ void __launch_bounds__(kKwWarpgroups * kWg, 1)
+    kw_scan_kernel(const __grid_constant__ CUtensorMap kmap, const KwOnlyArgs a) {
+  constexpr int NACC = QT / 2;  // accumulator registers a thread
+  constexpr int kWarps = kKwWarpgroups * 4;
+  constexpr bool kKbRegs = QT < 64;  // kw_b in registers (else the shared copy)
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* bk = sm;  // [kk][QT][128 B]
+  float* sc = reinterpret_cast<float*>(bk + (size_t)QT * kChunk * a.kk);
+  const int R = a.rows_per_group;
+  const int SS = R + kScorePad;  // score row stride
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sc + (size_t)QT * SS);
+  float* kb = reinterpret_cast<float*>(bar + 1);  // [QT] kw_b of the tile's queries (QT 64)
+  const uint32_t bk_full = smem_u32(bar);
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, quad = lane & 3;
+  const int wg = warp >> 2;
+  const int rl0 = (warp & 3) * 16 + (lane >> 2);  // accumulator rows rl0, rl0 + 8 of a tile
+  const int q0 = blockIdx.x * QT;
+  const int row_base = blockIdx.y * a.groups * R;
+
+  if (tid == 0) {
+    mbar_init(bk_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (!kKbRegs && tid < QT) kb[tid] = q0 + tid < a.b ? a.kw_b[q0 + tid] : 0.0f;
+  __syncthreads();
+  if (tid == 0) {
+    mbar_expect_tx(bk_full, (uint32_t)(QT * kChunk * a.kk));
+    for (int c = 0; c < a.kk; ++c)
+      tma_load_2d(smem_u32(bk + (size_t)c * QT * kChunk), &kmap, c * kChunk, q0, bk_full);
+  }
+
+  // kw_b of the thread's queries (j8 * 8 + quad * 2 + h)
+  float kbr[kKbRegs ? NACC / 2 : 1];
+  if constexpr (kKbRegs) {
+#pragma unroll
+    for (int i = 0; i < NACC / 2; ++i) {
+      const int qg = q0 + (i >> 1) * 8 + quad * 2 + (i & 1);
+      kbr[i] = qg < a.b ? a.kw_b[qg] : 0.0f;
+    }
+  }
+  const int words = a.wp >> 4, byte0 = quad * (a.wp >> 2);
+  const uint32_t bk_addr = smem_u32(bk);
+  mbar_wait(bk_full, 0);
+
+  const int n_slices = a.n / a.sub;
+  for (int grp = 0; grp < a.groups; ++grp) {
+    const int grow0 = row_base + grp * R;
+    for (int tt = wg; tt < R / kKwTileRows; tt += kKwWarpgroups) {
+      const int trow = grow0 + tt * kKwTileRows;
+      const uint8_t* row_a = a.bloom + (size_t)(trow + rl0) * a.w;
+      const uint8_t* row_b = row_a + (size_t)8 * a.w;
+      const float ar0 = a.add_row[trow + rl0], ar1 = a.add_row[trow + rl0 + 8];
+      int acc[NACC];
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] = 0;
+
+      uint32_t xa[kKwWords], xb[kKwWords];
+      bloom_words(a, row_a, byte0, words, xa);
+      bloom_words(a, row_b, byte0, words, xb);
+      kw_dot<QT>(a, acc, row_a, row_b, byte0, words, bk_addr, xa, xb);
+
+      // f32 epilogue in the JAX operation order, into the score buffer
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) {
+        const int ql = (i >> 2) * 8 + quad * 2 + (i & 1);
+        const int rl = rl0 + 8 * ((i >> 1) & 1);
+        float kbq;
+        if constexpr (kKbRegs) kbq = kbr[((i >> 2) << 1) | (i & 1)];
+        else kbq = kb[ql];
+        const float kw = fminf(__fmaf_rn((float)acc[i], kInv127, kbq), 1.0f);
+        sc[ql * SS + tt * kKwTileRows + rl] =
+            __fadd_rn(__fmaf_rn(kKwW, kw, (i & 2) ? ar1 : ar0), kEpsInt8);
+      }
+    }
+    __syncthreads();
+
+    // extraction: warp w owns queries w, w + 16, ...
+    for (int ql = warp; ql < QT; ql += kWarps) {
+      const int qg = q0 + ql;
+      if (qg >= a.b) break;  // warp-uniform; later queries are further out
+      extract_slices<true>(sc + ql * SS, R, a.sub, a.t1, a.packed, grow0, n_slices, qg,
+                           a.out_vals, a.out_idxs, lane);
+    }
+    __syncthreads();
+  }
+}
+
 // ---- host side ----
 
-// the largest query tile (32, 16, 8) whose operands, scores and a ring of
-// kMinStages stages fit; 0 if none
-int pick_tile(int kchunks, int rows) {
+// the largest query tile (32, 16, 8) whose operands, scores, a ring of
+// kMinStages stages and `staged` bytes (T5's transposed bloom) fit; 0 if none
+int pick_tile(int kchunks, int rows, size_t staged = 0) {
   for (int qt = 32; qt >= 8; qt /= 2)
-    if (smem_bytes(qt, kchunks, kMinStages, rows) <= (size_t)kMaxSmem) return qt;
+    if (smem_bytes(qt, kchunks, kMinStages, rows, staged) <= (size_t)kMaxSmem) return qt;
   return 0;
 }
 
 // ring stages: as many as fit beside the tile, up to kMaxStages
-int pick_stages(int qt, int kchunks, int rows) {
+int pick_stages(int qt, int kchunks, int rows, size_t staged = 0) {
   int s = kMinStages;
-  while (s < kMaxStages && smem_bytes(qt, kchunks, s + 1, rows) <= (size_t)kMaxSmem) ++s;
+  while (s < kMaxStages && smem_bytes(qt, kchunks, s + 1, rows, staged) <= (size_t)kMaxSmem) ++s;
   return s;
+}
+
+// shared memory for T5's staged rows of the transposed bloom: two
+// warpgroups' 64 rows, each W bytes and 4 of padding (conflict-free 32-bit
+// reads); none for the other kernels
+template <class A>
+size_t staged_bytes(const A& a) {
+  if constexpr (A::kProbe) return a.transposed ? (size_t)2 * 64 * (a.w + 4) : 0;
+  return 0;
 }
 
 // groups a block walks: the largest power of two (at most kMaxGroups) that
@@ -482,8 +767,9 @@ int launch_tile(A a, const Operands& o, cudaStream_t stream) {
   if (!uint8_map(&rmap, o.emb8, a.n, o.d, kTileRows)) return kErrTensorMap;
   kmap = qmap;  // K1: unused
   if (kk && !uint8_map(&kmap, o.kw8, a.b, (long)kChunk * kk, QT)) return kErrTensorMap;
-  a.stages = pick_stages(QT, kchunks, a.rows_per_group);
-  const size_t smem = smem_bytes(QT, kchunks, a.stages, a.rows_per_group);
+  const size_t staged = staged_bytes(a);
+  a.stages = pick_stages(QT, kchunks, a.rows_per_group, staged);
+  const size_t smem = smem_bytes(QT, kchunks, a.stages, a.rows_per_group, staged);
   const int q_tiles = (a.b + QT - 1) / QT;
   const long row_groups = a.n / a.rows_per_group;
   a.groups = pick_groups(row_groups, q_tiles);
@@ -499,7 +785,7 @@ int launch_tile(A a, const Operands& o, cudaStream_t stream) {
 
 template <class A>
 int launch(const A& a, int kchunks, const Operands& o, cudaStream_t stream) {
-  switch (pick_tile(kchunks, a.rows_per_group)) {
+  switch (pick_tile(kchunks, a.rows_per_group, staged_bytes(a))) {
     case 32: return launch_tile<32>(a, o, stream);
     case 16: return launch_tile<16>(a, o, stream);
     case 8: return launch_tile<8>(a, o, stream);
@@ -507,7 +793,40 @@ int launch(const A& a, int kchunks, const Operands& o, cudaStream_t stream) {
   }
 }
 
-// the shapes both kernels take; sets the fields K1 and K4 share
+// ---- K5 ----
+
+constexpr size_t kw_smem_bytes(int qt, int kk, int rows) {
+  return 1024 + (size_t)qt * kChunk * kk + (size_t)qt * (rows + kScorePad) * 4 + 8 + qt * 4;
+}
+
+// K5's query tile: the largest (64, 32, 16, 8) whose keyword weights and
+// scores fit; 0 if none
+int pick_kw_tile(int kk, int rows) {
+  for (int qt = 64; qt >= 8; qt /= 2)
+    if (kw_smem_bytes(qt, kk, rows) <= (size_t)kMaxSmem) return qt;
+  return 0;
+}
+
+template <int QT>
+int launch_kw_tile(KwOnlyArgs a, const void* kw8, cudaStream_t stream) {
+  CUtensorMap kmap;
+  if (!uint8_map(&kmap, kw8, a.b, (long)kChunk * a.kk, QT)) return kErrTensorMap;
+  const size_t smem = kw_smem_bytes(QT, a.kk, a.rows_per_group);
+  if (smem > (size_t)kMaxSmem) return -1;
+  const int q_tiles = (a.b + QT - 1) / QT;
+  const long row_groups = a.n / a.rows_per_group;
+  a.groups = pick_groups(row_groups, q_tiles);
+  if (row_groups / a.groups > 65535) return -1;
+  auto kernel = kw_scan_kernel<QT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(q_tiles, (unsigned)(row_groups / a.groups));
+  kernel<<<grid, kKwWarpgroups * kWg, smem, stream>>>(kmap, a);
+  return (int)cudaGetLastError();
+}
+
+// the shapes K1, K4 and T5 take; sets the fields they share
 bool common_args(CoarseArgs* a, const void* add_row, const void* scale_row, const void* q_scale,
                  const void* q_bias, void* out_vals, void* out_idxs, int n, int d, int b, int sub,
                  int t1, int packed) {
@@ -563,6 +882,62 @@ extern "C" int omni_int8_fused_topt(const void* emb8, const void* bloom, const v
   a.wp = (w + 15) / 16 * 16;
   a.kk = a.wp / 16;
   return launch(a, a.kq + a.kk, Operands{emb8, q8, kw8, d}, static_cast<cudaStream_t>(stream));
+}
+
+// T5: emb8 i8 [n, d], bloom u8 [n, w] (transposed = 0) or [w, n] (transposed
+// = 1), q8 i8 [b, d], kw8 i8 [b, 8 w] in int8_kw_columns order, add f32 [n]
+// -> out f32 [b, n / 512], the maximum score of each 512-row slice.
+// n % 512 == 0, d % 16 == 0, w % 16 == 0.
+extern "C" int omni_int8_probe(const void* emb8, const void* bloom, const void* q8,
+                               const void* kw8, const void* add_row, void* out, int n, int d,
+                               int w, int b, int transposed, void* stream) {
+  ProbeArgs a;
+  if (w <= 0 || w % 16 != 0 || !common_args(&a, add_row, nullptr, nullptr, nullptr, out,
+                                            nullptr, n, d, b, kProbeSlice, 1, 0))
+    return -1;
+  a.bloom = static_cast<const uint8_t*>(bloom);
+  a.kw_b = nullptr;
+  a.w = a.wp = w;
+  a.kk = w / 16;
+  a.transposed = transposed;
+  return launch(a, a.kq + a.kk, Operands{emb8, q8, kw8, d}, static_cast<cudaStream_t>(stream));
+}
+
+// K5: bloom u8 [n, w], kw8 i8 [b, 8 wp] in int8_kw_columns order (wp = w
+// rounded up to 16), kw_b f32 [b], add_row f32 [n] -> vals f32, idxs i32
+// [b, n / sub, t1]. n % 128 == 0, sub % 128 == 0 or 128 % sub == 0.
+extern "C" int omni_int8_kw_topt(const void* bloom, const void* kw8, const void* kw_b,
+                                 const void* add_row, void* out_vals, void* out_idxs, int n,
+                                 int w, int b, int sub, int t1, int packed, void* stream) {
+  if (n <= 0 || n % kTileRows != 0 || w <= 0 || b <= 0 || sub <= 0 || t1 <= 0 || t1 > sub ||
+      n % sub != 0 || (sub % kTileRows != 0 && kTileRows % sub != 0))
+    return -1;
+  KwOnlyArgs a;
+  a.bloom = static_cast<const uint8_t*>(bloom);
+  a.kw_b = static_cast<const float*>(kw_b);
+  a.add_row = static_cast<const float*>(add_row);
+  a.out_vals = static_cast<float*>(out_vals);
+  a.out_idxs = static_cast<int32_t*>(out_idxs);
+  a.n = n; a.b = b; a.sub = sub; a.t1 = t1; a.packed = packed;
+  a.w = w;
+  a.wp = (w + 15) / 16 * 16;
+  a.kk = a.wp / 16;
+  a.rows_per_group = sub > kTileRows ? sub : kTileRows;
+  a.groups = 1;
+  if (n % a.rows_per_group != 0) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (pick_kw_tile(a.kk, a.rows_per_group)) {
+    case 64: return launch_kw_tile<64>(a, kw8, st);
+    case 32: return launch_kw_tile<32>(a, kw8, st);
+    case 16: return launch_kw_tile<16>(a, kw8, st);
+    case 8: return launch_kw_tile<8>(a, kw8, st);
+    default: return -1;  // no tile configuration fits this shape
+  }
+}
+
+// K5's default query tile at slices of `sub` over W bloom bytes (0: none fits)
+extern "C" int omni_int8_kw_query_tile(int sub, int w) {
+  return pick_kw_tile((w + 15) / 16, sub > kTileRows ? sub : kTileRows);
 }
 
 // the query tile K1 (w = 0) or K4 takes at extraction slices of `sub` rows,

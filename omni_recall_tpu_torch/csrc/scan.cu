@@ -1,29 +1,10 @@
-// Hand-written Hopper (sm_90a) kernels for the keyword-only scan and three
-// profiling probes, on the CUDA cores (int32 __dp4a dots).
+// Hand-written Hopper (sm_90a) kernels for two profiling probes of the
+// repository's tools/, on the CUDA cores (int32 __dp4a dots).
 //
-// One templated source serves one TPU kernel of omni_recall_tpu/ops/pallas_scorer.py
-// and three probes of the repository's tools/ (the coarse scan K1 and the fused
-// scan K4 run on the tensor cores in int8_scan.cu; the probes T2, T4 and T5 keep
-// the __dp4a design those two first had, so they split that design, not the
-// served one):
+// Both split the coarse scan K1 of omni_recall_tpu/ops/pallas_scorer.py. K1
+// itself runs on the tensor cores in int8_scan.cu; these probes keep the
+// __dp4a design it first had, so they split that design, not the served one:
 //
-//   MODE 2, K5  keyword-only scan  _make_topt_kernel_kw_only:
-//               kw    = min(fma(kwd, 1/127, kw_b), 1)
-//               score = fma(0.2, kw, add_row) + 4e-3
-//   MODE 3, T5  the profiling probe of tools/profile_bloomT.py (the pallas_call of
-//               `variant` at :39, body `kernel` :22): K4's int8 cosine and keyword
-//               dots with the tool's epilogue, its constants folded as XLA folds
-//               them and the cosine term contracted (found against the
-//               interpret-mode tool body):
-//               score = fma(cosd, f32(0.7 * 1e-4), kwd * f32(0.2 * f32(1/127))) + add
-//               and only the maximum of each 512-row slice (the bound entry of the
-//               two-reduce extraction at t1 = 1), values only, [B, N/512]. The bloom
-//               arrives as rows [N, W] or transposed [W, N] (bit j is bit j / W of
-//               word j % W in both): a row tile's bytes are then W runs of 64
-//               bytes, N apart, against one run of 64 * W bytes. Both layouts are
-//               staged with 16-byte loads, four neighbouring threads on each run of
-//               64 in the transposed one. At N = 2^20, d = 768, W = 128, B = 448
-//               it does K4's 1.7e12 operations (0.851 ms at the int8 peak).
 //   MODE 4, T2  tools/probe_pipe.py (the pallas_call at :85, body _make_pipe_kernel
 //               :34): K1's body and extraction, software-pipelined. Its own kernel,
 //               pipe_kernel below: a block owns S consecutive extraction slices of
@@ -43,32 +24,27 @@
 //
 // followed by the per-slice top-(t1-1) + bound extraction of _extract_topt, in both of
 // its modes (packed keys when sub is a power of two and t1 >= 3, else value/index
-// two-reduce). The output is the decoded [B, slices, t1] contract directly (vals f32,
-// idxs i32, bound entries carry index -2), bit for bit what the TPU kernels decode to.
+// two-reduce), bit for bit what the TPU kernels decode to.
 //
-// What bounds it on the H100: at the serving shapes (N = 2^20, d = 768, W = 128,
-// B = 448) K5 does 9.6e11 int8 operations over 134 MB, operation-bound on the tensor
-// cores. This version is the simple, exact one: int32 __dp4a dot products on the
-// CUDA cores (exact, like the MXU's int32 accumulation), no tensor cores, no TMA, so
-// it runs well below that bound.
+// What bounds them on the H100: at the serving shapes (N = 2^20, d = 768,
+// B = 448) K1's 7.2e11 int8 operations over 805 MB of rows, operation-bound on
+// the tensor cores. This design is the simple, exact one: int32 __dp4a dot
+// products on the CUDA cores (exact, like the MXU's int32 accumulation), no
+// tensor cores, no TMA, so it runs well below that bound.
 //
 // Design: Hopper blocks run in parallel and in no order, so one block owns whole
-// extraction slices (R = max(sub, ROWS) rows) for a tile of QT queries and nothing
-// carries between blocks. The block streams its rows through shared memory ROWS at
-// a time (16-byte vector loads, row stride padded to an odd number of 16-byte words
-// so the 128-bit shared loads are conflict free), scores them with a 2-rows x 4-query
-// register tile per thread, and keeps the f32 scores of all R rows in shared memory.
-// Then each warp runs the literal max-and-mask rounds of _extract_topt for its
-// queries with warp shuffles (topt_extract.cuh). The keyword dot unpacks each bloom
-// byte into eight 0/1 int8 lanes (column j of the JAX bit matrix is bit j / W of
-// word j % W) and reorders kw_w8 word-major to match, so it is the same exact int8
-// dot.
+// extraction slices for a tile of QT queries and nothing carries between blocks.
+// The block streams its rows through shared memory 64 at a time (16-byte vector
+// loads, row stride padded to an odd number of 16-byte words so the 128-bit
+// shared loads are conflict free), scores them with a 2-rows x 4-query register
+// tile per thread, and keeps the f32 scores of its slices in shared memory. Then
+// each warp runs the literal max-and-mask rounds of _extract_topt for its
+// queries with warp shuffles (topt_extract.cuh).
 //
 // f32 arithmetic follows the JAX graphs operation by operation with __fmul_rn /
 // __fadd_rn / __fmaf_rn (and the library builds with -fmad=false, so the compiler
-// contracts nothing on its own). The explicit fused multiply-adds sit exactly where
-// XLA's compiler contracts the JAX graph (scorer.py _fma32 says how that was
-// established): the scores, and everything extracted from them, are bit-identical.
+// contracts nothing on its own): the scores, and everything extracted from them,
+// are bit-identical.
 
 #include <climits>
 #include <cstdint>
@@ -82,17 +58,13 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSmem = 232448;
 constexpr float kEpsInt8 = 4e-3f;       // PALLAS_CERT_EPS_INT8
-constexpr float kCosW = 0.7f;           // COSINE_WEIGHT
-constexpr float kKwW = 0.2f;            // KEYWORD_WEIGHT
-constexpr float kInv127 = (float)(1.0 / 127.0);
 
-enum Mode : int { kKwOnly = 2, kProbe = 3, kKeys = 5 };  // T2 has its own kernel
 enum KeysEmit : int { kEmitPair = 0, kEmitP3 = 1, kEmitPF = 2 };  // T4's emits
 
-// T5's constants, each folded to one f32 as XLA folds the tool's graph
-constexpr float kProbeCos = kCosW * 1e-4f;
-constexpr float kProbeKw = kKwW * kInv127;
-
+// The arguments of both kernels. The bloom and keyword fields (bloom, kw_w8,
+// kw_b, w, sk) served the scans that left for int8_scan.cu, and stay so that
+// the parameter block keeps its size and layout: one more field once moved
+// the registers of every kernel here (omni_recall_tpu_torch/tools/ptxas_report.py).
 struct Args {
   const int8_t* emb8;
   const uint8_t* bloom;
@@ -106,29 +78,22 @@ struct Args {
   float* out_vals;
   int32_t* out_idxs;
   int n, d;
-  union {       // T4 reads no bloom: the same word holds its layout
-    int w;      // bloom words
+  union {
+    int w;      // (unused)
     int n_sub;  // T4: extraction slices per tool block (c / sub)
   };
   int b, sub, t1, packed;
   int rows_per_block;  // R (T2: its S slices of sub rows)
   int se;              // shared row stride (bytes) of emb rows
   union {
-    int sk;    // shared row stride (bytes) of unpacked bloom rows
+    int sk;    // (unused)
     int emit;  // T4: KeysEmit
   };
 };
-// (Args keeps its size and layout: one more field moves the registers of
-// every scan_kernel instantiation: omni_recall_tpu_torch/tools/ptxas_report.py)
 
 // a multiple of 16 bytes whose count of 16-byte words is odd (conflict-free
 // 128-bit shared loads across consecutive rows)
 inline int pad_stride(int k) { return k + ((k / 16) % 2 == 0 ? 16 : 32); }
-
-// four low bits of n -> four 0/1 bytes (bit i -> byte i)
-__device__ __forceinline__ uint32_t expand4(uint32_t n) {
-  return (n & 1u) | ((n & 2u) << 7) | ((n & 4u) << 14) | ((n & 8u) << 21);
-}
 
 // acc[i][j] += rows[lane + 32 i] . qs[warp * QPT + j] over K bytes (K % 16 == 0)
 template <int RPT, int QPT>
@@ -155,35 +120,6 @@ __device__ __forceinline__ void dot_tile(const int8_t* rows, int rs, const int8_
   }
 }
 
-// one row tile's bloom bytes (rows tr0 .. tr0 + ROWS) unpacked into tile rows of
-// 8W 0/1 bytes (word-major, byte w * 8 + b holds bit b of word w), by 16-byte
-// loads: from rows [N, W] (W % 16 == 0) or transposed [W, N]
-template <int ROWS, bool BLOOM_T>
-__device__ __forceinline__ void stage_bloom16(const uint8_t* bloom, int n, int w, long tr0,
-                                              int8_t* tile, int sk, int tid) {
-  constexpr int RV = ROWS / 16;  // 16-byte runs of one word in a transposed tile
-  const int nv = BLOOM_T ? w * RV : ROWS * (w / 16);
-  for (int i = tid; i < nv; i += kThreads) {
-    int r0, wd0, dr, dw;  // first row and word of the 16 bytes, and their steps
-    const uint8_t* src;
-    if (BLOOM_T) {
-      wd0 = i / RV, r0 = (i % RV) * 16, dr = 1, dw = 0;
-      src = bloom + (size_t)wd0 * n + tr0 + r0;
-    } else {
-      r0 = i / (w / 16), wd0 = (i % (w / 16)) * 16, dr = 0, dw = 1;
-      src = bloom + (size_t)(tr0 + r0) * w + wd0;
-    }
-    const int4 v = *reinterpret_cast<const int4*>(src);
-    const uint32_t words[4] = {(uint32_t)v.x, (uint32_t)v.y, (uint32_t)v.z, (uint32_t)v.w};
-#pragma unroll
-    for (int k = 0; k < 16; ++k) {
-      const uint32_t byte = (words[k / 4] >> (8 * (k % 4))) & 0xFFu;
-      *reinterpret_cast<uint2*>(tile + (r0 + k * dr) * sk + (wd0 + k * dw) * 8) =
-          make_uint2(expand4(byte & 15u), expand4(byte >> 4));
-    }
-  }
-}
-
 // T4's block-major layout [N/c, B, n_sub * t1]: global slice = blk * n_sub + j
 struct BlockMajor {
   int b, n_sub;
@@ -192,10 +128,10 @@ struct BlockMajor {
   }
 };
 
-template <int MODE, int ROWS, int QT, bool BLOOM_T = false>
-__global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
-  constexpr bool kEmb = MODE != kKwOnly;
-  constexpr bool kKw = MODE != kKeys;
+// T4: rows_per_block rows (whole slices, R = max(sub, ROWS)) of QT queries a
+// block, staged ROWS at a time; scores in shared memory, then the rounds
+template <int ROWS, int QT>
+__global__ void __launch_bounds__(kThreads) keys_kernel(Args a) {
   constexpr int RPT = ROWS / 32;
   constexpr int QPT = QT / kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -204,101 +140,49 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
   const int R = a.rows_per_block;
   const long row0 = (long)blockIdx.x * R;
   const int q0 = blockIdx.y * QT;
-  const int tile_stride = max(kEmb ? a.se : 0, kKw ? a.sk : 0);
 
-  unsigned char* p = smem;
-  int8_t* qs = reinterpret_cast<int8_t*>(p);
-  if (kEmb) p += QT * a.se;
-  int8_t* kws = reinterpret_cast<int8_t*>(p);
-  if (kKw) p += QT * a.sk;
-  int8_t* tile = reinterpret_cast<int8_t*>(p);
-  p += ROWS * tile_stride;
-  float* sc = reinterpret_cast<float*>(p);  // [QT][R] scores
+  int8_t* qs = reinterpret_cast<int8_t*>(smem);
+  int8_t* tile = qs + QT * a.se;
+  float* sc = reinterpret_cast<float*>(tile + ROWS * a.se);  // [QT][R] scores
 
-  // query operands (zero rows past the batch end)
-  if (kEmb) {
-    const int dv = a.d / 16;
-    for (int i = tid; i < QT * dv; i += kThreads) {
-      const int qi = i / dv, v = i % dv;
-      int4 val = make_int4(0, 0, 0, 0);
-      if (q0 + qi < a.b)
-        val = reinterpret_cast<const int4*>(a.q8 + (size_t)(q0 + qi) * a.d)[v];
-      reinterpret_cast<int4*>(qs + qi * a.se)[v] = val;
-    }
+  // query operand (zero rows past the batch end)
+  const int dv = a.d / 16;
+  for (int i = tid; i < QT * dv; i += kThreads) {
+    const int qi = i / dv, v = i % dv;
+    int4 val = make_int4(0, 0, 0, 0);
+    if (q0 + qi < a.b) val = reinterpret_cast<const int4*>(a.q8 + (size_t)(q0 + qi) * a.d)[v];
+    reinterpret_cast<int4*>(qs + qi * a.se)[v] = val;
   }
-  if (kKw) {
-    // word-major reorder: JAX column j = b * W + w  ->  shared w * 8 + b
-    const int K = 8 * a.w;
-    for (int i = tid; i < QT * K; i += kThreads) {
-      const int qi = i / K, j = i % K;
-      int8_t v = 0;
-      if (q0 + qi < a.b) v = a.kw_w8[(size_t)(q0 + qi) * K + j];
-      kws[qi * a.sk + (j % a.w) * 8 + j / a.w] = v;
-    }
-  }
-  float qsc[QPT], kb[QPT];
+  float qsc[QPT];
 #pragma unroll
   for (int j = 0; j < QPT; ++j) {
     const int qg = q0 + warp * QPT + j;
-    const bool ok = qg < a.b;
-    qsc[j] = (kEmb && MODE != kProbe && ok) ? a.q_scale[qg] : 0.0f;
-    kb[j] = (kKw && MODE != kProbe && ok) ? a.kw_b[qg] : 0.0f;
+    qsc[j] = qg < a.b ? a.q_scale[qg] : 0.0f;
   }
 
   for (int rt = 0; rt < R; rt += ROWS) {
     const long tr0 = row0 + rt;
-    int acc_c[RPT][QPT], acc_k[RPT][QPT];
+    int acc[RPT][QPT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
-      for (int j = 0; j < QPT; ++j) acc_c[i][j] = acc_k[i][j] = 0;
+      for (int j = 0; j < QPT; ++j) acc[i][j] = 0;
 
-    if (kEmb) {
-      __syncthreads();  // previous tile fully consumed
-      const int dv = a.d / 16;
-      const int4* src = reinterpret_cast<const int4*>(a.emb8 + tr0 * a.d);
-      for (int i = tid; i < ROWS * dv; i += kThreads)
-        reinterpret_cast<int4*>(tile + (i / dv) * a.se)[i % dv] = src[i];
-      __syncthreads();
-      dot_tile<RPT, QPT>(tile, a.se, qs, a.d, lane, warp, acc_c);
-    }
-    if (kKw) {
-      __syncthreads();
-      if (MODE == kProbe) {
-        stage_bloom16<ROWS, BLOOM_T>(a.bloom, a.n, a.w, tr0, tile, a.sk, tid);
-      } else {
-        for (int i = tid; i < ROWS * a.w; i += kThreads) {
-          const int r = i / a.w, wd = i % a.w;
-          const uint32_t byte = a.bloom[(tr0 + r) * a.w + wd];
-          *reinterpret_cast<uint2*>(tile + r * a.sk + wd * 8) =
-              make_uint2(expand4(byte & 15u), expand4(byte >> 4));
-        }
-      }
-      __syncthreads();
-      dot_tile<RPT, QPT>(tile, a.sk, kws, 8 * a.w, lane, warp, acc_k);
-    }
+    __syncthreads();  // previous tile fully consumed
+    const int4* src = reinterpret_cast<const int4*>(a.emb8 + tr0 * a.d);
+    for (int i = tid; i < ROWS * dv; i += kThreads)
+      reinterpret_cast<int4*>(tile + (i / dv) * a.se)[i % dv] = src[i];
+    __syncthreads();
+    dot_tile<RPT, QPT>(tile, a.se, qs, a.d, lane, warp, acc);
 
-    // f32 epilogue in the JAX operation order
+    // the tool's epilogue, in its operation order
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int rl = lane + 32 * i;
-      const long r = tr0 + rl;
-      const float ar = MODE != kKeys ? a.add_row[r] : 0.0f;
-      const float sr = (kEmb && MODE != kProbe) ? a.scale_row[r] : 0.0f;
+      const float sr = a.scale_row[tr0 + rl];
 #pragma unroll
-      for (int j = 0; j < QPT; ++j) {
-        float s;
-        if (MODE == kProbe) {
-          s = __fmaf_rn((float)acc_c[i][j], kProbeCos, __fmul_rn((float)acc_k[i][j], kProbeKw));
-          s = __fadd_rn(s, ar);
-        } else if (MODE == kKeys) {
-          s = __fmul_rn(__fmul_rn((float)acc_c[i][j], qsc[j]), sr);
-        } else {
-          const float kw = fminf(__fmaf_rn((float)acc_k[i][j], kInv127, kb[j]), 1.0f);
-          s = __fadd_rn(__fmaf_rn(kKwW, kw, ar), kEpsInt8);
-        }
-        sc[(warp * QPT + j) * R + rt + rl] = s;
-      }
+      for (int j = 0; j < QPT; ++j)
+        sc[(warp * QPT + j) * R + rt + rl] = __fmul_rn(__fmul_rn((float)acc[i][j], qsc[j]), sr);
     }
   }
   __syncthreads();
@@ -308,37 +192,28 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(Args a) {
   for (int j = 0; j < QPT; ++j) {
     const int ql = warp * QPT + j, qg = q0 + ql;
     if (qg >= a.b) continue;  // warp-uniform
-    if (MODE == kProbe)
-      omni::extract_query<false>(sc + ql * R, R, a.sub, 1, 0, row0, n_slices, qg,
-                                 a.out_vals, nullptr, lane);
-    else if (MODE == kKeys && a.emit == kEmitPF)  // the contract's own layout, flat
+    if (a.emit == kEmitPF)  // the contract's own layout, flat
       omni::extract_query<false, omni::kRawKeys>(sc + ql * R, R, a.sub, a.t1, 1, row0,
                                                  n_slices, qg, nullptr, a.out_idxs, lane);
-    else if (MODE == kKeys && a.emit == kEmitP3)
+    else if (a.emit == kEmitP3)
       omni::extract_query<false, omni::kRawKeys>(sc + ql * R, R, a.sub, a.t1, 1, row0,
                                                  n_slices, qg, nullptr, a.out_idxs, lane,
                                                  BlockMajor{a.b, a.n_sub});
-    else if (MODE == kKeys)
+    else
       omni::extract_query(sc + ql * R, R, a.sub, a.t1, 1, row0, n_slices, qg, a.out_vals,
                           a.out_idxs, lane, BlockMajor{a.b, a.n_sub});
-    else
-      omni::extract_query(sc + ql * R, R, a.sub, a.t1, a.packed, row0, n_slices, qg,
-                          a.out_vals, a.out_idxs, lane);
   }
 }
 
-template <int MODE, int ROWS, int QT, bool BLOOM_T = false>
+template <int ROWS, int QT>
 int try_launch(Args a, cudaStream_t stream, bool* launched) {
   if (a.sub % ROWS != 0 && ROWS % a.sub != 0) return 0;
   a.rows_per_block = a.sub > ROWS ? a.sub : ROWS;
   if (a.n % a.rows_per_block != 0) return 0;
-  const bool emb = MODE != kKwOnly, kw = MODE != kKeys;
-  const int se = emb ? a.se : 0, sk = kw ? a.sk : 0;
-  const int tile_stride = se > sk ? se : sk;
-  const size_t smem = (emb ? (size_t)QT * a.se : 0) + (kw ? (size_t)QT * a.sk : 0) +
-                      (size_t)ROWS * tile_stride + (size_t)QT * a.rows_per_block * 4;
+  const size_t smem =
+      (size_t)QT * a.se + (size_t)ROWS * a.se + (size_t)QT * a.rows_per_block * 4;
   if (smem > (size_t)kMaxSmem) return 0;
-  auto kernel = scan_kernel<MODE, ROWS, QT, BLOOM_T>;
+  auto kernel = keys_kernel<ROWS, QT>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -348,15 +223,12 @@ int try_launch(Args a, cudaStream_t stream, bool* launched) {
   return (int)cudaGetLastError();
 }
 
-// 32 queries per block; 16 where shared memory runs out. At d = 768 the
-// 16-query tile serves the 2048-bit bloom (K4 at sub 512, K5 at sub 1024) and
-// the coarse scan at sub 2048; tests/test_torch_cuda.py holds both on the card.
-template <int MODE, bool BLOOM_T = false>
-int launch_mode(const Args& a, cudaStream_t stream) {
+// 32 queries per block; 16 where shared memory runs out
+int launch_keys(const Args& a, cudaStream_t stream) {
   bool launched = false;
-  int rc = try_launch<MODE, 64, 32, BLOOM_T>(a, stream, &launched);
+  int rc = try_launch<64, 32>(a, stream, &launched);
   if (launched || rc) return rc;
-  rc = try_launch<MODE, 64, 16, BLOOM_T>(a, stream, &launched);
+  rc = try_launch<64, 16>(a, stream, &launched);
   if (launched || rc) return rc;
   return -1;  // no tile configuration fits this shape
 }
@@ -497,47 +369,6 @@ int launch_pipe(const Args& a, cudaStream_t stream) {
 
 }  // namespace
 
-// K5: bloom u8 [n, w], kw_w8 i8 [b, 8w], kw_b f32 [b], add_row f32 [n] -> vals
-// f32, idxs i32 [b, n / sub, t1]
-extern "C" int omni_scan_topt(const void* bloom, const void* kw_w8, const void* kw_b,
-                              const void* add_row, void* out_vals, void* out_idxs, int n, int w,
-                              int b, int sub, int t1, int packed, void* stream) {
-  Args a = {};
-  a.bloom = static_cast<const uint8_t*>(bloom);
-  a.kw_w8 = static_cast<const int8_t*>(kw_w8);
-  a.kw_b = static_cast<const float*>(kw_b);
-  a.add_row = static_cast<const float*>(add_row);
-  a.out_vals = static_cast<float*>(out_vals);
-  a.out_idxs = static_cast<int32_t*>(out_idxs);
-  a.n = n; a.w = w; a.b = b; a.sub = sub; a.t1 = t1; a.packed = packed;
-  a.sk = pad_stride(8 * w);
-  if (n <= 0 || b <= 0 || sub <= 0 || t1 <= 0 || t1 > sub || n % sub != 0) return -1;
-  if (w <= 0 || w % 2 != 0) return -1;
-  return launch_mode<kKwOnly>(a, static_cast<cudaStream_t>(stream));
-}
-
-// T5: emb8 i8 [n, d], bloom u8 [n, w] (transposed = 0) or [w, n] (transposed = 1),
-// q8 i8 [b, d], kw8 i8 [b, 8w], add f32 [n] -> out f32 [b, n / 512], the maximum
-// score of each 512-row slice
-extern "C" int omni_scan_probe(const void* emb8, const void* bloom, const void* q8,
-                               const void* kw8, const void* add_row, void* out, int n, int d,
-                               int w, int b, int transposed, void* stream) {
-  Args a = {};
-  a.emb8 = static_cast<const int8_t*>(emb8);
-  a.bloom = static_cast<const uint8_t*>(bloom);
-  a.q8 = static_cast<const int8_t*>(q8);
-  a.kw_w8 = static_cast<const int8_t*>(kw8);
-  a.add_row = static_cast<const float*>(add_row);
-  a.out_vals = static_cast<float*>(out);
-  a.n = n; a.d = d; a.w = w; a.b = b; a.sub = 512; a.t1 = 1; a.packed = 0;
-  a.se = pad_stride(d);
-  a.sk = pad_stride(8 * w);
-  if (n <= 0 || b <= 0 || n % a.sub != 0 || d <= 0 || d % 16 != 0 || w <= 0 || w % 16 != 0)
-    return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return transposed ? launch_mode<kProbe, true>(a, st) : launch_mode<kProbe, false>(a, st);
-}
-
 // T2: emb8 i8 [n, d], q8 i8 [b, d], add_row, scale_row f32 [n], q_scale (the 0.7
 // cosine weight folded in), q_bias f32 [b] -> vals f32, idxs i32 [b, n / sub, t1],
 // K1's contract; blocks of slices_per_block slices
@@ -593,7 +424,7 @@ extern "C" int omni_scan_keys_emit(const void* emb8, const void* q8, const void*
   if (n <= 0 || b <= 0 || d <= 0 || d % 16 != 0 || sub < 1 || (sub & (sub - 1)) != 0 ||
       c % sub != 0 || n % c != 0 || t1 <= 0 || t1 > sub || emit < kEmitPair || emit > kEmitPF)
     return -1;
-  return launch_mode<kKeys>(a, static_cast<cudaStream_t>(stream));
+  return launch_keys(a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* omni_cuda_error_string(int code) {

@@ -142,17 +142,6 @@ _I = ctypes.c_int
 # library -> {exported function: its argument types}
 _ARGTYPES = {
     "scan": {
-        "omni_scan_topt": [
-            _P, _P, _P, _P,                       # bloom kw_w8 kw_b add
-            _P, _P,                               # out vals, out idxs
-            _I, _I, _I, _I, _I, _I,               # n w b sub t1 packed
-            _P,                                   # stream
-        ],
-        "omni_scan_probe": [
-            _P, _P, _P, _P, _P, _P,               # emb8 bloom q8 kw8 add out
-            _I, _I, _I, _I, _I,                   # n d w b transposed
-            _P,                                   # stream
-        ],
         "omni_scan_pipe": [
             _P, _P, _P, _P, _P, _P,               # emb8 q8 add scale qs qb
             _P, _P,                               # out vals, out idxs
@@ -181,6 +170,18 @@ _ARGTYPES = {
             _P,                                   # stream
         ],
         "omni_int8_scan_query_tile": [_I, _I, _I],  # sub d w
+        "omni_int8_kw_topt": [
+            _P, _P, _P, _P,                       # bloom kw8 kw_b add
+            _P, _P,                               # out vals, out idxs
+            _I, _I, _I, _I, _I, _I,               # n w b sub t1 packed
+            _P,                                   # stream
+        ],
+        "omni_int8_kw_query_tile": [_I, _I],      # sub w
+        "omni_int8_probe": [
+            _P, _P, _P, _P, _P, _P,               # emb8 bloom q8 kw8 add out
+            _I, _I, _I, _I, _I,                   # n d w b transposed
+            _P,                                   # stream
+        ],
     },
     "fp_scan": {
         "omni_fp_scan_topt": [

@@ -2,8 +2,8 @@
 
 Counterpart of omni_recall_tpu/ops/pallas_scorer.py (the fused Pallas TPU
 kernels). Four scans, each a hand-written CUDA kernel (csrc/int8_scan.cu,
-csrc/scan.cu, csrc/fp_scan.cu) with a plain PyTorch version of the same
-function beside it, written from the JAX graph:
+csrc/fp_scan.cu) with a plain PyTorch version of the same function beside
+it, written from the JAX graph:
 
 - K1 ``block_topt_int8_coarse`` — cosine-only scan, keyword capped per query
   (pallas_scorer.py _make_topt_kernel_int8_coarse_keys_t, and the pair emit
@@ -13,12 +13,12 @@ function beside it, written from the JAX graph:
   parameter; the config's ``packed_emit`` / ``transposed_emit`` keys select
   nothing here.
 - K4 ``block_topt_int8`` — full fused int8 cosine + bloom keyword scan
-  (_make_topt_kernel_int8), the certificate-miss rescue scan. K1 and K4 run
-  on the tensor cores (csrc/int8_scan.cu, int8 ``wgmma``; the keyword
-  weights in ``int8_kw_columns`` order); their int32 sums are exact in any
-  order, so they match their plain versions bit for bit.
+  (_make_topt_kernel_int8), the certificate-miss rescue scan.
 - K5 ``block_topt_kw_only`` — bloom-only scan for queries without an
   embedding (_make_topt_kernel_kw_only).
+  K1, K4 and K5 run on the tensor cores (csrc/int8_scan.cu, int8 ``wgmma``;
+  the keyword weights in ``int8_kw_columns`` order); their int32 sums are
+  exact in any order, so they match their plain versions bit for bit.
 - K6 ``block_topt`` — the fused scan over f32 or bf16 scan storage
   (_make_topt_kernel / _ub_block): bf16 operands, f32 sums, eps
   PALLAS_CERT_EPS. The TPU sums its dot products in the MXU's order and the
@@ -445,13 +445,15 @@ _kw8_columns_cache: dict = {}
 
 
 def int8_kw_columns(w: int, device=None) -> torch.Tensor:
-    """K4's keyword operand's column order in csrc/int8_scan.cu. Kernel
-    column 32·ks + c, with ks = 4·v + p, is bit plane 2p + c div 16 of bloom
-    byte quad·W'/4 + 4·v + c mod 4 (quad = (c mod 16) div 4, W' = W rounded
-    up to 16): the four A bytes a thread holds for a row in k-step ks are one
-    bit plane of its v-th word of four bloom bytes, so one 32-bit load a row
-    gives four k-steps. Entry: the JAX bit column bit·W + byte, or 8W (a zero
-    column) for a byte past W. Cached per (W, device)."""
+    """The keyword operand's column order of K4, K5 and T5 in
+    csrc/int8_scan.cu. Kernel column 32·ks + c, with ks = 4·v + p, is bit
+    plane 2p + c div 16 of bloom byte quad·W'/4 + 4·v + c mod 4 (quad =
+    (c mod 16) div 4, W' = W rounded up to 16): the four A bytes a thread
+    holds for a row in k-step ks are one bit plane of its v-th word of four
+    bloom bytes, so one 32-bit load a row gives four k-steps (T5 first
+    stages its transposed bloom into rows in shared memory). Entry: the JAX
+    bit column bit·W + byte, or 8W (a zero column) for a byte past W.
+    Cached per (W, device)."""
     key = (w, str(device))
     cols = _kw8_columns_cache.get(key)
     if cols is None:
@@ -523,24 +525,31 @@ def _int8_cuda(n: int, b: int, sub: int, t1: int, *, emb8, q8, add_row, scale_ro
     return vals, idxs
 
 
+def int8_kw_query_tile(sub: int, w: int) -> int:
+    """Queries one block of K5 (csrc/int8_scan.cu kw_scan_kernel) scores at
+    extraction slices of ``sub`` over W bloom bytes. Needs the built library
+    (the card)."""
+    return cuda.library("int8_scan").omni_int8_kw_query_tile(sub, w)
+
+
 def _kw_scan_cuda(n: int, b: int, sub: int, t1: int, *, bloom, kw_w8, kw_b, add_row):
-    """Launch csrc/scan.cu's keyword-only scan (K5); returns (vals, idxs)
-    [B, N/sub, t1]."""
+    """Launch csrc/int8_scan.cu's keyword-only scan (K5); returns (vals,
+    idxs) [B, N/sub, t1]."""
     dev = add_row.device
     w = bloom.shape[1]
-    if w % 2:
-        raise ValueError(f"the CUDA scan needs an even bloom width, got W={w}")
-    if sub % 64 and 64 % sub:
-        raise ValueError(f"the CUDA scan needs sub % 64 == 0 or 64 % sub == 0, got {sub}")
-    if n % max(sub, 64):
-        raise ValueError(f"the CUDA scan needs N % max(sub, 64) == 0, got N={n}")
+    if sub % INT8_TILE_ROWS and INT8_TILE_ROWS % sub:
+        raise ValueError(f"the CUDA scan needs sub % {INT8_TILE_ROWS} == 0 or "
+                         f"{INT8_TILE_ROWS} % sub == 0, got {sub}")
+    if n % max(sub, INT8_TILE_ROWS):
+        raise ValueError(f"the CUDA scan needs N % max(sub, {INT8_TILE_ROWS}) == 0, got N={n}")
     _check_cuda_operands(
         dev, add_row=(add_row, torch.float32, (n,)), bloom=(bloom, torch.uint8, (n, w)),
         kw_w8=(kw_w8, torch.int8, (b, 8 * w)), kw_b=(kw_b, torch.float32, (b,)))
     vals, idxs = _outputs(b, n, sub, t1, dev)
-    lib = cuda.library("scan")
-    rc = lib.omni_scan_topt(
-        _ptr(bloom), _ptr(kw_w8), _ptr(kw_b), _ptr(add_row), _ptr(vals), _ptr(idxs),
+    kw8 = int8_kw_operand(kw_w8, w)
+    lib = cuda.library("int8_scan")
+    rc = lib.omni_int8_kw_topt(
+        _ptr(bloom), _ptr(kw8), _ptr(kw_b), _ptr(add_row), _ptr(vals), _ptr(idxs),
         n, w, b, sub, t1, int(_packed_mode(sub, t1)), cuda.stream_ptr(dev),
     )
     cuda.check(lib, rc, "kw_scan")

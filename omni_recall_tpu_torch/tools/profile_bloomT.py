@@ -15,12 +15,15 @@ cosine term contracted, as XLA compiles it: found against the
 interpret-mode body). Out: f32 [N/c, B, c/512], the maximum of each 512-row
 slice; the values do not depend on c, only their layout does.
 
-The kernel is K4's former CUDA-core design (``csrc/scan.cu`` mode 3: its
-dp4a dot tiles and staging of rows, queries and bloom bits; K4 itself now
-runs on the tensor cores, ``csrc/int8_scan.cu``), keeping the maximum of
-each slice, values only. It writes [B, N/512]; the wrapper returns that as a view in the tool's
-layout. A CUDA tensor launches the kernel or raises; a CPU tensor takes the
-plain version.
+The kernel is K4's own (``csrc/int8_scan.cu``: int8 ``wgmma``, rows by TMA,
+the keyword bit planes built in registers against ``kw8`` permuted by
+``ops/scorer.py int8_kw_columns``) with the tool's epilogue, keeping the
+maximum of each slice, values only. Each consumer warpgroup stages its rows
+of the transposed bloom into shared memory (a 4 x 4 byte transpose of
+32-bit loads along the rows) and reads them as the row layout is read. It
+writes [B, N/512]; the wrapper returns that as a view in the tool's layout.
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the plain
+version.
 
 ``python -m omni_recall_tpu_torch.tools.profile_bloomT`` runs the tool's
 sweep ((B, bits, transposed) in (512, 512, T), (512, 512, F), (512, 1024, T),
@@ -46,6 +49,7 @@ from omni_recall_tpu_torch.ops.scorer import (
     _int_dot,
     _ptr,
     _require_cpu,
+    int8_kw_operand,
 )
 from omni_recall_tpu_torch.tools import device_name, median_ms
 
@@ -86,8 +90,9 @@ def bloom_scan(emb8, bloom, q8, kw8, add, transposed: bool, c: int = C):
         q8=(q8, i8, (b, d)), kw8=(kw8, i8, (b, 8 * w)), add=(add, torch.float32, (n,)),
     )
     out = torch.empty((b, n // SLICE), dtype=torch.float32, device=emb8.device)
-    lib = cuda.library("scan")
-    rc = lib.omni_scan_probe(
+    kw8 = int8_kw_operand(kw8, w)
+    lib = cuda.library("int8_scan")
+    rc = lib.omni_int8_probe(
         _ptr(emb8), _ptr(bloom), _ptr(q8), _ptr(kw8), _ptr(add), _ptr(out),
         n, d, w, b, int(transposed), cuda.stream_ptr(emb8.device),
     )

@@ -6,10 +6,10 @@ compiles each source of ``omni_recall_tpu_torch/csrc`` with the build's own
 flags plus ``-Xptxas -v`` (one ``nvcc`` for each source, all started
 together, into the git-ignored build directory) and prints one JSON line a
 source: each kernel instantiation (its mangled name, the anonymous
-namespace's path hash dropped) with its registers and spill bytes.
+namespace's hashes dropped) with its registers and spill bytes.
 ``--against DIR`` also compiles the sources of the checkout at DIR (those
 it has) and lists the instantiations whose numbers differ and those found on
-one side only.
+one side only (the other checkout's with their numbers).
 Each line also counts the source's SASS opcodes of interest
 (``sass_counts``: ``HGMMA`` and ``IGMMA``, the tensor-core warpgroup
 products in bf16 and in int8, and ``UTMALDG``, the TMA loads), read with
@@ -29,7 +29,9 @@ from omni_recall_tpu_torch.ops import cuda
 _ENTRY = re.compile(r"Compiling entry function '([^']+)'")
 _SPILL = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
 _REGS = re.compile(r"Used (\d+) registers")
-_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_")
+# the anonymous namespace's name, and the hash nvcc appends to the source's
+# name inside it, both differ between checkouts of the same source
+_ANON = re.compile(r"_GLOBAL__N__[0-9a-f]+_|(?<=_cu_)[0-9a-f]{8}")
 
 
 def parse(log: str) -> dict[str, dict[str, int]]:
@@ -38,8 +40,8 @@ def parse(log: str) -> dict[str, dict[str, int]]:
     name = None
     for line in log.splitlines():
         if m := _ENTRY.search(line):
-            # the anonymous namespace's name hashes the file's path: drop it,
-            # so two checkouts' instantiations compare by name
+            # drop the hashes of the anonymous namespace, so two checkouts'
+            # instantiations compare by name
             name = _ANON.sub("", m.group(1))
             kernels[name] = {}
         elif name and (m := _SPILL.search(line)):
@@ -52,13 +54,32 @@ def parse(log: str) -> dict[str, dict[str, int]]:
 SASS_OPCODES = ("HGMMA", "IGMMA", "UTMALDG")
 
 
+_FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)
+
+
+def _sass(lib: Path) -> str:
+    cuobjdump = Path(cuda.nvcc_path()).with_name("cuobjdump")
+    return subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+
+
+def _count(sass: str) -> dict[str, int]:
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPCODES}
+
+
 def sass_counts(lib: Path) -> dict[str, int]:
     """How many instructions of each of ``SASS_OPCODES`` a built library's
     SASS holds (``cuobjdump -sass``, beside nvcc)."""
-    cuobjdump = Path(cuda.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], check=True,
-                          capture_output=True, text=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in SASS_OPCODES}
+    return _count(_sass(lib))
+
+
+def sass_counts_by_function(lib: Path) -> dict[str, dict[str, int]]:
+    """``sass_counts`` for each kernel of the library, by mangled name (the
+    anonymous namespace's hashes dropped, as in ``parse``)."""
+    sass = _sass(lib)
+    heads = list(_FUNCTION.finditer(sass))
+    return {_ANON.sub("", m.group(1)): _count(sass[m.end():nxt.start() if nxt else len(sass)])
+            for m, nxt in zip(heads, heads[1:] + [None])}
 
 
 def report(csrc_dirs: dict[str, Path]) -> dict[tuple[str, str], dict]:
@@ -102,7 +123,7 @@ def main() -> None:
             line["changed"] = {k: {"this": mine[k], "against": theirs[k]}
                                for k in mine.keys() & theirs.keys() if mine[k] != theirs[k]}
             line["only_this"] = sorted(mine.keys() - theirs.keys())
-            line["only_against"] = sorted(theirs.keys() - mine.keys())
+            line["only_against"] = {k: theirs[k] for k in sorted(theirs.keys() - mine.keys())}
         print(json.dumps(line), flush=True)
 
 

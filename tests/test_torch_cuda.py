@@ -6,9 +6,9 @@ Run on the card with ``python -m pytest -m cuda --noconftest
 tests/test_torch_cuda.py``. Bitwise, except K2's sabs (any summation
 order, held to SABS_REL) and K6 and T1 on inputs whose partial sums are not
 exact: their tensor-core sums are held to the parity rule's bound
-(ops/scorer.py fp_order_bound), bitwise on exactly-summable inputs. K1 and
-K4 sum int8 products in int32 on the tensor cores, exact in any order:
-bitwise.
+(ops/scorer.py fp_order_bound), bitwise on exactly-summable inputs. K1,
+K4, K5 and T5 sum int8 products in int32 on the tensor cores, exact in any
+order: bitwise.
 """
 
 import pytest
@@ -42,7 +42,11 @@ def _same(a, b):
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def _operands(dev, n, d, b, w, seed=0):
+def _operands(dev, n, d, b, w, seed=0, kw_nonzero=0):
+    """Scan operands. ``kw_nonzero``: about that many nonzero keyword weights
+    a query, each 1 to 8, so that the keyword term mostly stays below its
+    clamp at 1 (the default, 10% of the weights at up to 127, clamps every
+    query's term, and the keyword dot's value goes unseen)."""
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def ri(lo, hi, shape, dtype):
@@ -53,7 +57,7 @@ def _operands(dev, n, d, b, w, seed=0):
 
     add_row = rf((1, n), 0.1)
     add_row[0, :5] = -1e30
-    return dict(
+    o = dict(
         emb8=ri(-127, 128, (n, d), torch.int8), q8=ri(-127, 128, (b, d), torch.int8),
         bloom=ri(0, 256, (n, w), torch.uint8),
         kw_w8=torch.where(rf((b, 8 * w)) < 0.1, ri(0, 128, (b, 8 * w), torch.int8),
@@ -61,6 +65,11 @@ def _operands(dev, n, d, b, w, seed=0):
         kw_b=rf((b, 1), 0.05), add_row=add_row, scale_row=rf((1, n), 0.01, 1e-3),
         q_scale=rf((b, 1), 0.01, 1e-3), q_bias=rf((b, 1), 0.01),
     )
+    if kw_nonzero:
+        o["kw_w8"] = torch.where(rf((b, 8 * w)) < kw_nonzero / (8 * w),
+                                 ri(1, 9, (b, 8 * w), torch.int8),
+                                 torch.zeros((), dtype=torch.int8, device=dev))
+    return o
 
 
 # K1's query tile at sub (d = 768): its [QT][sub] f32 scores bind
@@ -121,31 +130,81 @@ def test_fused_scan_kernel(dev, sub, t, w):
 def test_fused_scan_batches(dev, w, b):
     """K4 at the rescue layout over one query, a partial query tile and 448
     queries, at 1024 bloom bits and at W = 24 (bloom words past W read as
-    0; byte loads)."""
-    o = _operands(dev, 8192, 768, b, w, seed=4)
+    0; byte loads), with keyword weights light enough to leave the keyword
+    term below its clamp."""
+    o = _operands(dev, 8192, 768, b, w, seed=4, kw_nonzero=24)
     keys = ("emb8", "bloom", "q8", "kw_w8", "kw_b", "add_row", "scale_row", "q_scale", "q_bias")
     kv, ki = scorer.block_topt_int8(*(o[k] for k in keys), t=4, sub=512)
     pv, pi = scorer.block_topt_int8_plain(*(o[k] for k in keys), t=4, sub=512)
     assert _same(kv, pv) and _same(ki, pi)
 
 
+# the kernel instantiations of csrc/int8_scan.cu, by a part of their names:
+# K1 / K7a, K4, T5 (each at query tiles 32, 16, 8) and K5 (tiles 64 to 8)
+INT8_KERNELS = {"CoarseArgs": 3, "FusedArgs": 3, "ProbeArgs": 3, "kw_scan_kernel": 4}
+
+
 def test_int8_scan_sass_holds_igmma(dev):
-    """K1 and K4's dots run on the tensor cores (IGMMA, the SASS of an
-    integer wgmma) and their rows arrive by TMA (UTMALDG) in the built
-    library."""
+    """Every kernel of csrc/int8_scan.cu runs its dots on the tensor cores
+    (IGMMA, the SASS of an integer wgmma) and takes its resident operand (K5)
+    or its rows (K1, K4, T5) by TMA (UTMALDG) in the built library."""
     cuda.library("int8_scan")
-    counts = ptxas_report.sass_counts(cuda.BUILD_DIR / "libint8_scan.so")
+    lib = cuda.BUILD_DIR / "libint8_scan.so"
+    counts = ptxas_report.sass_counts(lib)
     assert counts["IGMMA"] > 0 and counts["UTMALDG"] > 0, counts
+    by_kernel = ptxas_report.sass_counts_by_function(lib)
+    for part, instantiations in INT8_KERNELS.items():
+        mine = {k: v for k, v in by_kernel.items() if part in k}
+        assert len(mine) == instantiations, (part, sorted(mine))
+        assert all(v["IGMMA"] > 0 and v["UTMALDG"] > 0 for v in mine.values()), (part, mine)
 
 
-@pytest.mark.parametrize("w", [128, 16, 256])
-def test_kw_scan_kernel(dev, w):
-    """w=256 at sub 1024 needs the 16-query shared-memory tile."""
-    o = _operands(dev, 8192, 64, 37, w, seed=2)
+def test_scan_library_holds_only_the_probes(dev):
+    """K5 and T5 left csrc/scan.cu: its library exports T2's and T4's entry
+    points and no longer omni_scan_topt or omni_scan_probe."""
+    lib = cuda.library("scan")
+    assert hasattr(lib, "omni_scan_pipe") and hasattr(lib, "omni_scan_keys_emit")
+    assert not hasattr(lib, "omni_scan_topt") and not hasattr(lib, "omni_scan_probe")
+
+
+# K5's default query tile at W bloom bytes and slices of sub: 64 where its
+# keyword weights and [64][sub + 4] f32 scores fit
+KW_TILE = {(16, 512): 64, (128, 512): 64, (256, 512): 32, (16, 1024): 32, (128, 1024): 32,
+           (256, 1024): 32}
+
+
+@pytest.mark.parametrize("sub", [512, 1024])
+@pytest.mark.parametrize("w", [16, 128, 256])
+@pytest.mark.parametrize("b", [1, 45, 448])
+def test_kw_scan_kernel(dev, sub, w, b):
+    """K5 over one query, a partial query tile and the serving batch, at
+    narrow, serving (1024 bits) and the server's default (2048 bits) bloom
+    widths, at both slices the engine's layouts give it; the keyword weights
+    leave the keyword term below its clamp."""
+    o = _operands(dev, 8192, 16, b, w, seed=2, kw_nonzero=24)
     keys = ("bloom", "kw_w8", "kw_b", "add_row")
-    kv, ki = scorer.block_topt_kw_only(*(o[k] for k in keys), t=4, sub=1024)
-    pv, pi = scorer.block_topt_kw_only_plain(*(o[k] for k in keys), t=4, sub=1024)
+    before = cuda.LAUNCHES["kw_scan"]
+    kv, ki = scorer.block_topt_kw_only(*(o[k] for k in keys), t=4, sub=sub)
+    pv, pi = scorer.block_topt_kw_only_plain(*(o[k] for k in keys), t=4, sub=sub)
+    assert cuda.LAUNCHES["kw_scan"] == before + 1
     assert _same(kv, pv) and _same(ki, pi)
+    assert scorer.int8_kw_query_tile(sub, w) == KW_TILE[(w, sub)]
+
+
+@pytest.mark.parametrize("sub, t, w, qt", [(1024, 1, 128, 32), (256, 2, 128, 64),
+                                           (128, 4, 24, 64), (64, 4, 128, 64), (32, 2, 16, 64),
+                                           (1024, 4, 512, 16), (1024, 4, 1296, 8)])
+def test_kw_scan_layouts(dev, sub, t, w, qt):
+    """K5 in the two-reduce mode, at slices below 128 rows (several slices a
+    128-row group), at W = 24 (bloom bytes past W read as 0), and at bloom
+    widths whose keyword weights leave room for a 16- or an 8-query tile
+    only."""
+    o = _operands(dev, 8192, 16, 45, w, seed=12, kw_nonzero=24)
+    keys = ("bloom", "kw_w8", "kw_b", "add_row")
+    kv, ki = scorer.block_topt_kw_only(*(o[k] for k in keys), t=t, sub=sub)
+    pv, pi = scorer.block_topt_kw_only_plain(*(o[k] for k in keys), t=t, sub=sub)
+    assert _same(kv, pv) and _same(ki, pi)
+    assert scorer.int8_kw_query_tile(sub, w) == qt
 
 
 def _fp_inputs(dev, n, d, b, w, seed, exact):
@@ -260,7 +319,7 @@ def test_fp_scan_sass_holds_hgmma(dev):
 
 
 @pytest.mark.parametrize("bits", [512, 1024])
-@pytest.mark.parametrize("b", [45, 448])
+@pytest.mark.parametrize("b", [1, 45, 448])
 def test_profile_bloom_t5(dev, bits, b):
     """T5 on both bloom layouts (W = 64 and 128), bitwise against its plain
     version and each against the other."""
@@ -441,6 +500,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     args = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
     with pytest.raises(ValueError, match="N % max"):
         scorer.block_topt_int8_coarse(*args, t=2, sub=64, block=64)
+    # K5 takes int8_scan.cu's slices: sub % 128 == 0 or 128 % sub == 0, and
+    # N % sub == 0
+    o = _operands(dev, 4096, 16, 8, 16)
+    args = [o[k] for k in ("bloom", "kw_w8", "kw_b", "add_row")]
+    with pytest.raises(ValueError, match="sub % 128"):
+        scorer.block_topt_kw_only(*args, t=4, sub=192)
+    with pytest.raises(ValueError, match="N % max"):
+        scorer.block_topt_kw_only(*args, t=4, sub=384)
+    # T5 takes whole 16-byte groups of bloom bytes
+    emb8 = torch.zeros((4096, 768), dtype=torch.int8, device=dev)
+    q8 = torch.zeros((8, 768), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="W % 16"):
+        profile_bloomT.bloom_scan(emb8, torch.zeros((4096, 24), dtype=torch.uint8, device=dev),
+                                  q8, torch.zeros((8, 192), dtype=torch.int8, device=dev),
+                                  torch.zeros((1, 4096), device=dev), False, 2048)
     with pytest.raises(ValueError, match="d % 4"):
         scorer.block_topt(torch.zeros((4096, 70), device=dev), o["bloom"],
                           torch.zeros((8, 70), device=dev), torch.zeros((8, 128), device=dev),
