@@ -28,12 +28,8 @@ Phases, one JSON line each:
                 the int8 cosine product alone (``torch._int_mm``) as their
                 yardstick, K5 (int8_scan.cu too) the keyword product alone
                 over the pre-expanded bit matrix, and K5's line also times
-                it at slices of 512, where it takes its 64-query tile. Given
-                ``--parent DIR`` (the root of an earlier checkout whose
-                csrc/scan.cu still serves K5 and T5 on the CUDA cores, as
-                omni_scan_topt and omni_scan_probe), that build's K5 and T5
-                on the same inputs, timed before and after the kernel, and
-                its output held bitwise against the kernel's. Then the plain-torch xla scorer (no kernel of the
+                it at slices of 512, where it takes its 64-query tile. Then
+                the plain-torch xla scorer (no kernel of the
                 repository) at the same shape: its time beside its f32 floor,
                 its values against a float64 scan of a few queries. Then the
                 two profiling probes of tools/ at the same serving shapes:
@@ -41,18 +37,24 @@ Phases, one JSON line each:
                 + keyword, and the full top-9, blocks of 1024 rows, bf16
                 rows, sparse keyword weights) and T5 (tools/profile_bloomT.py:
                 K4's body, slice maxima, on row and transposed bloom, which
-                must agree bitwise; the parent's T5 beside it), each against
-                its plain version,
+                must agree bitwise), each against its plain version,
                 with one PyTorch call's time as a yardstick where one computes
                 the product at its heart. Then the two variants of K1 in
-                tools/: T2 (tools/probe_pipe.py: K1 software-pipelined) at
-                K1's serving layout (sub 1024, t 2) and at the tool's (512,
-                512, t 4), bitwise against its plain version and against K1's
-                kernel, with K1 timed beside it; and T4
-                (tools/probe_keys_emit.py: K1's tiles with the tool's bare
-                epilogue) in its three emit layouts at c = sub = 1024, t1 = 3,
-                each bitwise against its plain version, P3 decoded against
-                pair's values. Last, T3 (tools/probe_serve.py: K3's body over
+                tools/, both on K1's tiles in csrc/int8_scan.cu: T2
+                (tools/probe_pipe.py: K1 with its extraction one group behind
+                the dot) at K1's serving layout (sub 1024, t 2) and at the
+                tool's (512, 512, t 4), bitwise against its plain version and
+                against K1's kernel, with K1, K1 at t = 0 and T2 at t = 0
+                timed beside it; and T4 (tools/probe_keys_emit.py: K1's tiles
+                with the tool's bare epilogue) in its three emit layouts at
+                c = sub = 1024, t1 = 3, each bitwise against its plain
+                version, P3 decoded against pair's values. Given ``--parent
+                DIR`` (the root of an earlier checkout whose csrc/scan.cu
+                still serves T2 and T4 on the CUDA cores, as omni_scan_pipe
+                and omni_scan_keys_emit), that build's T2 and T4 on the same
+                inputs, timed before and after the kernel (parent, kernel,
+                kernel, parent), and its output held bitwise against the
+                kernel's. Last, T3 (tools/probe_serve.py: K3's body over
                 pre-gathered slabs, the whole [qg, qg·m] tile) on K3's
                 candidates at the tool's shape (B = 1536, m = 128, qg 16) and
                 at K3's select shape (448, 64, qg 16): bitwise against its
@@ -191,11 +193,11 @@ def bound_ms(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, st
 
 
 class ParentScan:
-    """The parent's K5 and T5, for the same-call A/B: csrc/scan.cu of an
-    earlier checkout (the root DIR of ``--parent``) whose omni_scan_topt
-    serves K5 and omni_scan_probe T5 (__dp4a on the CUDA cores, the keyword
-    weights in the JAX column order). Its nvcc starts when this is made,
-    beside the build of this checkout's kernels; ``load`` waits for it."""
+    """The parent's T2 and T4, for the same-call A/B: csrc/scan.cu of an
+    earlier checkout (the root DIR of ``--parent``) whose omni_scan_pipe
+    serves T2 and omni_scan_keys_emit T4 (__dp4a on the CUDA cores). Its nvcc
+    starts when this is made, beside the build of this checkout's kernels;
+    ``load`` waits for it."""
 
     def __init__(self, root: str):
         from omni_recall_tpu_torch.ops import cuda
@@ -218,46 +220,55 @@ class ParentScan:
         self.lib = ctypes.CDLL(str(self.path))
         p, i = ctypes.c_void_p, ctypes.c_int
         for name, argtypes in (
-                # bloom kw_w8 kw_b add, vals idxs; n w b sub t1 packed; stream
-                ("omni_scan_topt", [p] * 6 + [i] * 6 + [p]),
-                # emb8 bloom q8 kw8 add out; n d w b transposed; stream
-                ("omni_scan_probe", [p] * 6 + [i] * 5 + [p])):
+                # emb8 q8 add scale qs qb, vals idxs; n d b sub t1 packed
+                # slices_per_block; stream
+                ("omni_scan_pipe", [p] * 8 + [i] * 7 + [p]),
+                # emb8 q8 scale qs, vals keys; n d b c sub t1 emit; stream
+                ("omni_scan_keys_emit", [p] * 6 + [i] * 7 + [p])):
             fn = getattr(self.lib, name)
             fn.restype, fn.argtypes = ctypes.c_int, argtypes
 
-    def kw_scan(self, bloom, kw_w8, kw_b, add_row, sub: int, t1: int):
-        """K5 at slices of ``sub``, t1 entries a slice: (vals, idxs)."""
+    def pipe(self, emb8, q8, add_row, scale_row, q_scale, q_bias, t: int, sub: int,
+             slices_per_block: int = 16):
+        """T2 (q_scale with the 0.7 weight folded in) in the tool's layout at
+        c = sub, with the parent's default of 16 slices a block."""
         import torch
 
         from omni_recall_tpu_torch.ops import cuda, scorer
+        from omni_recall_tpu_torch.tools import probe_pipe as t2
 
-        (n, w), b = bloom.shape, kw_w8.shape[0]
-        vals = torch.empty((b, n // sub, t1), dtype=torch.float32, device=bloom.device)
-        idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=bloom.device)
-        rc = self.lib.omni_scan_topt(
-            bloom.data_ptr(), kw_w8.data_ptr(), kw_b.data_ptr(), add_row.data_ptr(),
-            vals.data_ptr(), idxs.data_ptr(), n, w, b, sub, t1,
-            int(scorer._packed_mode(sub, t1)), cuda.stream_ptr(bloom.device))
+        (n, d), b, t1 = emb8.shape, q8.shape[0], t + 1
+        vals = torch.empty((b, n // sub, t1), dtype=torch.float32, device=emb8.device)
+        idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=emb8.device)
+        rc = self.lib.omni_scan_pipe(
+            emb8.data_ptr(), q8.data_ptr(), add_row.data_ptr(), scale_row.data_ptr(),
+            q_scale.data_ptr(), q_bias.data_ptr(), vals.data_ptr(), idxs.data_ptr(),
+            n, d, b, sub, t1, int(scorer._packed_mode(sub, t1)), slices_per_block,
+            cuda.stream_ptr(emb8.device))
         if rc:
-            raise RuntimeError(f"the parent's K5 failed to launch ({rc})")
-        return vals, idxs
+            raise RuntimeError(f"the parent's T2 failed to launch ({rc})")
+        return t2._tool_layout(vals, idxs, sub, sub)
 
-    def probe(self, emb8, bloom, q8, kw8, add, transposed: bool):
-        """T5 in the tool's layout [N/c, B, c/512] (c = the tool's block)."""
+    def keys_emit(self, emb8, q8, scale, qs, c: int, sub: int, t1: int, emit: str):
+        """T4: (vals, idxs) for ``pair``, the keys for ``p3`` and ``pf``."""
         import torch
 
         from omni_recall_tpu_torch.ops import cuda
-        from omni_recall_tpu_torch.tools import profile_bloomT as t5
+        from omni_recall_tpu_torch.tools import probe_keys_emit as t4
 
         (n, d), b = emb8.shape, q8.shape[0]
-        w = bloom.shape[0] if transposed else bloom.shape[1]
-        out = torch.empty((b, n // t5.SLICE), dtype=torch.float32, device=emb8.device)
-        rc = self.lib.omni_scan_probe(
-            emb8.data_ptr(), bloom.data_ptr(), q8.data_ptr(), kw8.data_ptr(), add.data_ptr(),
-            out.data_ptr(), n, d, w, b, int(transposed), cuda.stream_ptr(emb8.device))
+        width = (c // sub) * t1
+        shape = (b, (n // c) * width) if emit == "pf" else (n // c, b, width)
+        keys = torch.empty(shape, dtype=torch.int32, device=emb8.device)
+        vals = torch.empty(shape, dtype=torch.float32, device=emb8.device) \
+            if emit == "pair" else None
+        rc = self.lib.omni_scan_keys_emit(
+            emb8.data_ptr(), q8.data_ptr(), scale.data_ptr(), qs.data_ptr(),
+            None if vals is None else vals.data_ptr(), keys.data_ptr(),
+            n, d, b, c, sub, t1, t4.EMITS[emit], cuda.stream_ptr(emb8.device))
         if rc:
-            raise RuntimeError(f"the parent's T5 failed to launch ({rc})")
-        return out.view(b, n // t5.C, t5.C // t5.SLICE).transpose(0, 1)
+            raise RuntimeError(f"the parent's T4 failed to launch ({rc})")
+        return (vals, keys) if emit == "pair" else keys
 
 
 def timed_ab(kern, parent=None, same=None) -> tuple[float, dict]:
@@ -287,7 +298,7 @@ def pair_bitwise(a, b) -> bool:
 
 def kernel_phase(seed: int, parent=None) -> dict:
     """Each kernel against its plain version at the serving shapes;
-    ``parent`` (``ParentScan``) times the parent's K5 and T5 beside them."""
+    ``parent`` (``ParentScan``) times the parent's T2 and T4 beside them."""
     import torch
 
     from omni_recall_tpu_torch.ops import exact_cos, scorer
@@ -315,25 +326,21 @@ def kernel_phase(seed: int, parent=None) -> dict:
     q_bias = rf((b, 1), 0.01)
     results = {}
 
-    def scan_line(name, replaces, kern, plain, bytes_moved, ops, library=(None, None),
-                  parent=None):
+    def scan_line(name, replaces, kern, plain, bytes_moved, ops, library=(None, None)):
         kv, ki = kern()
         pv, pi = plain()
         torch.cuda.synchronize()
         ok = bitwise(kv, pv) and bitwise(ki, pi)
         err = float((kv - pv).abs().max())
-        ms, ab = timed_ab(kern, parent, pair_bitwise)
+        ms = time_ms(kern, device_only=True)
         plain_ms = time_ms(plain)
         bms, by = bound_ms(bytes_moved, ops, INT8_OPS_PER_S)
         line = dict(name=name, replaces=replaces, shape=list(kv.shape),
                     parity=bitwise_parity(ok), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=library[0], library=library[1],
-                    **ab)
+                    bound_ms=bms, bound_by=by, library_ms=library[0], library=library[1])
         emit({"phase": "kernel", **line})
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
-        if not ab.get("parent_bitwise", True):
-            raise AssertionError(f"{name}: kernel disagrees with the parent's build")
         return line
 
     out_bytes = lambda t1, sub: b * (n // sub) * t1 * 8  # noqa: E731
@@ -369,16 +376,15 @@ def kernel_phase(seed: int, parent=None) -> dict:
         lambda: scorer.block_topt_kw_only_plain(bloom, kw_w8, kw_b, add_row, t=4, sub=1024),
         n * w + b * 8 * w + 4 * n + 4 * b + out_bytes(5, 1024),
         2.0 * n * b * 8 * w, kw_mm_yardstick(kw_w8, bloom),
-        parent and (lambda: parent.kw_scan(bloom, kw_w8, kw_b, add_row, 1024, 5)),
     )
     results["kw"]["query_tile"] = scorer.int8_kw_query_tile(1024, w)
     results["kw"]["sub512"] = kw_sub512_line(bloom, kw_w8, kw_b, add_row)
     results.update(refine_lines(g, emb8, bloom, kw_w8, kw_b[:, 0], scale_row[0], seed))
-    results["t5"] = t5_lines(g, emb8, bloom, q8, add_row, parent)
-    results["t2"] = t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias)
+    results["t5"] = t5_lines(g, emb8, bloom, q8, add_row)
+    results["t2"] = t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias, parent)
     del emb8
     torch.cuda.empty_cache()
-    results["t4"] = t4_lines(dev, seed)
+    results["t4"] = t4_lines(dev, seed, parent)
     torch.cuda.empty_cache()
     results.update(fp_scan_lines(g, bloom, kw_b, add_row))
     del bloom
@@ -844,12 +850,11 @@ def kw_sub512_line(bloom, kw_w8, kw_b, add_row) -> dict:
     return line
 
 
-def t5_lines(g, emb8, bloom, q8, add_row, parent=None) -> dict:
+def t5_lines(g, emb8, bloom, q8, add_row) -> dict:
     """T5 on row and transposed bloom at the serving shapes (c 2048, the
     tool's 0/1 keyword weights), each bitwise against its plain version and
     the two against each other; beside the int8 cosine product alone
-    (torch._int_mm), where this build has one for these shapes, and, given
-    ``parent`` (``ParentScan``), the parent's T5 on the same inputs."""
+    (torch._int_mm), where this build has one for these shapes."""
     import torch
 
     from omni_recall_tpu_torch.tools import profile_bloomT as t5
@@ -866,21 +871,16 @@ def t5_lines(g, emb8, bloom, q8, add_row, parent=None) -> dict:
         want, plain_ms = plain_once(
             lambda: t5.bloom_scan_plain(emb8, bl, q8, kw8, add_row, transposed, t5.C))  # noqa: B023
         ok = bitwise(got[layout], want)
-        ms, ab = timed_ab(kern, parent and (
-            lambda: parent.probe(emb8, bl, q8, kw8, add_row, transposed)), bitwise)  # noqa: B023
         line = dict(name=f"profile_bloomT[{layout}]", replaces="tools/profile_bloomT.py:22",
                     shape=[b, n, d], bits=8 * w, c=t5.C, out_shape=list(want.shape),
                     parity=bitwise_parity(ok),
                     max_abs_err=float((got[layout] - want).abs().max()),
-                    ms=ms, plain_ms=plain_ms, plain_runs=1,
-                    bound_ms=bms, bound_by=by, library_ms=library_ms, library=library, **ab)
+                    ms=time_ms(kern, device_only=True), plain_ms=plain_ms, plain_runs=1,
+                    bound_ms=bms, bound_by=by, library_ms=library_ms, library=library)
         emit({"phase": "kernel", **line})
         if not ok:
             raise AssertionError(f"profile_bloomT[{layout}]: kernel disagrees with its "
                                  "plain version")
-        if not ab.get("parent_bitwise", True):
-            raise AssertionError(f"profile_bloomT[{layout}]: kernel disagrees with the "
-                                 "parent's build")
         out[layout] = line
         del want
     if not bitwise(got["row"], got["transposed"]):
@@ -911,13 +911,16 @@ T2_LAYOUTS = {"serving": (1024, 2), "tool": (512, 4)}  # (sub, t), c = sub
 T4_BODY_LINE = {"pair": 123, "p3": 136, "pf": 142}  # tools/probe_keys_emit.py
 
 
-def t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias) -> dict:
+def t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias, parent=None) -> dict:
     """T2 at K1's serving layout (sub 1024, t 2) and at the tool's (512, 512,
     t 4), over the K1 line's operands: bitwise against its plain version and
     against K1's kernel on the same operands (K1 folds the 0.7 weight
     itself), with K1 timed before and after it, and K1 at t = 0 (one maximum
     a slice, the least extraction there is) beside them: K1 less that is
-    what its extraction rounds cost."""
+    what its extraction rounds cost; and T2 at t = 0 likewise, so that T2
+    less that is what its rounds add once they run beside the dot. Given
+    ``parent`` (``ParentScan``), the
+    parent's T2 on the same operands, timed around it and held bitwise."""
     import torch
 
     from omni_recall_tpu_torch.ops import scorer
@@ -939,36 +942,47 @@ def t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias) -> dict:
         k1_ok = (bitwise(kv.transpose(0, 1).reshape(rv.shape), rv)
                  and bitwise(ki.transpose(0, 1).reshape(ri.shape), ri))
         k1_ms = time_ms(k1, device_only=True)
-        ms = time_ms(kern, device_only=True)
+        ms, ab = timed_ab(kern, parent and (lambda: parent.pipe(*args, t, sub)),  # noqa: B023
+                          pair_bitwise)
         k1_max_only_ms = time_ms(lambda: scorer.block_topt_int8_coarse(  # noqa: B023
             emb8, q8, add_row, scale_row, q_scale, q_bias, t=0, sub=sub, block=sub),
             device_only=True)
+        max_only_ms = time_ms(lambda: t2.pipe_scan(*args, 0, sub, sub),  # noqa: B023
+                              device_only=True)
         bms, by = coarse_bound(n, b, d, 2, t2_out_bytes(n, b, sub, t))
         line = dict(name=f"probe_pipe[{layout}]", replaces="tools/probe_pipe.py:34",
                     shape=[b, n, d], layout=[sub, t], c=sub, out_shape=list(kv.shape),
-                    query_tile=t2.query_tile(d, sub), slices_per_block=t2.SLICES_PER_BLOCK,
-                    warps=t2.WARPS, parity=bitwise_parity(ok), k1_bitwise=k1_ok,
+                    query_tile=t2.query_tile(d, sub),
+                    k1_query_tile=scorer.int8_query_tile(sub, d), warpgroups=t2.WARPGROUPS,
+                    parity=bitwise_parity(ok), k1_bitwise=k1_ok,
                     max_abs_err=float((kv - pv).abs().max()), ms=ms, k1_ms=k1_ms,
                     k1_ms_after=time_ms(k1, device_only=True), k1_max_only_ms=k1_max_only_ms,
+                    max_only_ms=max_only_ms,
                     plain_ms=time_ms(plain), plain_runs=5, bound_ms=bms, bound_by=by,
-                    library_ms=library_ms, library=library)
+                    library_ms=library_ms, library=library, **ab)
         emit({"phase": "kernel", **line})
         if not ok:
             raise AssertionError(f"probe_pipe[{layout}]: kernel disagrees with its plain version")
         if not k1_ok:
             raise AssertionError(f"probe_pipe[{layout}]: kernel disagrees with K1's kernel")
+        if not ab.get("parent_bitwise", True):
+            raise AssertionError(f"probe_pipe[{layout}]: kernel disagrees with the parent's "
+                                 "build")
         out[layout] = line
         del kv, ki, pv, pi, rv, ri
         torch.cuda.empty_cache()
     return out
 
 
-def t4_lines(dev, seed: int) -> dict:
+def t4_lines(dev, seed: int, parent=None) -> dict:
     """T4's three emits over the tool's operands (random bits as int8, so
     -128 occurs; scale and qs 1e-4) at B = 448, c = sub = 1024, t1 = 3, each
-    bitwise against its plain version, P3 decoded against pair's values."""
+    bitwise against its plain version, P3 decoded against pair's values.
+    Given ``parent`` (``ParentScan``), the parent's T4 on the same operands,
+    timed around it and held bitwise."""
     import torch
 
+    from omni_recall_tpu_torch.ops import scorer
     from omni_recall_tpu_torch.tools import probe_keys_emit as t4
 
     emb8, q8, scale, qs = t4.tool_inputs(N_ROWS, BATCH, dev, seed)
@@ -988,16 +1002,23 @@ def t4_lines(dev, seed: int) -> dict:
         kv, pv = (k[0], p[0]) if emit_name == "pair" else (t4.decode_up(k[0], sub),
                                                            t4.decode_up(p[0], sub))
         bms, by = coarse_bound(n, b, d, 1, t4_out_bytes(n, b, sub, t1, emit_name))
+        ms, ab = timed_ab(kern, parent and (
+            lambda: parent.keys_emit(emb8, q8, scale, qs, c, sub, t1, emit_name)),  # noqa: B023
+            pair_bitwise if emit_name == "pair" else bitwise)
         line = dict(name=f"probe_keys_emit[{emit_name}]",
                     replaces=f"tools/probe_keys_emit.py:{T4_BODY_LINE[emit_name]}",
                     shape=[b, n, d], c=c, sub=sub, t1=t1, out_shape=list(k[0].shape),
+                    query_tile=scorer.int8_query_tile(sub, d),
                     parity=bitwise_parity(ok), max_abs_err=float((kv - pv).abs().max()),
-                    ms=time_ms(kern, device_only=True), plain_ms=time_ms(plain), plain_runs=5,
-                    bound_ms=bms, bound_by=by, library_ms=library_ms, library=library)
+                    ms=ms, plain_ms=time_ms(plain), plain_runs=5,
+                    bound_ms=bms, bound_by=by, library_ms=library_ms, library=library, **ab)
         emit({"phase": "kernel", **line})
         if not ok:
             raise AssertionError(f"probe_keys_emit[{emit_name}]: kernel disagrees with its "
                                  "plain version")
+        if not ab.get("parent_bitwise", True):
+            raise AssertionError(f"probe_keys_emit[{emit_name}]: kernel disagrees with the "
+                                 "parent's build")
         out[emit_name] = line
         del p, kv, pv
     if not bitwise(t4.decode_up(got["p3"][0], sub), got["pair"][0]):
@@ -1647,7 +1668,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", help="root of an earlier checkout whose csrc/scan.cu "
-                        "serves K5 and T5 (omni_scan_topt, omni_scan_probe): their times "
+                        "serves T2 and T4 (omni_scan_pipe, omni_scan_keys_emit): their times "
                         "beside the kernels'")
     args = parser.parse_args()
 
@@ -1727,7 +1748,6 @@ def main() -> int:
                          "sum_tool_design_ms": stages["sum_tool_design_ms"],
                          "sum_port_design_ms": stages["sum_port_design_ms"]})
 
-    scan_src = "omni_recall_tpu_torch/csrc/scan.cu"
     int8_src = "omni_recall_tpu_torch/csrc/int8_scan.cu"
     fp_src = "omni_recall_tpu_torch/csrc/fp_scan.cu"
     rescue = k["refine_rescue"]
@@ -1767,10 +1787,10 @@ def main() -> int:
                     lambda r: "transposed" if r["transposed"] else "row"),
         # T2's sweep at sub 512 goes with its line at the tool's layout, at
         # sub 1024 with the serving layout's (same slice width, query tile)
-        probe_entry("T2 probe_pipe", "probe_pipe", scan_src, "tools/probe_pipe.py:85",
+        probe_entry("T2 probe_pipe", "probe_pipe", int8_src, "tools/probe_pipe.py:85",
                     k["t2"], "serving", profile["probe_pipe"],
                     lambda r: "tool" if r["sub"] == T2_LAYOUTS["tool"][0] else "serving"),
-        probe_entry("T4 probe_keys_emit", "probe_keys_emit", scan_src,
+        probe_entry("T4 probe_keys_emit", "probe_keys_emit", int8_src,
                     "tools/probe_keys_emit.py:123", k["t4"], "pair",
                     profile["probe_keys_emit"], lambda r: r["emit"]),
         t3_entry(k["refine_t3"], stages),

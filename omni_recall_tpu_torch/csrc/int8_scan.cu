@@ -1,6 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels for the int8 hybrid scans K1 (with its
-// pair mode K7a), K4 and K5, and the profiling probe T5, on the tensor cores
-// (wgmma, s8 in, s32 accumulators).
+// pair mode K7a), K4 and K5, and the profiling probes T2, T4 and T5, on the
+// tensor cores (wgmma, s8 in, s32 accumulators).
 //
 // Replaces omni_recall_tpu/ops/pallas_scorer.py:
 //
@@ -35,6 +35,21 @@
 // two-reduce extraction at t1 = 1), values only, [B, N/512]. The bloom arrives
 // as rows [N, W] or transposed [W, N] (bit j is bit j / W of byte j % W in
 // both).
+//
+// And the two probes of K1 in the repository's tools/:
+//
+//   T4  tools/probe_keys_emit.py (kern_pair :123, kern_p3 :136, kern_pf :142):
+//       K1's cosine with the tool's bare epilogue (no add_row, bias or eps; the
+//       order found against the interpret-mode body)
+//         score = (cosd * qs) * scale
+//       then the packed-key rounds at any t1 (sub a power of two) and one of
+//       three emits, each layout written by the kernel: pair (decoded vals +
+//       global idxs) and P3 (raw packed keys) block-major [N/c, B, (c/sub) t1],
+//       PF (raw keys) flat [B, (N/sub) t1].
+//   T2  tools/probe_pipe.py (the pallas_call at :85, body _make_pipe_kernel :34):
+//       K1's scores and extraction, each group's extraction deferred by one
+//       group, so that the dot of group g overlaps the extraction of group
+//       g - 1. Same scores, same rounds: the output is K1's, bit for bit.
 //
 // The dots sum int8 products in int32, exact in any order, and the f32
 // epilogue follows the JAX graphs operation by operation (__fmaf_rn where XLA's
@@ -95,6 +110,18 @@
 //   a 4 x 4 byte transpose in registers (__byte_perm), one 32-bit store a
 //   row; then its threads read their words as the row layout does, so the
 //   operand, and the column order, are the row layout's.
+// - T4 is int8_scan_kernel with KeysArgs: K1's tiles, the bare epilogue and
+//   the emit's layout (extract_slices with topt_extract.cuh's EMIT and
+//   Offset).
+// - T2 (int8_pipe_kernel) is K1 with two more warpgroups that only extract:
+//   K1's producer and two wgmma consumer warpgroups score group g into score
+//   slot g % 2 while the extraction warpgroups run group g - 1's rounds from
+//   the other slot (eight warps, as many as K1 extracts with; four fell
+//   behind the dot at t1 = 5); the slots change hands at named barriers.
+//   640 threads get 96 registers each at launch, split 40 / 128 / 128 / 88 /
+//   88 by setmaxnreg. Two [QT][R + 4] slots halve the query tile where one
+//   slot took most of the shared memory (QT 16 at sub 1024, d 768), and each
+//   row is then read from L2 twice as often.
 
 #include <climits>
 #include <cstdint>
@@ -133,11 +160,19 @@ constexpr float kProbeKw = kKwW * kInv127;
 constexpr int kProbeSlice = 512;          // rows whose maximum T5 keeps
 constexpr int kKwTileRows = 64;           // K5: rows of a tile, one warpgroup's
 constexpr int kKwWarpgroups = 4;          // K5: warpgroups a block, all consumers
+constexpr int kPipeExtractors = 2 * kWg;  // T2: threads of the extraction warpgroups
+constexpr int kPipeThreads = kWg + kConsumers + kPipeExtractors;  // T2: 640
+constexpr int kPipeConsumerRegs = 128;    // T2's split of the 96 x 640 registers:
+constexpr int kPipeExtractorRegs = 88;    // 40 + 2 * 128 + 2 * 88 = 472 <= 480
+constexpr int kPipeHandover = kConsumers + kPipeExtractors;  // threads at a slot's hand-over
+
+enum KeysEmit : int { kEmitPair = 0, kEmitP3 = 1, kEmitPF = 2 };  // T4's emits
 
 // K1's arguments
 struct CoarseArgs {
   static constexpr bool kKw = false;
   static constexpr bool kProbe = false;
+  static constexpr bool kKeys = false;
   const float* add_row;   // [n]
   const float* scale_row; // [n]
   const float* q_scale;   // [b], 0.7 folded in
@@ -166,6 +201,31 @@ struct FusedArgs : CoarseArgs {
 struct ProbeArgs : FusedArgs {
   static constexpr bool kProbe = true;
   int transposed;
+};
+
+// T4's arguments: K1's tiles with the bare epilogue (the tool's scale and
+// qs) and the emit's layout; the rounds are always the packed ones
+struct KeysArgs {
+  static constexpr bool kKw = false;
+  static constexpr bool kProbe = false;
+  static constexpr bool kKeys = true;
+  const float* scale_row; // [n] the tool's scale
+  const float* q_scale;   // [b] the tool's qs
+  float* out_vals;        // pair: decoded values (else unused)
+  int32_t* out_idxs;      // pair: global row indices; P3, PF: the packed keys
+  int n, b, sub, t1;
+  int kq;                 // 128-byte K chunks of the rows and queries
+  int rows_per_group;     // R: whole slices
+  int groups;             // G: groups a block walks
+  int stages;             // ring stages
+  int emit;               // KeysEmit
+  int n_sub;              // slices of the tool's block of c rows (c / sub)
+};
+
+// T2's arguments: K1's, and the row groups of the whole scan (the last
+// block walks what is left of them)
+struct PipeArgs : CoarseArgs {
+  int row_groups;         // n / rows_per_group
 };
 
 // K5's arguments: no rows, no cosine terms
@@ -400,6 +460,22 @@ __device__ __forceinline__ void kw_dot(const A& a, int (&acc)[QT / 2], const uin
   }
 }
 
+// T4: one query's packed-key rounds over a group, written in the emit's
+// layout (pair and P3 block-major, PF the contract's own layout, flat)
+__device__ __forceinline__ void extract_emit(const KeysArgs& a, float* sc, int R, long row0,
+                                             long n_slices, int qg, int lane) {
+  const BlockMajor blocks{a.b, a.n_sub};
+  if (a.emit == kEmitPair)
+    extract_slices<true>(sc, R, a.sub, a.t1, 1, row0, n_slices, qg, a.out_vals, a.out_idxs,
+                         lane, blocks);
+  else if (a.emit == kEmitP3)
+    extract_slices<false, kRawKeys>(sc, R, a.sub, a.t1, 1, row0, n_slices, qg, nullptr,
+                                    a.out_idxs, lane, blocks);
+  else
+    extract_slices<false, kRawKeys>(sc, R, a.sub, a.t1, 1, row0, n_slices, qg, nullptr,
+                                    a.out_idxs, lane);
+}
+
 constexpr size_t smem_bytes(int qt, int kchunks, int stages, int rows, size_t staged = 0) {
   return 1024 + (size_t)qt * kChunk * kchunks + (size_t)stages * kStageBytes +
          (size_t)qt * (rows + kScorePad) * 4 + (2 * stages + 1) * 8 + staged;
@@ -482,14 +558,15 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
 
     // per-query terms of the thread's queries (j8 * 8 + quad * 2 + h); T5
-    // has none
+    // has none, T4 its qs alone
     float qsc[NACC / 2], qb[NACC / 2], kb[NACC / 2];
 #pragma unroll
     for (int i = 0; i < NACC / 2; ++i) {
       const int qg = q0 + (i >> 1) * 8 + quad * 2 + (i & 1);
       const bool ok = qg < a.b && !A::kProbe;
       qsc[i] = ok ? a.q_scale[qg] : 0.0f;
-      qb[i] = ok ? a.q_bias[qg] : 0.0f;
+      qb[i] = 0.0f;
+      if constexpr (!A::kKeys) qb[i] = ok ? a.q_bias[qg] : 0.0f;
       kb[i] = 0.0f;
       if constexpr (kKw) kb[i] = ok ? a.kw_b[qg] : 0.0f;
     }
@@ -502,7 +579,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const long grow0 = row_base + (long)grp * R;
       for (int tt = 0; tt < R / kTileRows; ++tt) {
         const long trow = grow0 + (long)tt * kTileRows;
-        const float ar0 = a.add_row[trow + rl0], ar1 = a.add_row[trow + rl0 + 8];
+        float ar0 = 0.0f, ar1 = 0.0f;
+        if constexpr (!A::kKeys) ar0 = a.add_row[trow + rl0], ar1 = a.add_row[trow + rl0 + 8];
         float sr0 = 0.0f, sr1 = 0.0f;
         if constexpr (!A::kProbe) sr0 = a.scale_row[trow + rl0], sr1 = a.scale_row[trow + rl0 + 8];
         int acc_c[NACC], acc_k[NACC];
@@ -581,7 +659,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int j = ((i >> 2) << 1) | (i & 1);
           const float ar = (i & 2) ? ar1 : ar0, sr = (i & 2) ? sr1 : sr0;
           float s;
-          if constexpr (A::kProbe) {
+          if constexpr (A::kKeys) {
+            s = __fmul_rn(__fmul_rn((float)acc_c[i], qsc[j]), sr);
+          } else if constexpr (A::kProbe) {
             s = __fmaf_rn((float)acc_c[i], kProbeCos, __fmul_rn((float)acc_k[i], kProbeKw));
             s = __fadd_rn(s, ar);
           } else if constexpr (kKw) {
@@ -602,14 +682,173 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int ql = cw; ql < QT; ql += kConsumers / 32) {
         const int qg = q0 + ql;
         if (qg >= a.b) break;  // warp-uniform; later queries are further out
-        extract_slices<!A::kProbe>(sc + ql * SS, R, a.sub, a.t1, a.packed, grow0, n_slices, qg,
-                                   a.out_vals, a.out_idxs, lane);
+        if constexpr (A::kKeys)
+          extract_emit(a, sc + ql * SS, R, grow0, n_slices, qg, lane);
+        else
+          extract_slices<!A::kProbe>(sc + ql * SS, R, a.sub, a.t1, a.packed, grow0, n_slices,
+                                     qg, a.out_vals, a.out_idxs, lane);
       }
       consumer_sync();
     }
   }
 }
 
+
+// ---- T2: K1 with its extraction deferred one group ----
+
+// named barriers of T2's slot hand-over (0 is __syncthreads'), one per slot:
+// "full" (the consumers arrive, the extractor waits) and "free" (the other
+// way round)
+constexpr int kBarFull = 1, kBarFree = 3;
+
+__device__ __forceinline__ void bar_sync_n(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bar_arrive_n(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+constexpr size_t pipe_smem_bytes(int qt, int kq, int stages, int rows) {
+  return 1024 + (size_t)qt * kChunk * kq + (size_t)stages * kStageBytes +
+         2 * (size_t)qt * (rows + kScorePad) * 4 + (2 * stages + 1) * 8;
+}
+
+// Warpgroup 0 is K1's producer, 1 and 2 K1's consumers, which score group g
+// into slot g % 2; warpgroups 3 and 4 extract group g - 1 from the other slot
+// (warp w of theirs: queries w, w + 8, ...). A slot is handed to the
+// extractors once both consumer warpgroups stored the group's scores
+// (bar.arrive by the consumers, bar.sync by the extractors), and back once
+// its rounds are done, if a later group is to be scored into it. Every
+// thread passes every hand-over of its side, whatever its queries.
+template <int QT>
+__global__ void __launch_bounds__(kPipeThreads, 1)
+    int8_pipe_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap rmap, const PipeArgs a) {
+  constexpr int NACC = QT / 2;  // accumulator registers a thread
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* bq = sm;                                 // [kq][QT][128 B]
+  unsigned char* ring = bq + (size_t)QT * kChunk * a.kq;  // [stages][128 rows][128 B]
+  float* slots = reinterpret_cast<float*>(ring + (size_t)a.stages * kStageBytes);
+  const int R = a.rows_per_group;
+  const int SS = R + kScorePad;                           // score row stride
+  const size_t slot_floats = (size_t)QT * SS;             // [2][QT][SS]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(slots + 2 * slot_floats);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + a.stages);
+  const uint32_t bq_full = smem_u32(bars + 2 * a.stages);
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * QT;
+  const int groups = min(a.groups, a.row_groups - (int)blockIdx.y * a.groups);
+  const long row_base = (long)blockIdx.y * a.groups * R;
+  const long n_slices = a.n / a.sub;
+
+  if (tid == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers);
+    }
+    mbar_init(bq_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < kWg) {
+    // ---- producer warpgroup: K1's ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (tid == 0) {
+      mbar_expect_tx(bq_full, (uint32_t)(QT * kChunk * a.kq));
+      for (int c = 0; c < a.kq; ++c)
+        tma_load_2d(smem_u32(bq + (size_t)c * QT * kChunk), &qmap, c * kChunk, q0, bq_full);
+      int stage = 0;
+      uint32_t phase = 0;
+      const int tiles = groups * (R / kTileRows);
+      for (int t = 0; t < tiles; ++t) {
+        const int row0 = (int)(row_base + (long)t * kTileRows);
+        for (int kc = 0; kc < a.kq; ++kc) {
+          mbar_wait(empty0 + 8 * stage, phase ^ 1);
+          mbar_expect_tx(full0 + 8 * stage, kStageBytes);
+          tma_load_2d(smem_u32(ring + (size_t)stage * kStageBytes), &rmap, kc * kChunk, row0,
+                      full0 + 8 * stage);
+          if (++stage == a.stages) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+  } else if (tid < kWg + kConsumers) {
+    // ---- consumer warpgroups: K1's dot and epilogue, into slot grp % 2 ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kPipeConsumerRegs));
+    const int ctid = tid - kWg, cw = ctid >> 5, lane = tid & 31;
+    const int g = cw >> 2;                                  // which 64 rows of a tile
+    const int rl0 = g * 64 + (cw & 3) * 16 + (lane >> 2);   // accumulator rows rl0, rl0 + 8
+    const int quad = lane & 3;
+    const uint32_t bq_addr = smem_u32(bq), ring_addr = smem_u32(ring);
+    float qsc[NACC / 2], qb[NACC / 2];
+#pragma unroll
+    for (int i = 0; i < NACC / 2; ++i) {
+      const int qg = q0 + (i >> 1) * 8 + quad * 2 + (i & 1);
+      qsc[i] = qg < a.b ? a.q_scale[qg] : 0.0f;
+      qb[i] = qg < a.b ? a.q_bias[qg] : 0.0f;
+    }
+    mbar_wait(bq_full, 0);
+
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int grp = 0; grp < groups; ++grp) {
+      float* sc = slots + (grp & 1) * slot_floats;
+      if (grp >= 2) bar_sync_n(kBarFree + (grp & 1), kPipeHandover);  // group grp - 2 is out
+      const long grow0 = row_base + (long)grp * R;
+      for (int tt = 0; tt < R / kTileRows; ++tt) {
+        const long trow = grow0 + (long)tt * kTileRows;
+        const float ar0 = a.add_row[trow + rl0], ar1 = a.add_row[trow + rl0 + 8];
+        const float sr0 = a.scale_row[trow + rl0], sr1 = a.scale_row[trow + rl0 + 8];
+        int acc[NACC];
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) acc[i] = 0;
+        for (int kc = 0; kc < a.kq; ++kc) {
+          mbar_wait(full0 + 8 * stage, phase);
+          wg_fence();
+          const uint32_t a_addr = ring_addr + stage * kStageBytes + g * 64 * kChunk;
+          const uint32_t b_addr = bq_addr + kc * QT * kChunk;
+#pragma unroll
+          for (int ks = 0; ks < kChunk / 32; ++ks)
+            wgmma_ss<QT>(acc, sw128_desc(a_addr + ks * 32), sw128_desc(b_addr + ks * 32));
+          wg_commit();
+          wg_wait_all();
+          mbar_arrive(empty0 + 8 * stage);
+          if (++stage == a.stages) { stage = 0; phase ^= 1; }
+        }
+        // K1's epilogue, in its operation order
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) {
+          const int ql = (i >> 2) * 8 + quad * 2 + (i & 1);
+          const int rl = rl0 + 8 * ((i >> 1) & 1);
+          const int j = ((i >> 2) << 1) | (i & 1);
+          float s = __fmaf_rn(__fmul_rn((float)acc[i], qsc[j]), (i & 2) ? sr1 : sr0,
+                              (i & 2) ? ar1 : ar0);
+          sc[ql * SS + tt * kTileRows + rl] = __fadd_rn(__fadd_rn(s, qb[j]), kEpsInt8);
+        }
+      }
+      bar_arrive_n(kBarFull + (grp & 1), kPipeHandover);  // slot grp % 2 holds group grp
+    }
+  } else {
+    // ---- extraction warpgroups: group grp's rounds, one group behind ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kPipeExtractorRegs));
+    const int ew = (tid - kWg - kConsumers) >> 5, lane = tid & 31;
+    for (int grp = 0; grp < groups; ++grp) {
+      float* sc = slots + (grp & 1) * slot_floats;
+      bar_sync_n(kBarFull + (grp & 1), kPipeHandover);
+      const long grow0 = row_base + (long)grp * R;
+      for (int ql = ew; ql < QT; ql += kPipeExtractors / 32) {
+        const int qg = q0 + ql;
+        if (qg >= a.b) break;  // warp-uniform; later queries are further out
+        extract_slices<true>(sc + ql * SS, R, a.sub, a.t1, a.packed, grow0, n_slices, qg,
+                             a.out_vals, a.out_idxs, lane);
+      }
+      // hand the slot back only if a group is still to be scored into it
+      if (grp + 2 < groups) bar_arrive_n(kBarFree + (grp & 1), kPipeHandover);
+    }
+  }
+}
 
 // K5: kKwWarpgroups warpgroups, all consumers. Thread 0 loads the resident
 // keyword weights (operand B, [kk][QT][128 B]) by TMA; warpgroup wg takes the
@@ -847,6 +1086,41 @@ bool common_args(CoarseArgs* a, const void* add_row, const void* scale_row, cons
   return n % a->rows_per_group == 0;
 }
 
+// ---- T2 ----
+
+// T2's query tile: the largest (32, 16, 8) whose operand, two score slots and
+// a ring of kMinStages stages fit; 0 if none
+int pick_pipe_tile(int kq, int rows) {
+  for (int qt = 32; qt >= 8; qt /= 2)
+    if (pipe_smem_bytes(qt, kq, kMinStages, rows) <= (size_t)kMaxSmem) return qt;
+  return 0;
+}
+
+template <int QT>
+int launch_pipe(PipeArgs a, const Operands& o, int groups, cudaStream_t stream) {
+  CUtensorMap qmap, rmap;
+  if (!uint8_map(&qmap, o.q8, a.b, o.d, QT)) return kErrTensorMap;
+  if (!uint8_map(&rmap, o.emb8, a.n, o.d, kTileRows)) return kErrTensorMap;
+  a.stages = kMinStages;
+  while (a.stages < kMaxStages &&
+         pipe_smem_bytes(QT, a.kq, a.stages + 1, a.rows_per_group) <= (size_t)kMaxSmem)
+    ++a.stages;
+  const size_t smem = pipe_smem_bytes(QT, a.kq, a.stages, a.rows_per_group);
+  const int q_tiles = (a.b + QT - 1) / QT;
+  a.row_groups = a.n / a.rows_per_group;
+  a.groups = groups <= 0 ? pick_groups(a.row_groups, q_tiles)
+                         : groups < a.row_groups ? groups : a.row_groups;
+  const int blocks = (a.row_groups + a.groups - 1) / a.groups;
+  if (blocks > 65535) return -1;
+  auto kernel = int8_pipe_kernel<QT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(q_tiles, (unsigned)blocks);
+  kernel<<<grid, kPipeThreads, smem, stream>>>(qmap, rmap, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // K1 (packed = 1) and K7a (packed = 0): emb8 i8 [n, d], q8 i8 [b, d], add_row,
@@ -901,6 +1175,61 @@ extern "C" int omni_int8_probe(const void* emb8, const void* bloom, const void* 
   a.kk = w / 16;
   a.transposed = transposed;
   return launch(a, a.kq + a.kk, Operands{emb8, q8, kw8, d}, static_cast<cudaStream_t>(stream));
+}
+
+// T4: emb8 i8 [n, d], q8 i8 [b, d], scale f32 [n], qs f32 [b]; emit pair
+// writes vals f32 and idxs i32 [n / c, b, (c / sub) * t1], P3 keys i32 in that
+// layout (out_keys), PF keys i32 [b, (n / sub) * t1]. sub a power of two, c a
+// multiple of sub, n % c == 0, n % 128 == 0, d % 16 == 0.
+extern "C" int omni_int8_keys_emit(const void* emb8, const void* q8, const void* scale,
+                                   const void* qs, void* out_vals, void* out_keys, int n, int d,
+                                   int b, int c, int sub, int t1, int emit, void* stream) {
+  CoarseArgs shape;
+  if (sub < 1 || (sub & (sub - 1)) != 0 || c % sub != 0 || c <= 0 || n % c != 0 ||
+      emit < kEmitPair || emit > kEmitPF ||
+      !common_args(&shape, nullptr, scale, qs, nullptr, out_vals, out_keys, n, d, b, sub, t1, 1))
+    return -1;
+  KeysArgs a;
+  a.scale_row = shape.scale_row;
+  a.q_scale = shape.q_scale;
+  a.out_vals = shape.out_vals;
+  a.out_idxs = shape.out_idxs;
+  a.n = n; a.b = b; a.sub = sub; a.t1 = t1;
+  a.kq = shape.kq;
+  a.rows_per_group = shape.rows_per_group;
+  a.groups = 1;
+  a.stages = kMinStages;
+  a.emit = emit;
+  a.n_sub = c / sub;
+  return launch(a, a.kq, Operands{emb8, q8, nullptr, d}, static_cast<cudaStream_t>(stream));
+}
+
+// T2: K1's operands and contract (vals f32, idxs i32 [b, n / sub, t1]), each
+// block walking `groups` groups of max(sub, 128) rows (0: K1's choice; the
+// last block walks what is left). n % 128 == 0, d % 16 == 0, sub % 128 == 0
+// or 128 % sub == 0.
+extern "C" int omni_int8_pipe_topt(const void* emb8, const void* q8, const void* add_row,
+                                   const void* scale_row, const void* q_scale,
+                                   const void* q_bias, void* out_vals, void* out_idxs, int n,
+                                   int d, int b, int sub, int t1, int packed, int groups,
+                                   void* stream) {
+  PipeArgs a;
+  if (groups < 0 || !common_args(&a, add_row, scale_row, q_scale, q_bias, out_vals, out_idxs, n,
+                                 d, b, sub, t1, packed))
+    return -1;
+  const Operands o{emb8, q8, nullptr, d};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (pick_pipe_tile(a.kq, a.rows_per_group)) {
+    case 32: return launch_pipe<32>(a, o, groups, st);
+    case 16: return launch_pipe<16>(a, o, groups, st);
+    case 8: return launch_pipe<8>(a, o, groups, st);
+    default: return -1;  // no tile configuration fits this shape
+  }
+}
+
+// T2's query tile at extraction slices of `sub` rows and width d (0: none fits)
+extern "C" int omni_int8_pipe_tile(int sub, int d) {
+  return pick_pipe_tile((d + kChunk - 1) / kChunk, sub > kTileRows ? sub : kTileRows);
 }
 
 // K5: bloom u8 [n, w], kw8 i8 [b, 8 wp] in int8_kw_columns order (wp = w

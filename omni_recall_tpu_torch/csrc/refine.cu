@@ -32,8 +32,8 @@
 // serving select stage (448 queries x 64 candidates, 48 MB) is bounded near 0.014 ms
 // at 3.35 TB/s, and its ~3e7 int8 operations are negligible beside that. Design: a
 // block takes one query and a tile of its candidates, quantizes the query into shared
-// memory and holds the keyword weights there too (reordered word-major, as in
-// scan.cu); a warp takes one candidate at a time, reads its rows with 16-byte vector
+// memory and holds the keyword weights there too (reordered word-major); a warp
+// takes one candidate at a time, reads its rows with 16-byte vector
 // loads straight from the planes (no [B*m, d] gather in device memory), reduces the
 // five integer sums with shuffles (exact, so their order is free) and lane 0 writes
 // out[b, j]: each query's own columns, not the TPU's [qg, ct] block diagonal.

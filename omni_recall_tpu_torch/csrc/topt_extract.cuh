@@ -1,5 +1,5 @@
 // The per-slice top-(t1-1) + bound extraction of _extract_topt
-// (omni_recall_tpu/ops/pallas_scorer.py), shared by the scans of scan.cu,
+// (omni_recall_tpu/ops/pallas_scorer.py), shared by the scans of
 // fp_scan.cu and int8_scan.cu. One warp extracts every slice of one query
 // from the f32 scores a block holds in shared memory and writes the decoded
 // [B, slices, t1] contract (vals f32, idxs i32, bound entries at index -2),
@@ -48,6 +48,15 @@ struct SliceMajor {
   __device__ __forceinline__ size_t operator()(int qg, long slice, long n_slices,
                                                int t1) const {
     return ((size_t)qg * n_slices + slice) * t1;
+  }
+};
+
+// T4's block-major layout [N/c, B, n_sub * t1] (n_sub = c / sub slices a
+// block of c rows): global slice = blk * n_sub + j
+struct BlockMajor {
+  int b, n_sub;
+  __device__ __forceinline__ size_t operator()(int qg, long slice, long, int t1) const {
+    return (((size_t)(slice / n_sub) * b + qg) * n_sub + slice % n_sub) * t1;
   }
 };
 
@@ -126,16 +135,17 @@ __device__ void extract_query(float* sc, int R, int sub, int t1, int packed, lon
 // no shared-memory round trips inside the rounds. Same output,
 // bit for bit: lane k holds rows lane + 32 k, so the lowest row among equal
 // values is the lowest (k, lane). Lane r keeps round r's entry and the
-// first t1 (<= 32) lanes store them together.
-template <int PER, bool WRITE_IDXS>
+// first t1 (<= 32) lanes store them together. EMIT and Offset as in
+// extract_query.
+template <int PER, bool WRITE_IDXS, int EMIT = kDecoded, class Offset = SliceMajor>
 static __device__ void extract_regs(const float* sc, int R, int t1, int packed, long row0,
                                     long n_slices, int qg, float* out_vals, int32_t* out_idxs,
-                                    int lane) {
+                                    int lane, Offset offset = Offset()) {
   constexpr int sub = 32 * PER;
   for (int sl = 0; sl < R / sub; ++sl) {
     const float* ss = sc + sl * sub;
     const long base = row0 + (long)sl * sub;
-    const size_t o = ((size_t)qg * n_slices + base / sub) * t1;
+    const size_t o = offset(qg, base / sub, n_slices, t1);
     float my_v = 0.0f;
     int my_i = 0;
     if (packed) {
@@ -154,8 +164,12 @@ static __device__ void extract_regs(const float* sc, int R, int t1, int packed, 
         for (int k = 1; k < PER; ++k) m = max(m, key[k]);
         m = warp_max_i(m);
         if (lane == r) {
-          my_v = decode_up(m, lmask);
-          my_i = (r == t1 - 1) ? -2 : (int)((lmask - (m & lmask)) + base);
+          if constexpr (EMIT == kRawKeys) {
+            my_i = m;
+          } else {
+            my_v = decode_up(m, lmask);
+            my_i = (r == t1 - 1) ? -2 : (int)((lmask - (m & lmask)) + base);
+          }
         }
 #pragma unroll
         for (int k = 0; k < PER; ++k)
@@ -186,34 +200,35 @@ static __device__ void extract_regs(const float* sc, int R, int t1, int packed, 
       }
     }
     if (lane < t1) {
-      out_vals[o + lane] = my_v;
-      if (WRITE_IDXS) out_idxs[o + lane] = my_i;
+      if constexpr (EMIT != kRawKeys) out_vals[o + lane] = my_v;
+      if (WRITE_IDXS || EMIT == kRawKeys) out_idxs[o + lane] = my_i;
     }
   }
 }
 
 // extraction of one query's R scores at slices of sub: in registers where
 // sub is 128, 256, 512 or 1024 and t1 <= 32, else extract_query's rounds
-// in shared memory (which overwrite the scores)
-template <bool WRITE_IDXS>
+// in shared memory (which overwrite the scores). EMIT and Offset as in
+// extract_query (T4's emits; the scans keep the defaults).
+template <bool WRITE_IDXS, int EMIT = kDecoded, class Offset = SliceMajor>
 static __device__ void extract_slices(float* sc, int R, int sub, int t1, int packed, long row0,
                                       long n_slices, int qg, float* out_vals,
-                                      int32_t* out_idxs, int lane) {
+                                      int32_t* out_idxs, int lane, Offset offset = Offset()) {
   if (t1 <= 32) {
     switch (sub) {
-      case 128: return extract_regs<4, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
-                                                   out_vals, out_idxs, lane);
-      case 256: return extract_regs<8, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
-                                                   out_vals, out_idxs, lane);
-      case 512: return extract_regs<16, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
-                                                    out_vals, out_idxs, lane);
-      case 1024: return extract_regs<32, WRITE_IDXS>(sc, R, t1, packed, row0, n_slices, qg,
-                                                     out_vals, out_idxs, lane);
+      case 128: return extract_regs<4, WRITE_IDXS, EMIT>(sc, R, t1, packed, row0, n_slices, qg,
+                                                         out_vals, out_idxs, lane, offset);
+      case 256: return extract_regs<8, WRITE_IDXS, EMIT>(sc, R, t1, packed, row0, n_slices, qg,
+                                                         out_vals, out_idxs, lane, offset);
+      case 512: return extract_regs<16, WRITE_IDXS, EMIT>(sc, R, t1, packed, row0, n_slices, qg,
+                                                          out_vals, out_idxs, lane, offset);
+      case 1024: return extract_regs<32, WRITE_IDXS, EMIT>(sc, R, t1, packed, row0, n_slices,
+                                                           qg, out_vals, out_idxs, lane, offset);
       default: break;
     }
   }
-  extract_query<WRITE_IDXS>(sc, R, sub, t1, packed, row0, n_slices, qg, out_vals,
-                            out_idxs, lane);
+  extract_query<WRITE_IDXS, EMIT>(sc, R, sub, t1, packed, row0, n_slices, qg, out_vals,
+                                  out_idxs, lane, offset);
 }
 
 }  // namespace omni

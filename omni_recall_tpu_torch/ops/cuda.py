@@ -32,8 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel library name -> source file
-SOURCES = {"scan": "scan.cu", "int8_scan": "int8_scan.cu", "fp_scan": "fp_scan.cu",
-           "dd_rows": "dd_rows.cu", "refine": "refine.cu"}
+SOURCES = {"int8_scan": "int8_scan.cu", "fp_scan": "fp_scan.cu", "dd_rows": "dd_rows.cu",
+           "refine": "refine.cu"}
 
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -52,8 +52,8 @@ LAUNCHES: dict[str, int] = {
     "refine": 0,        # K3: residual two-plane refine over candidate rows
     "profile_kernel": 0,  # T1: K6's body split three ways (tools/profile_kernel.py)
     "profile_bloomT": 0,  # T5: K4's body over row or transposed bloom (tools/)
-    "probe_pipe": 0,      # T2: K1 software-pipelined (tools/probe_pipe.py)
-    "probe_keys_emit": 0,  # T4: K1's tiles with three emit layouts (tools/)
+    "probe_pipe": 0,      # T2: K1 with its extraction one group behind (int8_pipe_kernel)
+    "probe_keys_emit": 0,  # T4: K1's tiles with three emit layouts (KeysArgs)
     "probe_serve": 0,     # T3: K3's body over pre-gathered slabs (tools/probe_serve.py)
 }
 
@@ -141,21 +141,6 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # library -> {exported function: its argument types}
 _ARGTYPES = {
-    "scan": {
-        "omni_scan_pipe": [
-            _P, _P, _P, _P, _P, _P,               # emb8 q8 add scale qs qb
-            _P, _P,                               # out vals, out idxs
-            _I, _I, _I, _I, _I, _I, _I,           # n d b sub t1 packed slices_per_block
-            _P,                                   # stream
-        ],
-        "omni_scan_pipe_tile": [_I, _I],          # d sub
-        "omni_scan_keys_emit": [
-            _P, _P, _P, _P,                       # emb8 q8 scale qs
-            _P, _P,                               # out vals, out keys (or idxs)
-            _I, _I, _I, _I, _I, _I, _I,           # n d b c sub t1 emit
-            _P,                                   # stream
-        ],
-    },
     "int8_scan": {
         "omni_int8_coarse_topt": [
             _P, _P, _P, _P, _P, _P,               # emb8 q8 add scale qs qb
@@ -180,6 +165,19 @@ _ARGTYPES = {
         "omni_int8_probe": [
             _P, _P, _P, _P, _P, _P,               # emb8 bloom q8 kw8 add out
             _I, _I, _I, _I, _I,                   # n d w b transposed
+            _P,                                   # stream
+        ],
+        "omni_int8_pipe_topt": [
+            _P, _P, _P, _P, _P, _P,               # emb8 q8 add scale qs qb
+            _P, _P,                               # out vals, out idxs
+            _I, _I, _I, _I, _I, _I, _I,           # n d b sub t1 packed groups
+            _P,                                   # stream
+        ],
+        "omni_int8_pipe_tile": [_I, _I],          # sub d
+        "omni_int8_keys_emit": [
+            _P, _P, _P, _P,                       # emb8 q8 scale qs
+            _P, _P,                               # out vals, out keys (or idxs)
+            _I, _I, _I, _I, _I, _I, _I,           # n d b c sub t1 emit
             _P,                                   # stream
         ],
     },

@@ -21,11 +21,12 @@ then the largest left (the bound). Three emits, with nb = N/c and n_sub = c/sub:
 - ``p3``: the raw packed keys i32 in the same layout;
 - ``pf``: the raw packed keys i32 flat, [B, nb·n_sub·t1].
 
-The kernel is K1's former CUDA-core design (``csrc/scan.cu`` mode 5: its
-dp4a tiles, staging and extraction rounds; K1 itself now runs on the tensor
-cores, ``csrc/int8_scan.cu``) with the emit as its argument; it writes each
-layout itself, since the layout is what the probe measures. A CUDA tensor launches
-the kernel or raises; a CPU tensor takes the plain version.
+The kernel is K1's own (``csrc/int8_scan.cu``: ``int8_scan_kernel`` with
+``KeysArgs``, int8 ``wgmma`` over rows streamed by TMA, K1's register
+extraction) with the bare epilogue and the emit as its argument; it writes
+each layout itself, since the layout is what the probe measures. It takes
+K1's shapes: N % 128 == 0 and d % 16 == 0 beside the tool's rules. A CUDA
+tensor launches the kernel or raises; a CPU tensor takes the plain version.
 
 ``python -m omni_recall_tpu_torch.tools.probe_keys_emit`` runs the tool's
 configuration (N = 2^20, d = 768, B = 1536, c = sub = 1024, t1 = 3) on the
@@ -44,6 +45,7 @@ import torch
 from omni_recall_tpu_torch.device import resolve_device
 from omni_recall_tpu_torch.ops import cuda
 from omni_recall_tpu_torch.ops.scorer import (
+    INT8_TILE_ROWS,
     _check_cuda_operands,
     _decode_keys,
     _int_dot,
@@ -54,7 +56,7 @@ from omni_recall_tpu_torch.ops.scorer import (
 )
 from omni_recall_tpu_torch.tools import bits_equal, device_name, median_ms
 
-EMITS = {"pair": 0, "p3": 1, "pf": 2}  # -> csrc/scan.cu KeysEmit
+EMITS = {"pair": 0, "p3": 1, "pf": 2}  # -> csrc/int8_scan.cu KeysEmit
 LABELS = {"pair": "pair (vals+idxs, 3D)", "p3": "P3  (packed keys, 3D)",
           "pf": "PF  (packed keys, flat)"}
 N, D, B = 1 << 20, 768, 1536  # the tool's configuration
@@ -79,9 +81,9 @@ def keys_scan(emb8, q8, scale, qs, c: int, sub: int, t1: int, emit: str):
         _require_cpu(emb8)
         return keys_scan_plain(emb8, q8, scale, qs, c, sub, t1, emit)
     d = emb8.shape[1]
-    if d % 16 or n % max(sub, 64):
-        raise ValueError(f"the CUDA T4 kernel needs d % 16 == 0 and N % max(sub, 64) == 0, "
-                         f"got N={n}, d={d}, sub={sub}")
+    if d % 16 or n % max(sub, INT8_TILE_ROWS):
+        raise ValueError(f"the CUDA T4 kernel needs d % 16 == 0 and "
+                         f"N % max(sub, {INT8_TILE_ROWS}) == 0, got N={n}, d={d}, sub={sub}")
     f32 = torch.float32
     scale, qs = scale.reshape(-1), qs.reshape(-1)
     _check_cuda_operands(
@@ -92,8 +94,8 @@ def keys_scan(emb8, q8, scale, qs, c: int, sub: int, t1: int, emit: str):
     shape = (b, (n // c) * width) if emit == "pf" else (n // c, b, width)
     keys = torch.empty(shape, dtype=torch.int32, device=emb8.device)  # or pair's idxs
     vals = torch.empty(shape, dtype=f32, device=emb8.device) if emit == "pair" else None
-    lib = cuda.library("scan")
-    rc = lib.omni_scan_keys_emit(
+    lib = cuda.library("int8_scan")
+    rc = lib.omni_int8_keys_emit(
         _ptr(emb8), _ptr(q8), _ptr(scale), _ptr(qs), _ptr(vals), _ptr(keys),
         n, d, b, c, sub, t1, EMITS[emit], cuda.stream_ptr(emb8.device),
     )

@@ -15,18 +15,20 @@ two-reduce), returned in the tool's layout: (vals f32, idxs i32)
 ``c`` sets the layout.
 
 The tool defers the extraction of each block by one grid step, so that the
-scoring of the next block can overlap it. The kernel (``csrc/scan.cu`` mode
-4, ``pipe_kernel``, on the dp4a tiles of K1's former CUDA-core design; K1
-itself now runs on the tensor cores, ``csrc/int8_scan.cu``) makes that
-overlap real inside one block: the block owns
-``slices_per_block`` consecutive slices of one query tile, eight scoring
-warps score a slice into one of two shared-memory slots while four
-extraction warps extract the slice before it from the other, and named
-barriers hand the slots over. It writes K1's [B, N/sub, t+1] contract, and
-wrapper and plain version return the view in the tool's layout. The plain
-version is K1's (``_coarse_scores_plain`` without folding the weight a
-second time, then ``_extract_topt_plain``). A CUDA tensor launches the
-kernel or raises; a CPU tensor takes the plain version.
+scoring of the next block can overlap it. The kernel (``csrc/int8_scan.cu``
+``int8_pipe_kernel``: K1's tiles, int8 ``wgmma`` over rows streamed by TMA)
+makes that overlap real inside one block of five warpgroups: K1's producer
+and two consumer warpgroups score a group of max(sub, 128) rows into one of
+two shared-memory score slots while two extraction warpgroups run the
+rounds of the group before it from the other; named barriers hand the slots
+over. A block walks ``groups`` groups of one query tile (by default K1's
+choice); the fill and the drain cost one group each. It writes K1's
+[B, N/sub, t+1] contract, and wrapper and plain version return the view in
+the tool's layout. It takes K1's shapes (d % 16 == 0, sub % 128 == 0 or
+128 % sub == 0, N % max(sub, 128) == 0): the wrapper raises on the rest.
+The plain version is K1's (``_coarse_scores_plain`` without folding the
+weight a second time, then ``_extract_topt_plain``). A CUDA tensor launches
+the kernel or raises; a CPU tensor takes the plain version.
 
 ``python -m omni_recall_tpu_torch.tools.probe_pipe`` runs the tool's sweep
 (N = 2^20, d = 768, B = 1536, t = 4, (c, sub) in (512, 512), (1024, 1024),
@@ -49,6 +51,7 @@ from omni_recall_tpu_torch.device import resolve_device
 from omni_recall_tpu_torch.ops import cuda
 from omni_recall_tpu_torch.ops.oracle import COSINE_WEIGHT
 from omni_recall_tpu_torch.ops.scorer import (
+    INT8_TILE_ROWS,
     _by_query_chunks,
     _check_cuda_operands,
     _coarse_scores_plain,
@@ -63,10 +66,7 @@ from omni_recall_tpu_torch.tools import bits_equal, device_name, median_ms
 N, D, B, T = 1 << 20, 768, 1536, 4  # the tool's sweep
 CONFIGS = ((512, 512), (1024, 1024), (1024, 512))  # (c, sub)
 CHECK = (1024, 1024)  # the tool's correctness check against K1
-# slices a block of the CUDA kernel pipelines (the fill and the drain cost
-# one slice's scoring and one slice's extraction a block)
-SLICES_PER_BLOCK = 16
-WARPS = "8 scoring + 4 extraction"
+WARPGROUPS = "TMA producer + 2 wgmma consumers + 2 extraction"
 
 
 def _t1(n: int, c: int, sub: int, t: int) -> int:
@@ -74,6 +74,17 @@ def _t1(n: int, c: int, sub: int, t: int) -> int:
         raise ValueError(f"T2 needs c % sub == 0, N % c == 0 and 1 <= t + 1 <= sub, "
                          f"got N={n}, c={c}, sub={sub}, t={t}")
     return t + 1
+
+
+def check_kernel_shape(n: int, d: int, sub: int, groups: int | None = None) -> None:
+    """Raise for a layout the CUDA kernel does not take: K1's shapes (it
+    takes fewer slices than the first CUDA design, which took sub % 64 == 0)
+    and a positive group count."""
+    if d % 16 or (sub % INT8_TILE_ROWS and INT8_TILE_ROWS % sub) \
+            or n % max(sub, INT8_TILE_ROWS) or (groups is not None and groups < 1):
+        raise ValueError(f"the CUDA T2 kernel needs d % 16 == 0, sub % {INT8_TILE_ROWS} == 0 "
+                         f"or {INT8_TILE_ROWS} % sub == 0, N % max(sub, {INT8_TILE_ROWS}) == 0 "
+                         f"and groups >= 1, got N={n}, d={d}, sub={sub}, groups={groups}")
 
 
 def _tool_layout(vals, idxs, c: int, sub: int):
@@ -84,19 +95,17 @@ def _tool_layout(vals, idxs, c: int, sub: int):
 
 
 def pipe_scan(emb8, q8, add_row, scale_row, q_scale, q_bias, t: int, sub: int, c: int,
-              slices_per_block: int = SLICES_PER_BLOCK):
+              groups: int | None = None):
     """T2 over the coarse scan's operands (``q_scale`` already carries the
-    0.7 cosine weight)."""
+    0.7 cosine weight). ``groups``: groups of max(sub, 128) rows a block of
+    the CUDA kernel walks (None: K1's choice)."""
     n, b = emb8.shape[0], q8.shape[0]
     t1 = _t1(n, c, sub, t)
     if not emb8.is_cuda:
         _require_cpu(emb8)
         return pipe_scan_plain(emb8, q8, add_row, scale_row, q_scale, q_bias, t, sub, c)
     d = emb8.shape[1]
-    if d % 16 or sub % 64 or slices_per_block < 1:
-        raise ValueError(f"the CUDA T2 kernel needs d % 16 == 0, sub % 64 == 0 and "
-                         f"slices_per_block >= 1, got d={d}, sub={sub}, "
-                         f"slices_per_block={slices_per_block}")
+    check_kernel_shape(n, d, sub, groups)
     f32, i8 = torch.float32, torch.int8
     add_row, scale_row, q_scale, q_bias = (
         x.reshape(-1) for x in (add_row, scale_row, q_scale, q_bias))
@@ -107,11 +116,11 @@ def pipe_scan(emb8, q8, add_row, scale_row, q_scale, q_bias, t: int, sub: int, c
     )
     vals = torch.empty((b, n // sub, t1), dtype=f32, device=emb8.device)
     idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=emb8.device)
-    lib = cuda.library("scan")
-    rc = lib.omni_scan_pipe(
+    lib = cuda.library("int8_scan")
+    rc = lib.omni_int8_pipe_topt(
         _ptr(emb8), _ptr(q8), _ptr(add_row), _ptr(scale_row), _ptr(q_scale), _ptr(q_bias),
         _ptr(vals), _ptr(idxs), n, d, b, sub, t1, int(_packed_mode(sub, t1)),
-        slices_per_block, cuda.stream_ptr(emb8.device),
+        groups or 0, cuda.stream_ptr(emb8.device),
     )
     cuda.check(lib, rc, "probe_pipe")
     cuda.count_launch("probe_pipe")
@@ -132,9 +141,10 @@ def pipe_scan_plain(emb8, q8, add_row, scale_row, q_scale, q_bias, t: int, sub: 
 
 def query_tile(d: int, sub: int) -> int:
     """Queries one block of the CUDA kernel takes at width d and slice sub
-    (the two score slots stay in shared memory): 32, or 16 (sub 1024 at
-    d = 768)."""
-    return cuda.library("scan").omni_scan_pipe_tile(d, sub)
+    (its two [QT][max(sub, 128) + 4] f32 score slots stay in shared memory):
+    32, or 16 at sub 1024 and d = 768, where K1 takes 32. Needs the built
+    library (the card)."""
+    return cuda.library("int8_scan").omni_int8_pipe_tile(sub, d)
 
 
 def tool_inputs(n: int, b: int, device: torch.device, seed: int = 0):
@@ -169,7 +179,7 @@ def main(n: int = N, device: str = "cuda", runs: int = 8) -> list[dict]:
         records.append({
             "c": c, "sub": sub, "t": T, "ms": ms, "qps": B / (ms / 1e3),
             "query_tile": query_tile(D, sub) if dev.type == "cuda" else None,
-            "slices_per_block": SLICES_PER_BLOCK, "warps": WARPS,
+            "warpgroups": WARPGROUPS,
             "launches": cuda.LAUNCHES["probe_pipe"] - before,
         })
     # correctness: the pipelined scan against K1 (which folds 0.7 itself)

@@ -7,12 +7,14 @@ flags plus ``-Xptxas -v`` (one ``nvcc`` for each source, all started
 together, into the git-ignored build directory) and prints one JSON line a
 source: each kernel instantiation (its mangled name, the anonymous
 namespace's hashes dropped) with its registers and spill bytes.
-``--against DIR`` also compiles the sources of the checkout at DIR (those
-it has) and lists the instantiations whose numbers differ and those found on
+``--against DIR`` also compiles the sources of the checkout at DIR (every
+``*.cu`` either checkout has, so a source one of them retired is listed
+too) and lists the instantiations whose numbers differ and those found on
 one side only (the other checkout's with their numbers).
 Each line also counts the source's SASS opcodes of interest
 (``sass_counts``: ``HGMMA`` and ``IGMMA``, the tensor-core warpgroup
-products in bf16 and in int8, and ``UTMALDG``, the TMA loads), read with
+products in bf16 and in int8, and ``UTMALDG``, the TMA loads), in all and
+for each kernel of this checkout (``sass_by_kernel``), read with
 ``cuobjdump -sass``. It needs ``nvcc``; it runs no kernel.
 """
 
@@ -82,6 +84,11 @@ def sass_counts_by_function(lib: Path) -> dict[str, dict[str, int]]:
             for m, nxt in zip(heads, heads[1:] + [None])}
 
 
+def sources(csrc_dirs: dict[str, Path]) -> list[str]:
+    """Every ``*.cu`` of the csrc directories, by name."""
+    return sorted({p.name for csrc in csrc_dirs.values() for p in csrc.glob("*.cu")})
+
+
 def report(csrc_dirs: dict[str, Path]) -> dict[tuple[str, str], dict]:
     """Compile every source of each csrc directory (all at once) and parse
     ptxas's report: {(label, source): kernels}."""
@@ -89,8 +96,8 @@ def report(csrc_dirs: dict[str, Path]) -> dict[tuple[str, str], dict]:
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for label, csrc in csrc_dirs.items():
-        for src in cuda.SOURCES.values():
-            if not (csrc / src).is_file():  # a source the other checkout does not have
+        for src in sources(csrc_dirs):
+            if not (csrc / src).is_file():  # a source one checkout does not have
                 continue
             lib = out_dir / f"{label}_{Path(src).stem}.so"
             cmd = [cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(lib),
@@ -114,10 +121,13 @@ def main() -> None:
     if args.against:
         dirs["against"] = args.against / "omni_recall_tpu_torch" / "csrc"
     results = report(dirs)
-    for src in cuda.SOURCES.values():
-        mine = results[("this", src)]
-        line = {"source": src, "kernels": mine,
-                "sass_counts": sass_counts(cuda.BUILD_DIR / "ptxas" / f"this_{Path(src).stem}.so")}
+    for src in sources(dirs):
+        mine = results.get(("this", src), {})
+        line = {"source": src, "kernels": mine}
+        if ("this", src) in results:
+            lib = cuda.BUILD_DIR / "ptxas" / f"this_{Path(src).stem}.so"
+            line["sass_counts"] = sass_counts(lib)
+            line["sass_by_kernel"] = sass_counts_by_function(lib)
         if args.against:
             theirs = results.get(("against", src), {})
             line["changed"] = {k: {"this": mine[k], "against": theirs[k]}

@@ -140,14 +140,16 @@ def test_fused_scan_batches(dev, w, b):
 
 
 # the kernel instantiations of csrc/int8_scan.cu, by a part of their names:
-# K1 / K7a, K4, T5 (each at query tiles 32, 16, 8) and K5 (tiles 64 to 8)
-INT8_KERNELS = {"CoarseArgs": 3, "FusedArgs": 3, "ProbeArgs": 3, "kw_scan_kernel": 4}
+# K1 / K7a, K4, T5, T4 (each at query tiles 32, 16, 8), T2 (32, 16, 8) and K5
+# (tiles 64 to 8)
+INT8_KERNELS = {"CoarseArgs": 3, "FusedArgs": 3, "ProbeArgs": 3, "KeysArgs": 3,
+                "int8_pipe_kernel": 3, "kw_scan_kernel": 4}
 
 
 def test_int8_scan_sass_holds_igmma(dev):
     """Every kernel of csrc/int8_scan.cu runs its dots on the tensor cores
     (IGMMA, the SASS of an integer wgmma) and takes its resident operand (K5)
-    or its rows (K1, K4, T5) by TMA (UTMALDG) in the built library."""
+    or its rows (K1, K4, T5, T4, T2) by TMA (UTMALDG) in the built library."""
     cuda.library("int8_scan")
     lib = cuda.BUILD_DIR / "libint8_scan.so"
     counts = ptxas_report.sass_counts(lib)
@@ -160,11 +162,13 @@ def test_int8_scan_sass_holds_igmma(dev):
 
 
 def test_scan_library_holds_only_the_probes(dev):
-    """K5 and T5 left csrc/scan.cu: its library exports T2's and T4's entry
-    points and no longer omni_scan_topt or omni_scan_probe."""
-    lib = cuda.library("scan")
-    assert hasattr(lib, "omni_scan_pipe") and hasattr(lib, "omni_scan_keys_emit")
-    assert not hasattr(lib, "omni_scan_topt") and not hasattr(lib, "omni_scan_probe")
+    """csrc/scan.cu is retired: no library of that name is built, and the
+    int8_scan library exports T2's and T4's entry points."""
+    assert "scan" not in cuda.SOURCES
+    assert not (cuda.CSRC / "scan.cu").exists()
+    lib = cuda.library("int8_scan")
+    assert hasattr(lib, "omni_int8_pipe_topt") and hasattr(lib, "omni_int8_keys_emit")
+    assert hasattr(lib, "omni_int8_pipe_tile")
 
 
 # K5's default query tile at W bloom bytes and slices of sub: 64 where its
@@ -341,20 +345,28 @@ def test_profile_bloom_t5(dev, bits, b):
     assert _same(row, want) and _same(cols, want)
 
 
-@pytest.mark.parametrize("sub, t, s", [(1024, 2, 16), (512, 4, 16), (512, 4, 3),
-                                       (1024, 1, 5), (256, 2, 1)])
+# T2's query tile at sub (d = 768): two [QT][max(sub, 128) + 4] f32 slots bind
+T2_TILE = {64: 32, 256: 32, 384: 32, 512: 32, 1024: 16, 2048: 8}
+
+
+@pytest.mark.parametrize("sub, t, groups", [(1024, 2, None), (512, 4, None), (512, 4, 3),
+                                            (1024, 1, 5), (256, 2, 1), (384, 3, 2),
+                                            (512, 40, None), (64, 3, 3), (2048, 2, None)])
 @pytest.mark.parametrize("b", [8, 45, 128, 448])
-def test_probe_pipe_t2(dev, sub, t, s, b):
-    """T2 at both query tiles (32 at sub 512 and 256, 16 at sub 1024), packed
-    and two-reduce extraction, blocks of S slices where S does not divide
-    the slice count, ragged batches; three launches of each, every one
-    bitwise against its plain version and against K1's kernel."""
-    n = 8192
+def test_probe_pipe_t2(dev, sub, t, groups, b):
+    """T2 at each query tile (32 at sub 512 and below, 16 at sub 1024, 8 at
+    2048), packed and two-reduce extraction (t = 1; sub 384, not a power of
+    two), t1 > 32 (the shared-memory rounds), two slices a group (sub 64),
+    blocks of G groups where G does not divide the groups (the last block
+    walks the rest), a single group a block (fill and drain only), ragged
+    batches; three launches of each, every one bitwise against its plain
+    version and against K1's kernel."""
+    n = 12288 if sub == 384 else 8192
     o = _operands(dev, n, 768, b, 128, seed=10)
     args = (o["emb8"], o["q8"], o["add_row"], o["scale_row"], COSINE_WEIGHT * o["q_scale"],
             o["q_bias"])
     before = cuda.LAUNCHES["probe_pipe"]
-    got = [probe_pipe.pipe_scan(*args, t, sub, sub, slices_per_block=s) for _ in range(3)]
+    got = [probe_pipe.pipe_scan(*args, t, sub, sub, groups=groups) for _ in range(3)]
     assert cuda.LAUNCHES["probe_pipe"] == before + 3
     want_v, want_i = probe_pipe.pipe_scan_plain(*args, t, sub, sub)
     k1_v, k1_i = scorer.block_topt_int8_coarse(
@@ -364,7 +376,20 @@ def test_probe_pipe_t2(dev, sub, t, s, b):
         assert _same(v, want_v) and _same(i, want_i)
         assert _same(v.transpose(0, 1).reshape(k1_v.shape), k1_v)
         assert _same(i.transpose(0, 1).reshape(k1_i.shape), k1_i)
-    assert probe_pipe.query_tile(768, sub) == (16 if sub == 1024 else 32)
+    assert probe_pipe.query_tile(768, sub) == T2_TILE[sub]
+
+
+def test_probe_pipe_t2_rejects_what_k1s_tiles_do_not_take(dev):
+    """The first CUDA T2 took sub % 64 == 0; the tensor-core kernel takes
+    K1's slices, and the wrapper raises on the rest before any launch."""
+    o = _operands(dev, 6144, 768, 8, 16)
+    args = (o["emb8"], o["q8"], o["add_row"], o["scale_row"], o["q_scale"], o["q_bias"])
+    before = cuda.LAUNCHES["probe_pipe"]
+    with pytest.raises(ValueError, match="sub % 128 == 0 or 128 % sub == 0"):
+        probe_pipe.pipe_scan(*args, 2, 192, 192)
+    with pytest.raises(ValueError, match="groups >= 1"):
+        probe_pipe.pipe_scan(*args, 2, 512, 512, groups=0)
+    assert cuda.LAUNCHES["probe_pipe"] == before
 
 
 def _keys_operands(dev, n, d, b, seed):
@@ -386,11 +411,14 @@ def _keys_operands(dev, n, d, b, seed):
 
 @pytest.mark.parametrize("emit", list(probe_keys_emit.EMITS))
 @pytest.mark.parametrize("c, sub, t1", [(1024, 1024, 3), (1024, 512, 3), (2048, 256, 5),
-                                        (128, 2, 2), (256, 1, 1)])
+                                        (128, 2, 2), (256, 1, 1), (1024, 512, 40),
+                                        (2048, 2048, 3), (4096, 4096, 4)])
 @pytest.mark.parametrize("b", [8, 45, 128, 448])
 def test_probe_keys_emit_t4(dev, emit, c, sub, t1, b):
     """T4's three emits at the tool's layout, blocks of several slices and
-    slices of two rows and of one (keys that are whole scores), ragged
+    slices of two rows and of one (keys that are whole scores, several
+    slices a 128-row group), t1 > 32 (the shared-memory rounds), each query
+    tile K1's tiles take (32 up to sub 1024, 16 at 2048, 8 at 4096), ragged
     batches: bitwise against the plain version; P3 decoded against pair's
     values."""
     arrs = _keys_operands(dev, 8192, 768, b, seed=11)
@@ -405,6 +433,7 @@ def test_probe_keys_emit_t4(dev, emit, c, sub, t1, b):
     if emit == "p3":
         vals, _ = probe_keys_emit.keys_scan(*arrs, c, sub, t1, "pair")
         assert _same(probe_keys_emit.decode_up(got, sub), vals)
+    assert scorer.int8_query_tile(sub, 768) == {2048: 16, 4096: 8}.get(sub, 32)
 
 
 @pytest.mark.parametrize("d", [768, 100])
