@@ -12,7 +12,11 @@ Phases, one JSON line each:
                 scan on bf16 and on f32 rows), at the serving shapes
                 (N = 2^20 rows, d = 768, 1024 bloom bits, B = 448 queries; K2
                 at 32 candidates per query; K3 at 64 per query, the select
-                stage, and at 64 x 2048, the rescue stage; K6 at sub 512,
+                stage, and at 64 x 2048, the rescue stage, also given its
+                rows and scan bounds as column slices of a wider tensor,
+                and its recency term's exp alone against torch.exp on every
+                f32 argument <= 0 and the term against PyTorch's over every
+                row of three 2^20-row indexes; K6 at sub 512,
                 t 4, the engine's layout at m = 128): the kernel against its
                 plain PyTorch version on the same inputs on the card —
                 bitwise, K2's sabs within SABS_REL, K6 and T1 (tensor-core
@@ -49,17 +53,21 @@ Phases, one JSON line each:
                 with the tool's bare epilogue) in its three emit layouts at
                 c = sub = 1024, t1 = 3, each bitwise against its plain
                 version, P3 decoded against pair's values. Given ``--parent
-                DIR`` (the root of an earlier checkout whose csrc/scan.cu
-                still serves T2 and T4 on the CUDA cores, as omni_scan_pipe
-                and omni_scan_keys_emit), that build's T2 and T4 on the same
+                DIR`` (the root of an earlier checkout, a ``git archive`` of
+                the parent commit), that checkout's K2 (csrc/dd_rows.cu) and
+                K3 (csrc/refine.cu, given the recency term it took from
+                outside), built with this checkout's flags, on the same
                 inputs, timed before and after the kernel (parent, kernel,
-                kernel, parent), and its output held bitwise against the
-                kernel's. Last, T3 (tools/probe_serve.py: K3's body over
-                pre-gathered slabs, the whole [qg, qg·m] tile) on K3's
-                candidates at the tool's shape (B = 1536, m = 128, qg 16) and
-                at K3's select shape (448, 64, qg 16): bitwise against its
-                plain version, its block diagonal bitwise against K3's kernel,
-                timed beside K3 and the tool's gathers at the same shape.
+                kernel, parent), and its output held to the kernel's (K3
+                bitwise, K2's hi and lo bitwise and sabs within SABS_REL):
+                ``parent_ms``, ``ms_after``, ``parent_ms_after`` and
+                ``parent_bitwise`` in the K2 and K3 lines. Last, T3
+                (tools/probe_serve.py: K3's body over pre-gathered slabs,
+                the whole [qg, qg·m] tile) on K3's candidates at the tool's
+                shape (B = 1536, m = 128, qg 16) and at K3's select shape
+                (448, 64, qg 16): bitwise against its plain version, its
+                block diagonal bitwise against K3's kernel, timed beside K3
+                and the tool's gathers at the same shape.
 2b. ``profile`` the profiling path: the four tools' own sweeps
                 (``omni_recall_tpu_torch.tools.profile_kernel.main("all")``,
                 ``...profile_bloomT.main()``, ``...probe_pipe.main()``,
@@ -192,83 +200,79 @@ def bound_ms(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, st
 # ---------------------------------------------------------------- phase 2
 
 
-class ParentScan:
-    """The parent's T2 and T4, for the same-call A/B: csrc/scan.cu of an
-    earlier checkout (the root DIR of ``--parent``) whose omni_scan_pipe
-    serves T2 and omni_scan_keys_emit T4 (__dp4a on the CUDA cores). Its nvcc
-    starts when this is made, beside the build of this checkout's kernels;
-    ``load`` waits for it."""
+class ParentBuild:
+    """The parent's K2 and K3, for the same-call A/B: csrc/dd_rows.cu and
+    csrc/refine.cu of an earlier checkout (the root DIR of ``--parent``),
+    compiled with this checkout's flags into _build/parent/ and bound with
+    the parent's C interfaces: ``omni_dd_rows`` as here, ``omni_refine`` with
+    the recency term passed in and contiguous rows and scan bounds. Their
+    nvcc processes start when this is made, beside the build of this
+    checkout's kernels; ``load`` waits for them."""
 
     def __init__(self, root: str):
         from omni_recall_tpu_torch.ops import cuda
 
-        src = os.path.join(root, "omni_recall_tpu_torch", "csrc", "scan.cu")
         out = cuda.BUILD_DIR / "parent"
         out.mkdir(parents=True, exist_ok=True)
-        self.path = out / "libscan.so"
-        self.proc = subprocess.Popen([cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-o", str(self.path),
-                                      src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                     text=True)
-        self.lib = None
+        self.paths, self.procs, self.libs = {}, {}, {}
+        for name in ("dd_rows", "refine"):
+            src = os.path.join(root, "omni_recall_tpu_torch", "csrc", f"{name}.cu")
+            self.paths[name] = out / f"lib{name}.so"
+            self.procs[name] = subprocess.Popen(
+                [cuda.nvcc_path(), *cuda.NVCC_FLAGS, "-o", str(self.paths[name]), src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
     def load(self) -> None:
         import ctypes
 
-        log, _ = self.proc.communicate()
-        if self.proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the parent's scan.cu:\n{log}")
-        self.lib = ctypes.CDLL(str(self.path))
         p, i = ctypes.c_void_p, ctypes.c_int
-        for name, argtypes in (
-                # emb8 q8 add scale qs qb, vals idxs; n d b sub t1 packed
-                # slices_per_block; stream
-                ("omni_scan_pipe", [p] * 8 + [i] * 7 + [p]),
-                # emb8 q8 scale qs, vals keys; n d b c sub t1 emit; stream
-                ("omni_scan_keys_emit", [p] * 6 + [i] * 7 + [p])):
-            fn = getattr(self.lib, name)
-            fn.restype, fn.argtypes = ctypes.c_int, argtypes
+        argtypes = {
+            # raw rows q, hi lo sabs; n d b t; stream
+            "dd_rows": ("omni_dd_rows", [p] * 6 + [i] * 4 + [p]),
+            # emb1 emb2 bloom scale1 scale2 err2 valid, q kw_w8 kw_b, rows vals rec,
+            # out; n d w b m; stream
+            "refine": ("omni_refine", [p] * 14 + [i] * 5 + [p]),
+        }
+        for name, proc in self.procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on the parent's {name}.cu:\n{log}")
+            lib = ctypes.CDLL(str(self.paths[name]))
+            fn = getattr(lib, argtypes[name][0])
+            fn.restype, fn.argtypes = ctypes.c_int, argtypes[name][1]
+            self.libs[name] = fn
 
-    def pipe(self, emb8, q8, add_row, scale_row, q_scale, q_bias, t: int, sub: int,
-             slices_per_block: int = 16):
-        """T2 (q_scale with the 0.7 weight folded in) in the tool's layout at
-        c = sub, with the parent's default of 16 slices a block."""
-        import torch
-
-        from omni_recall_tpu_torch.ops import cuda, scorer
-        from omni_recall_tpu_torch.tools import probe_pipe as t2
-
-        (n, d), b, t1 = emb8.shape, q8.shape[0], t + 1
-        vals = torch.empty((b, n // sub, t1), dtype=torch.float32, device=emb8.device)
-        idxs = torch.empty((b, n // sub, t1), dtype=torch.int32, device=emb8.device)
-        rc = self.lib.omni_scan_pipe(
-            emb8.data_ptr(), q8.data_ptr(), add_row.data_ptr(), scale_row.data_ptr(),
-            q_scale.data_ptr(), q_bias.data_ptr(), vals.data_ptr(), idxs.data_ptr(),
-            n, d, b, sub, t1, int(scorer._packed_mode(sub, t1)), slices_per_block,
-            cuda.stream_ptr(emb8.device))
-        if rc:
-            raise RuntimeError(f"the parent's T2 failed to launch ({rc})")
-        return t2._tool_layout(vals, idxs, sub, sub)
-
-    def keys_emit(self, emb8, q8, scale, qs, c: int, sub: int, t1: int, emit: str):
-        """T4: (vals, idxs) for ``pair``, the keys for ``p3`` and ``pf``."""
+    def dd_rows(self, raw, rows, q):
+        """The parent's K2: (hi, lo, sabs) [B, t]."""
         import torch
 
         from omni_recall_tpu_torch.ops import cuda
-        from omni_recall_tpu_torch.tools import probe_keys_emit as t4
 
-        (n, d), b = emb8.shape, q8.shape[0]
-        width = (c // sub) * t1
-        shape = (b, (n // c) * width) if emit == "pf" else (n // c, b, width)
-        keys = torch.empty(shape, dtype=torch.int32, device=emb8.device)
-        vals = torch.empty(shape, dtype=torch.float32, device=emb8.device) \
-            if emit == "pair" else None
-        rc = self.lib.omni_scan_keys_emit(
-            emb8.data_ptr(), q8.data_ptr(), scale.data_ptr(), qs.data_ptr(),
-            None if vals is None else vals.data_ptr(), keys.data_ptr(),
-            n, d, b, c, sub, t1, t4.EMITS[emit], cuda.stream_ptr(emb8.device))
+        (n, d), (b, t) = raw.shape, rows.shape
+        hi, lo, sabs = (torch.empty((b, t), dtype=torch.float32, device=raw.device)
+                        for _ in range(3))
+        rc = self.libs["dd_rows"](raw.data_ptr(), rows.data_ptr(), q.data_ptr(), hi.data_ptr(),
+                                  lo.data_ptr(), sabs.data_ptr(), n, d, b, t,
+                                  cuda.stream_ptr(raw.device))
         if rc:
-            raise RuntimeError(f"the parent's T4 failed to launch ({rc})")
-        return (vals, keys) if emit == "pair" else keys
+            raise RuntimeError(f"the parent's K2 failed to launch ({rc})")
+        return hi, lo, sabs
+
+    def refine(self, emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8, kw_b, rows,
+               vals, rec):
+        """The parent's K3 kernel, given the recency term ``rec`` [B, m]."""
+        import torch
+
+        from omni_recall_tpu_torch.ops import cuda
+
+        (n, d), (b, m), w = emb1.shape, rows.shape, bloom.shape[1]
+        out = torch.empty((b, m), dtype=torch.float32, device=emb1.device)
+        ptrs = [x.data_ptr() for x in (emb1, emb2, bloom, scale1, scale2, err2, valid, q, kw_w8,
+                                       kw_b, rows.contiguous(), vals.contiguous(), rec, out)]
+        rc = self.libs["refine"](*ptrs, n, d, w, b, m, cuda.stream_ptr(emb1.device))
+        if rc:
+            raise RuntimeError(f"the parent's K3 failed to launch ({rc})")
+        return out
 
 
 def timed_ab(kern, parent=None, same=None) -> tuple[float, dict]:
@@ -288,6 +292,23 @@ def timed_ab(kern, parent=None, same=None) -> tuple[float, dict]:
     return ms, ab
 
 
+# rows that fit in the 50 MB L2 (for l2_rows_ms)
+L2_ROWS_BYTES = 24 << 20
+
+
+def gather_diagnostics(kern_l2, planes, rows) -> dict:
+    """What holds a gather kernel (K2, K3) back: ``l2_rows_ms``, the kernel
+    on the same queries with its rows drawn from the first L2_ROWS_BYTES of
+    the planes (resident in L2 after the first run), and ``gather_ms``,
+    PyTorch's gather of the same rows of each plane (``index_select``: each
+    row read once and written once) as a yardstick of the card's rate for
+    this access pattern."""
+    flat = rows.clamp_min(0).flatten().long()
+    return {"l2_rows_ms": time_ms(kern_l2, device_only=True),
+            "gather_ms": time_ms(lambda: [x.index_select(0, flat) for x in planes],
+                                 device_only=True)}
+
+
 # what a kernel line carries of the same-call A/B with the parent's build
 PARENT_KEYS = ("parent_ms", "parent_ms_after", "ms_after", "parent_bitwise")
 
@@ -296,9 +317,18 @@ def pair_bitwise(a, b) -> bool:
     return bitwise(a[0], b[0]) and bitwise(a[1], b[1])
 
 
+def dd_same(a, b) -> bool:
+    """K2's parity: hi and lo bitwise, sabs (summed in any order) within
+    SABS_REL."""
+    from omni_recall_tpu_torch.ops import exact_cos
+
+    rel = float(((a[2] - b[2]).abs() / b[2].abs().clamp_min(1e-30)).max())
+    return bitwise(a[0], b[0]) and bitwise(a[1], b[1]) and rel <= exact_cos.SABS_REL
+
+
 def kernel_phase(seed: int, parent=None) -> dict:
     """Each kernel against its plain version at the serving shapes;
-    ``parent`` (``ParentScan``) times the parent's T2 and T4 beside them."""
+    ``parent`` (``ParentBuild``) times the parent's K2 and K3 beside them."""
     import torch
 
     from omni_recall_tpu_torch.ops import exact_cos, scorer
@@ -379,12 +409,12 @@ def kernel_phase(seed: int, parent=None) -> dict:
     )
     results["kw"]["query_tile"] = scorer.int8_kw_query_tile(1024, w)
     results["kw"]["sub512"] = kw_sub512_line(bloom, kw_w8, kw_b, add_row)
-    results.update(refine_lines(g, emb8, bloom, kw_w8, kw_b[:, 0], scale_row[0], seed))
+    results.update(refine_lines(g, emb8, bloom, kw_w8, kw_b[:, 0], scale_row[0], seed, parent))
     results["t5"] = t5_lines(g, emb8, bloom, q8, add_row)
-    results["t2"] = t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias, parent)
+    results["t2"] = t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias)
     del emb8
     torch.cuda.empty_cache()
-    results["t4"] = t4_lines(dev, seed, parent)
+    results["t4"] = t4_lines(dev, seed)
     torch.cuda.empty_cache()
     results.update(fp_scan_lines(g, bloom, kw_b, add_row))
     del bloom
@@ -400,7 +430,7 @@ def kernel_phase(seed: int, parent=None) -> dict:
     ph, pl, ps = plain()
     torch.cuda.synchronize()
     sabs_rel = float(((ks - ps).abs() / ps.abs().clamp_min(1e-30)).max())
-    ok = bitwise(kh, ph) and bitwise(kl, pl) and sabs_rel <= exact_cos.SABS_REL
+    ok = dd_same((kh, kl, ks), (ph, pl, ps))
     err = max(float((kh - ph).abs().max()), float((kl - pl).abs().max()),
               float((ks - ps).abs().max()))
     p2 = 1 << (d - 1).bit_length()
@@ -409,13 +439,20 @@ def kernel_phase(seed: int, parent=None) -> dict:
         pairs * d * 4 + b * d * 4 + pairs * 4 + 3 * pairs * 4,
         pairs * (2 * d + 14 * (p2 - 1)), F32_OPS_PER_S,
     )
+    ms, ab = timed_ab(kern, parent and (lambda: parent.dd_rows(raw, rows, q_raw)), dd_same)
+    l2_rows = ri(0, L2_ROWS_BYTES // (4 * d), (b, DD_T), torch.int32)
     line = dict(name="dd_rows", replaces="omni_recall_tpu/ops/exact_cos.py:171",
-                shape=[b, DD_T, d], parity=bitwise_parity(ok), sabs_rel_err=sabs_rel,
-                max_abs_err=err, ms=time_ms(kern, device_only=True), plain_ms=time_ms(plain),
-                bound_ms=bms, bound_by=by, library_ms=None)
+                shape=[b, DD_T, d], layout=exact_cos.dd_rows_layout(d),
+                parity=bitwise_parity(ok), sabs_rel_err=sabs_rel,
+                max_abs_err=err, ms=ms, plain_ms=time_ms(plain),
+                bound_ms=bms, bound_by=by, library_ms=None, **ab,
+                **gather_diagnostics(lambda: exact_cos.exact_cos_rows(raw, l2_rows, q_raw),
+                                     (raw,), rows))
     emit({"phase": "kernel", **line})
     if not ok:
         raise AssertionError("dd_rows: kernel disagrees with its plain version")
+    if not ab.get("parent_bitwise", True):
+        raise AssertionError("dd_rows: kernel disagrees with the parent's build")
     results["dd"] = line
     del raw, q_raw
     torch.cuda.empty_cache()
@@ -425,12 +462,17 @@ def kernel_phase(seed: int, parent=None) -> dict:
 REFINE_SHAPES = {"select": (BATCH, 64), "rescue": (64, 2048)}
 
 
-def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1, seed: int) -> dict:
+def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1, seed: int, parent=None) -> dict:
     """K3 at the select stage's [448, 64] and the rescue stage's [64, 2048]
     candidate shapes over the 2^20-row planes: bitwise against its plain
-    version; card ms (the kernel alone, given the recency term), wrapper ms
-    (the recency term + the launch, as the engine calls it) and plain ms.
-    Then T3 over the same planes (t3_lines)."""
+    version, also given rows and scan bounds as column slices of a wider
+    [B, m + 1] tensor (as the engine passes them); card ms (the kernel),
+    wrapper ms (``_refine_dispatch``, as the engine calls it) and plain ms.
+    Given ``parent`` (``ParentBuild``), the parent's kernel on the same
+    operands (with the recency term it took from outside), timed around it
+    and held bitwise. ``gather_diagnostics`` as in K2's line. Then K3's
+    recency term and its exp alone against PyTorch's (recency_lines), and T3
+    over the same planes (t3_lines)."""
     import torch
 
     from omni_recall_tpu_torch.ops import refine
@@ -443,6 +485,7 @@ def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1, seed: int) -> dict:
     err2 = torch.rand((n,), generator=g, device=dev) * 4e-5
     created = torch.rand((n,), generator=g, device=dev) * 400.0
     valid = torch.rand((n,), generator=g, device=dev) > 0.01
+    gd = torch.Generator(device=dev).manual_seed(seed + 5)  # the diagnostics' own draws
     out = {}
     for stage, (b, m) in REFINE_SHAPES.items():
         q = torch.randn((b, d), generator=g, device=dev)
@@ -452,37 +495,97 @@ def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1, seed: int) -> dict:
         vals[torch.rand((b, m), generator=g, device=dev) < 0.01] = float("-inf")
         planes = (emb1, scale1, emb2, scale2, err2, bloom)
         args = (*planes, created, valid, q, kw_w8[:b], kw_b[:b], 365.0, rows, vals)
-        rec = refine.recency_term(created, 365.0, rows)
-        kern = lambda: refine.refine_bounds_cuda(  # noqa: E731
-            *planes, valid, q, kw_w8[:b], kw_b[:b], rows, vals, rec)
-        plain = lambda: refine.refine_bounds_plain(*args)  # noqa: E731
-        wrapper = lambda: refine._refine_dispatch(*args)  # noqa: E731
+        kern = lambda: refine.refine_bounds_cuda(*args)  # noqa: E731, B023
+        plain = lambda: refine.refine_bounds_plain(*args)  # noqa: E731, B023
+        wrapper = lambda: refine._refine_dispatch(*args)  # noqa: E731, B023
+        wide_rows = torch.cat([rows, rows[:, :1]], dim=1)
+        wide_vals = torch.cat([vals, vals[:, :1]], dim=1)
         got, want, via = kern(), plain(), wrapper()
+        strided = refine.refine_bounds_cuda(*args[:-2], wide_rows[:, :m], wide_vals[:, :m])
         torch.cuda.synchronize()
-        ok = bitwise(got, want) and bitwise(via, want)
+        ok = bitwise(got, want) and bitwise(via, want) and bitwise(strided, want)
         fin = torch.isfinite(want)
         err = float((got[fin] - want[fin]).abs().max())
+        rec = refine.recency_term(created, 365.0, rows)
+        ms, ab = timed_ab(kern, parent and (lambda: parent.refine(  # noqa: B023
+            *planes, valid, q, kw_w8[:b], kw_b[:b], rows, vals, rec)), bitwise)  # noqa: B023
         # bytes: each distinct candidate row's two int8 rows, bloom row and
-        # three f32 sidecars once; per slot its row id, add term and output;
-        # per query its two int8 planes, keyword weights and five scalars
+        # four f32 sidecars (with created) once; per slot its row id, scan
+        # bound and output; per query its f32 row, keyword weights and bias
         uniq = int(torch.unique(rows.clamp_min(0)).numel())
         slots = b * m
-        bms, by = bound_ms(uniq * (2 * d + w + 12) + slots * 12 + b * (2 * d + 8 * w + 20),
+        bms, by = bound_ms(uniq * (2 * d + w + 17) + slots * 12 + b * (4 * d + 8 * w + 4),
                            slots * (8.0 * d + 16.0 * w), INT8_OPS_PER_S)
+        l2_rows = torch.randint(0, L2_ROWS_BYTES // (2 * d + w), (b, m), generator=gd,
+                                device=dev).to(torch.int32)
         line = dict(name=f"refine[{stage}]", replaces="omni_recall_tpu/ops/refine.py:467",
-                    shape=[b, m, d], parity=bitwise_parity(ok), max_abs_err=err,
-                    unique_rows=uniq,
-                    neg_inf=int((~fin).sum()), ms=time_ms(kern, device_only=True),
-                    wrapper_ms=time_ms(wrapper),
-                    plain_ms=time_ms(plain), bound_ms=bms, bound_by=by, library_ms=None)
+                    shape=[b, m, d], parity=bitwise_parity(ok), strided_bitwise=bitwise(
+                        strided, want), max_abs_err=err, unique_rows=uniq,
+                    neg_inf=int((~fin).sum()), ms=ms, wrapper_ms=time_ms(wrapper),
+                    plain_ms=time_ms(plain), bound_ms=bms, bound_by=by, library_ms=None, **ab,
+                    **gather_diagnostics(lambda: refine.refine_bounds_cuda(  # noqa: B023
+                        *args[:-2], l2_rows, vals), (emb1, emb2, bloom), rows))  # noqa: B023
         emit({"phase": "kernel", **line})
         if not ok:
             raise AssertionError(f"refine[{stage}]: kernel disagrees with its plain version")
+        if not ab.get("parent_bitwise", True):
+            raise AssertionError(f"refine[{stage}]: kernel disagrees with the parent's build")
         out[f"refine_{stage}"] = line
+    out["refine_recency"] = recency_lines(created)
     out["refine_t3"] = t3_lines(seed, emb1, scale1, emb2, scale2, err2, bloom, created, valid)
     del emb2
     torch.cuda.empty_cache()
     return out
+
+
+def recency_lines(created) -> dict:
+    """K3 computes the recency term inside, with the CUDA math library's
+    expf, on the condition that it gives torch.exp's bits on the term's
+    whole domain. Its exp alone (``refine.kernel_recency`` with no day)
+    against ``torch.exp`` on every f32 argument <= 0 (+0, and -0 down to
+    -inf: 2^31 - 2^23 + 2 values, in chunks of 2^28); then the term itself
+    against ``refine.recency_term`` over every row of the kernel phase's
+    index (created days uniform in [0, 400), now = 365), of the serve
+    phase's corpus (``corpus_created_days``, now = 365) and of an index
+    dated as serving dates it (now = this run's day since EPOCH, created
+    uniform over the ten years before it and the month after). Any
+    differing value fails the run."""
+    import torch
+
+    from omni_recall_tpu_torch.index.device_index import EPOCH
+    from omni_recall_tpu_torch.ops import refine
+
+    dev = created.device
+    n = created.shape[0]
+
+    def mismatches(got, want) -> int:
+        return int((got.view(torch.int32) != want.view(torch.int32)).sum())
+
+    neg_zero, neg_inf, chunk = -(1 << 31), -(1 << 23), 1 << 28  # int32 bits of -0 and -inf
+    bad = mismatches(refine.kernel_recency(torch.zeros(1, device=dev)),
+                     torch.exp(torch.zeros(1, device=dev)))
+    for start in range(neg_zero, neg_inf + 1, chunk):
+        x = torch.arange(start, min(start + chunk, neg_inf + 1), dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        bad += mismatches(refine.kernel_recency(x), torch.exp(x))
+        del x
+    line = {"name": "refine_recency", "rows": n, "exp_arguments": neg_inf - neg_zero + 2,
+            "exp_mismatches": bad}
+    today = (datetime.datetime.now(datetime.timezone.utc) - EPOCH).total_seconds() / 86400.0
+    g = torch.Generator(device=dev).manual_seed(7)
+    dated = torch.rand((n,), generator=g, device=dev) * 3680.0 + (today - 3650.0)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    for name, days, now in (
+            ("kernel_index", created, 365.0),
+            ("serve_corpus", torch.from_numpy(corpus_created_days(n)).to(dev), 365.0),
+            ("dated_index", dated, today)):
+        line[f"{name}_mismatches"] = mismatches(refine.kernel_recency(days, now),
+                                                refine.recency_term(days, now, rows))
+    line["dated_now"] = today
+    emit({"phase": "kernel", **line})
+    if any(v for k, v in line.items() if k.endswith("mismatches")):
+        raise AssertionError(f"refine_recency: K3's expf differs from torch.exp ({line})")
+    return line
 
 
 T3_SHAPES = {"tool": (1536, 128), "select": (BATCH, 64)}  # (B, m)
@@ -494,7 +597,7 @@ def t3_lines(seed: int, emb1, scale1, emb2, scale2, err2, bloom, created, valid)
     bounds) gathered as the JAX K3 wrapper gathers them: bitwise against its
     plain version, and its block diagonal bitwise against K3's kernel on the
     same candidates. Card ms beside the bound; beside them at the same shape
-    K3's kernel (given the recency term) and wrapper, and the two stages
+    K3's kernel and its wrapper, and the two stages
     the TPU's design adds before T3: the tool's four gathers (G) and the
     query quantization (Q). Inputs from a generator of their own, so the
     other lines' inputs stay as they were."""
@@ -522,12 +625,9 @@ def t3_lines(seed: int, emb1, scale1, emb2, scale2, err2, bloom, created, valid)
         args = (emb1, scale1, emb2, scale2, err2, bloom, created, valid, q, kw_w8, kw_b,
                 365.0, rows, vals)
         ops, qg = t3.k3_slab_operands(*args)
-        rec = refine.recency_term(created, 365.0, rows)
         kern = lambda: refine.refine_slab_tile(*ops, qg)  # noqa: E731, B023
         plain = lambda: refine.refine_slab_tile_plain(*ops, qg)  # noqa: E731, B023
-        k3 = lambda: refine.refine_bounds_cuda(  # noqa: E731
-            emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8, kw_b,  # noqa: B023
-            rows, vals, rec)  # noqa: B023
+        k3 = lambda: refine.refine_bounds_cuda(*args)  # noqa: E731, B023
         got, want, k3_out = kern(), plain(), k3()
         torch.cuda.synchronize()
         ok = bitwise(got, want)
@@ -911,16 +1011,14 @@ T2_LAYOUTS = {"serving": (1024, 2), "tool": (512, 4)}  # (sub, t), c = sub
 T4_BODY_LINE = {"pair": 123, "p3": 136, "pf": 142}  # tools/probe_keys_emit.py
 
 
-def t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias, parent=None) -> dict:
+def t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias) -> dict:
     """T2 at K1's serving layout (sub 1024, t 2) and at the tool's (512, 512,
     t 4), over the K1 line's operands: bitwise against its plain version and
     against K1's kernel on the same operands (K1 folds the 0.7 weight
     itself), with K1 timed before and after it, and K1 at t = 0 (one maximum
     a slice, the least extraction there is) beside them: K1 less that is
     what its extraction rounds cost; and T2 at t = 0 likewise, so that T2
-    less that is what its rounds add once they run beside the dot. Given
-    ``parent`` (``ParentScan``), the
-    parent's T2 on the same operands, timed around it and held bitwise."""
+    less that is what its rounds add once they run beside the dot."""
     import torch
 
     from omni_recall_tpu_torch.ops import scorer
@@ -942,8 +1040,7 @@ def t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias, parent=None) -> dict
         k1_ok = (bitwise(kv.transpose(0, 1).reshape(rv.shape), rv)
                  and bitwise(ki.transpose(0, 1).reshape(ri.shape), ri))
         k1_ms = time_ms(k1, device_only=True)
-        ms, ab = timed_ab(kern, parent and (lambda: parent.pipe(*args, t, sub)),  # noqa: B023
-                          pair_bitwise)
+        ms = time_ms(kern, device_only=True)
         k1_max_only_ms = time_ms(lambda: scorer.block_topt_int8_coarse(  # noqa: B023
             emb8, q8, add_row, scale_row, q_scale, q_bias, t=0, sub=sub, block=sub),
             device_only=True)
@@ -959,27 +1056,22 @@ def t2_lines(emb8, q8, add_row, scale_row, q_scale, q_bias, parent=None) -> dict
                     k1_ms_after=time_ms(k1, device_only=True), k1_max_only_ms=k1_max_only_ms,
                     max_only_ms=max_only_ms,
                     plain_ms=time_ms(plain), plain_runs=5, bound_ms=bms, bound_by=by,
-                    library_ms=library_ms, library=library, **ab)
+                    library_ms=library_ms, library=library)
         emit({"phase": "kernel", **line})
         if not ok:
             raise AssertionError(f"probe_pipe[{layout}]: kernel disagrees with its plain version")
         if not k1_ok:
             raise AssertionError(f"probe_pipe[{layout}]: kernel disagrees with K1's kernel")
-        if not ab.get("parent_bitwise", True):
-            raise AssertionError(f"probe_pipe[{layout}]: kernel disagrees with the parent's "
-                                 "build")
         out[layout] = line
         del kv, ki, pv, pi, rv, ri
         torch.cuda.empty_cache()
     return out
 
 
-def t4_lines(dev, seed: int, parent=None) -> dict:
+def t4_lines(dev, seed: int) -> dict:
     """T4's three emits over the tool's operands (random bits as int8, so
     -128 occurs; scale and qs 1e-4) at B = 448, c = sub = 1024, t1 = 3, each
-    bitwise against its plain version, P3 decoded against pair's values.
-    Given ``parent`` (``ParentScan``), the parent's T4 on the same operands,
-    timed around it and held bitwise."""
+    bitwise against its plain version, P3 decoded against pair's values."""
     import torch
 
     from omni_recall_tpu_torch.ops import scorer
@@ -1002,23 +1094,18 @@ def t4_lines(dev, seed: int, parent=None) -> dict:
         kv, pv = (k[0], p[0]) if emit_name == "pair" else (t4.decode_up(k[0], sub),
                                                            t4.decode_up(p[0], sub))
         bms, by = coarse_bound(n, b, d, 1, t4_out_bytes(n, b, sub, t1, emit_name))
-        ms, ab = timed_ab(kern, parent and (
-            lambda: parent.keys_emit(emb8, q8, scale, qs, c, sub, t1, emit_name)),  # noqa: B023
-            pair_bitwise if emit_name == "pair" else bitwise)
+        ms = time_ms(kern, device_only=True)
         line = dict(name=f"probe_keys_emit[{emit_name}]",
                     replaces=f"tools/probe_keys_emit.py:{T4_BODY_LINE[emit_name]}",
                     shape=[b, n, d], c=c, sub=sub, t1=t1, out_shape=list(k[0].shape),
                     query_tile=scorer.int8_query_tile(sub, d),
                     parity=bitwise_parity(ok), max_abs_err=float((kv - pv).abs().max()),
                     ms=ms, plain_ms=time_ms(plain), plain_runs=5,
-                    bound_ms=bms, bound_by=by, library_ms=library_ms, library=library, **ab)
+                    bound_ms=bms, bound_by=by, library_ms=library_ms, library=library)
         emit({"phase": "kernel", **line})
         if not ok:
             raise AssertionError(f"probe_keys_emit[{emit_name}]: kernel disagrees with its "
                                  "plain version")
-        if not ab.get("parent_bitwise", True):
-            raise AssertionError(f"probe_keys_emit[{emit_name}]: kernel disagrees with the "
-                                 "parent's build")
         out[emit_name] = line
         del p, kv, pv
     if not bitwise(t4.decode_up(got["p3"][0], sub), got["pair"][0]):
@@ -1226,8 +1313,14 @@ def build_corpus(seed: int, n: int, d: int):
         e /= e.norm(dim=1, keepdim=True)
         emb[s0:s0 + slab] = e.cpu().numpy()
     contents = [f"topic c{c:05d}x synthetic chunk" for c in range(n_clusters)]
-    created_days = np.round(np.linspace(0.0, 365.0, n), 3).astype(np.float32)
-    return emb, assign, contents, created_days, centers.cpu().numpy()
+    return emb, assign, contents, corpus_created_days(n), centers.cpu().numpy()
+
+
+def corpus_created_days(n: int):
+    """The corpus's created days: spread over a year, to 3 decimals."""
+    import numpy as np
+
+    return np.round(np.linspace(0.0, 365.0, n), 3).astype(np.float32)
 
 
 # kernels each serving path must launch (the counts are zeroed just before
@@ -1667,9 +1760,9 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--parent", help="root of an earlier checkout whose csrc/scan.cu "
-                        "serves T2 and T4 (omni_scan_pipe, omni_scan_keys_emit): their times "
-                        "beside the kernels'")
+    parser.add_argument("--parent", help="root of an earlier checkout (a git archive of the "
+                        "parent commit): its csrc/dd_rows.cu and csrc/refine.cu (K2, K3) are "
+                        "built and timed beside this checkout's, and held to them")
     args = parser.parse_args()
 
     import torch
@@ -1684,7 +1777,7 @@ def main() -> int:
     smi = nvidia_smi()
     nvcc = subprocess.run([cuda.nvcc_path(), "--version"], check=True,
                           capture_output=True, text=True).stdout.strip().splitlines()[-1]
-    parent = ParentScan(args.parent) if args.parent else None
+    parent = ParentBuild(args.parent) if args.parent else None
     build_s = cuda.build_all(force=True)
     if parent is not None:
         parent.load()
@@ -1761,14 +1854,18 @@ def main() -> int:
         int8_entry("K1 coarse_scan", "coarse_scan", k["coarse_packed"]),
         int8_entry("K7a coarse_scan pair mode", "coarse_pair", k["coarse_two_reduce"]),
         entry("K2 dd_rows", "dd_rows", "omni_recall_tpu_torch/csrc/dd_rows.cu", k["dd"],
-              {"sabs_rel_err": k["dd"]["sabs_rel_err"]}),
+              {key: k["dd"][key] for key in ("sabs_rel_err", "layout", "l2_rows_ms", "gather_ms",
+                                             *PARENT_KEYS) if key in k["dd"]}),
         entry("K3 refine", "refine", "omni_recall_tpu_torch/csrc/refine.cu",
               k["refine_select"], {
-                  "shape": k["refine_select"]["shape"],
-                  "wrapper_ms": k["refine_select"]["wrapper_ms"],
+                  **{key: k["refine_select"][key] for key in (
+                      "shape", "wrapper_ms", "strided_bitwise", "l2_rows_ms", "gather_ms",
+                      *PARENT_KEYS) if key in k["refine_select"]},
                   "rescue_shape": {key: rescue[key] for key in (
                       "shape", "ms", "wrapper_ms", "plain_ms", "bound_ms", "bound_by",
-                      "max_abs_err")}}),
+                      "max_abs_err", "strided_bitwise", "l2_rows_ms", "gather_ms",
+                      *PARENT_KEYS) if key in rescue},
+                  "recency_check": k["refine_recency"]}),
         int8_entry("K4 fused_scan", "fused_scan", k["fused"]),
         int8_entry("K5 kw_scan", "kw_scan", k["kw"], ("query_tile", "sub512")),
         entry("K6 fp_scan", "fp_scan", fp_src, k["fp_bf16"], {

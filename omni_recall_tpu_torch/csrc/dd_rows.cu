@@ -8,23 +8,41 @@
 // products p_i = q_i * c_i, zero-pads them to the next power of two P and folds by
 // halving, pairing (i, i + P/2), with Knuth TwoSum and lo_new = e + (l1 + l2)
 // followed by a second TwoSum, exactly as _dd_fold / dd_sum_products do. hi and lo
-// are therefore bit-identical to the JAX graph; sabs = sum |p_i| is taken in tree
+// are therefore bit-identical to the JAX graph; sabs = sum |p_i| is taken in another
 // order, which SABS_REL covers for any order.
 //
 // What bounds it on the H100: the gathered bytes, B*t*d*4 (44 MB at B = 448, t = 32,
-// d = 768, 13 us at 3.35 TB/s); the fold's ~15 f32 operations per element are far
-// below the 67 TFLOP/s f32 rate. Design: one block per (query, slot) pair, so the
-// candidate row is read once, contiguously, straight into shared memory (no [B, t, d]
-// gather in device memory, which the TPU version also avoided), and the fold levels
-// live in shared memory (2 * P * 4 bytes). Every add is __fadd_rn / __fsub_rn and the
-// library builds with -fmad=false: no contraction, no reassociation.
+// d = 768: 13.6 us at 3.35 TB/s). Beside them the fold is not free: 14 f32 adds for
+// each of the P - 1 tree nodes, about half the byte time at the card's add rate, so no
+// lane may sit idle through the tree and no barrier may stall it.
+//
+// Design: one warp folds one pair (G warps for P > 1024), entirely in registers.
+// Thread T of the pair's 32*G holds the elements T + 32*G*i, i < R = P / (32*G), read
+// as coalesced 128-byte warp loads, all issued before any use. Then
+//   - the levels half >= 32*G pair register i with register i + half/(32*G) of the same
+//     thread;
+//   - the levels 32 <= half < 32*G (G > 1 only) pair thread T with thread T + half
+//     through shared memory, a named barrier per level for the pair's warps;
+//   - the levels half = 16 ... 1 pair lane L with lane L + half by __shfl_down_sync.
+// These are the halving tree's operand pairs in its order (tests/
+// test_torch_dd_refine_order.py holds a model of this layout bitwise against
+// dd_sum_products), with padding elements folded as the zeros they are. One scalar per
+// lane (not a float4) keeps the shuffle levels at one fold a lane, and the register
+// levels are a template (fold_registers), so that every index is a constant and the
+// arrays stay in registers (nested loops over half left them in local memory). A block
+// holds four warps on slots of one query, whose row it stages once in shared memory;
+// each warp folds two slots in turn, loading the second row while it folds the first.
+// Every add is __fadd_rn / __fsub_rn and the library builds with -fmad=false: no
+// contraction, no reassociation.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxSmem = 232448;
+constexpr int kMaxPad = 16384;     // the largest fold: 16 warps of 32 registers
+constexpr int kBlockWarps = 4;     // warps of a block whose pairs take one warp each
+constexpr int kSlotsPerWarp = 2;   // slots a warp folds in turn (the next row in flight)
 
 __device__ __forceinline__ void two_sum(float a, float b, float& s, float& err) {
   s = __fadd_rn(a, b);
@@ -32,57 +50,142 @@ __device__ __forceinline__ void two_sum(float a, float b, float& s, float& err) 
   err = __fadd_rn(__fsub_rn(a, __fsub_rn(s, bp)), __fsub_rn(b, bp));
 }
 
-__global__ void dd_rows_kernel(const float* __restrict__ raw, const int32_t* __restrict__ rows,
-                               const float* __restrict__ q, float* __restrict__ hi_out,
-                               float* __restrict__ lo_out, float* __restrict__ sabs_out,
-                               int n, int d, int t, int p) {
-  extern __shared__ float sm[];
-  float* h = sm;
-  float* l = sm + p;
-  __shared__ float warp_sums[32];
+// one node of the halving tree: (h, l) <- (h, l) folded with its partner (hp, lp)
+__device__ __forceinline__ void dd_fold(float& h, float& l, float hp, float lp) {
+  float s, e;
+  two_sum(h, hp, s, e);
+  two_sum(s, __fadd_rn(e, __fadd_rn(l, lp)), h, l);
+}
 
-  const int pair = blockIdx.x;
-  const int bi = pair / t;
-  int row = rows[pair];
-  if (row < 0 || row >= n) row = 0;  // empty slot (and never out of bounds)
-  const float* c = raw + (size_t)row * d;
-  const float* qq = q + (size_t)bi * d;
-
-  float sabs = 0.0f;
-  for (int i = threadIdx.x; i < p; i += blockDim.x) {
-    float prod = 0.0f;
-    if (i < d) {
-      prod = __fmul_rn(qq[i], c[i]);
-      sabs = __fadd_rn(sabs, fabsf(prod));
-    }
-    h[i] = prod;
-    l[i] = 0.0f;
+// the register levels of a thread, half = H, H / 2, ..., 1: register i with register
+// i + half (a template, so that every index is a constant and the arrays stay in registers)
+template <int H, int R>
+__device__ __forceinline__ void fold_registers(float (&h)[R], float (&l)[R]) {
+  if constexpr (H >= 1) {
+#pragma unroll
+    for (int i = 0; i < H; ++i) dd_fold(h[i], l[i], h[i + H], l[i + H]);
+    fold_registers<H / 2>(h, l);
   }
+}
+
+__device__ __forceinline__ void pair_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+struct DdArgs {
+  const float* raw;
+  const int32_t* rows;
+  const float* q;
+  float* hi;
+  float* lo;
+  float* sabs;
+  int n, d, t, p, slots_per_block;
+};
+
+template <int R>
+__device__ __forceinline__ void load_row(const DdArgs& a, int bi, int j, int thread, int span,
+                                         float (&c)[R]) {
+  int row = a.rows[(size_t)bi * a.t + j];
+  if (row < 0 || row >= a.n) row = 0;  // empty slot (and never out of bounds)
+  const float* cr = a.raw + (size_t)row * a.d;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int e = thread + span * i;
+    c[i] = e < a.d ? __ldg(cr + e) : 0.0f;
+  }
+}
+
+// R registers a thread, G warps a pair; a block folds kWarps / G pairs at once
+template <int R, int G>
+__global__ void __launch_bounds__(32 * (G > kBlockWarps ? G : kBlockWarps))
+    dd_rows_kernel(DdArgs a) {
+  constexpr int kWarps = G > kBlockWarps ? G : kBlockWarps;
+  constexpr int kPairs = kWarps / G;
+  constexpr int kSpan = 32 * G;
+  extern __shared__ float qs[];                // [d] the block's query row
+  __shared__ float xh[G > 1 ? kWarps * 32 : 1];  // the cross-warp levels (G > 1)
+  __shared__ float xl[G > 1 ? kWarps * 32 : 1];
+  __shared__ float xs[kWarps];                 // per-warp sabs (G > 1)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pair = warp / G, thread = tid - pair * kSpan;
+  const int bi = blockIdx.x;
+  const int j0 = blockIdx.y * a.slots_per_block;
+  const int j1 = min(j0 + a.slots_per_block, a.t);
+
+  float c[R];
+  int j = j0 + pair;
+  if (j < j1) load_row(a, bi, j, thread, kSpan, c);
+  const float* qrow = a.q + (size_t)bi * a.d;
+  for (int i = tid; i < a.d; i += kWarps * 32) qs[i] = qrow[i];
   __syncthreads();
 
-  for (int half = p >> 1; half >= 1; half >>= 1) {
-    for (int i = threadIdx.x; i < half; i += blockDim.x) {
-      float s, e, s2, e2;
-      two_sum(h[i], h[i + half], s, e);
-      const float lo_new = __fadd_rn(e, __fadd_rn(l[i], l[i + half]));
-      two_sum(s, lo_new, s2, e2);
-      h[i] = s2;
-      l[i] = e2;
+  for (; j < j1; j += kPairs) {
+    float h[R], l[R];
+    float sabs = 0.0f;
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int e = thread + kSpan * i;
+      h[i] = e < a.d ? __fmul_rn(qs[e], c[i]) : 0.0f;  // zero padding up to P
+      l[i] = 0.0f;
+      sabs = __fadd_rn(sabs, fabsf(h[i]));
     }
-    __syncthreads();
-  }
+    if (j + kPairs < j1) load_row(a, bi, j + kPairs, thread, kSpan, c);  // next row in flight
 
-  for (int o = 16; o > 0; o >>= 1) sabs = __fadd_rn(sabs, __shfl_xor_sync(0xffffffffu, sabs, o));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = sabs;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float total = 0.0f;
-    for (int w = 0; w < (int)(blockDim.x + 31) / 32; ++w) total = __fadd_rn(total, warp_sums[w]);
-    hi_out[pair] = h[0];
-    lo_out[pair] = l[0];
-    sabs_out[pair] = total;
+    fold_registers<R / 2>(h, l);
+    for (int o = 16; o > 0; o >>= 1) sabs = __fadd_rn(sabs, __shfl_xor_sync(0xffffffffu, sabs, o));
+
+    float hh = h[0], ll = l[0];
+    if constexpr (G > 1) {
+      float* gh = xh + pair * kSpan;
+      float* gl = xl + pair * kSpan;
+      gh[thread] = hh;
+      gl[thread] = ll;
+      if (lane == 0) xs[warp] = sabs;
+      pair_sync(1 + pair, kSpan);
+      if (thread == 0) {
+        sabs = 0.0f;
+        for (int w = 0; w < G; ++w) sabs = __fadd_rn(sabs, xs[pair * G + w]);
+      }
+#pragma unroll
+      for (int half = kSpan / 2; half >= 32; half >>= 1) {
+        if (thread < half) {
+          dd_fold(hh, ll, gh[thread + half], gl[thread + half]);
+          gh[thread] = hh;
+          gl[thread] = ll;
+        }
+        pair_sync(1 + pair, kSpan);
+      }
+    }
+    if (thread < 32) {
+#pragma unroll
+      for (int half = 16; half >= 1; half >>= 1) {
+        const float ph = __shfl_down_sync(0xffffffffu, hh, half);
+        const float pl = __shfl_down_sync(0xffffffffu, ll, half);
+        if (half < a.p && lane < half) dd_fold(hh, ll, ph, pl);
+      }
+      if (thread == 0) {
+        const size_t o = (size_t)bi * a.t + j;
+        a.hi[o] = hh;
+        a.lo[o] = ll;
+        a.sabs[o] = sabs;
+      }
+    }
   }
+}
+
+template <int R, int G>
+int launch(const DdArgs& a, int b, cudaStream_t stream) {
+  constexpr int kWarps = G > kBlockWarps ? G : kBlockWarps;
+  const size_t smem = (size_t)a.d * sizeof(float);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(dd_rows_kernel<R, G>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid(b, (a.t + a.slots_per_block - 1) / a.slots_per_block);
+  dd_rows_kernel<R, G><<<grid, kWarps * 32, smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -93,19 +196,30 @@ extern "C" int omni_dd_rows(const void* raw, const void* rows, const void* q, vo
   if (n <= 0 || d <= 0 || b <= 0 || t <= 0) return -1;
   int p = 1;
   while (p < d) p *= 2;
-  const size_t smem = (size_t)2 * p * sizeof(float);
-  if (smem + 32 * sizeof(float) > (size_t)kMaxSmem) return -1;  // + warp_sums
-  int threads = p / 2;
-  if (threads < 32) threads = 32;
-  if (threads > 512) threads = 512;
-  cudaError_t err = cudaFuncSetAttribute(dd_rows_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dd_rows_kernel<<<(unsigned)((size_t)b * t), threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(raw), static_cast<const int32_t*>(rows),
-      static_cast<const float*>(q), static_cast<float*>(hi), static_cast<float*>(lo),
-      static_cast<float*>(sabs), n, d, t, p);
-  return (int)cudaGetLastError();
+  if (p > kMaxPad) return -1;
+  DdArgs a;
+  a.raw = static_cast<const float*>(raw);
+  a.rows = static_cast<const int32_t*>(rows);
+  a.q = static_cast<const float*>(q);
+  a.hi = static_cast<float*>(hi);
+  a.lo = static_cast<float*>(lo);
+  a.sabs = static_cast<float*>(sabs);
+  a.n = n; a.d = d; a.t = t; a.p = p;
+  const int g = p > 1024 ? p / 1024 : 1;  // warps a pair
+  a.slots_per_block = (g >= kBlockWarps ? 1 : kBlockWarps / g) * kSlotsPerWarp;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (p) {
+    case 1: case 2: case 4: case 8: case 16: case 32: return launch<1, 1>(a, b, s);
+    case 64: return launch<2, 1>(a, b, s);
+    case 128: return launch<4, 1>(a, b, s);
+    case 256: return launch<8, 1>(a, b, s);
+    case 512: return launch<16, 1>(a, b, s);
+    case 1024: return launch<32, 1>(a, b, s);
+    case 2048: return launch<32, 2>(a, b, s);
+    case 4096: return launch<32, 4>(a, b, s);
+    case 8192: return launch<32, 8>(a, b, s);
+    default: return launch<32, 16>(a, b, s);
+  }
 }
 
 extern "C" const char* omni_cuda_error_string(int code) {

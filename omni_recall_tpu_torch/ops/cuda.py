@@ -50,15 +50,13 @@ LAUNCHES: dict[str, int] = {
     "fp_scan": 0,       # K6: fused f32/bf16 scan
     "dd_rows": 0,       # K2: double-float cosine over gathered rows
     "refine": 0,        # K3: residual two-plane refine over candidate rows
+    "recency": 0,       # K3's recency term alone, a check of its expf (no path)
     "profile_kernel": 0,  # T1: K6's body split three ways (tools/profile_kernel.py)
     "profile_bloomT": 0,  # T5: K4's body over row or transposed bloom (tools/)
     "probe_pipe": 0,      # T2: K1 with its extraction one group behind (int8_pipe_kernel)
     "probe_keys_emit": 0,  # T4: K1's tiles with three emit layouts (KeysArgs)
     "probe_serve": 0,     # T3: K3's body over pre-gathered slabs (tools/probe_serve.py)
 }
-
-# shared memory one block may use on Hopper (bytes; opt-in above 48 KB)
-MAX_SMEM = 232448
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -203,13 +201,15 @@ _ARGTYPES = {
     ]},
     "refine": {
         "omni_refine": [
-            _P, _P, _P, _P, _P, _P, _P,           # emb1 emb2 bloom scale1 scale2 err2 valid
+            _P, _P, _P, _P, _P, _P, _P, _P,       # emb1 emb2 bloom scale1 scale2 err2 valid created
             _P, _P, _P,                           # q kw_w8 kw_b
-            _P, _P, _P,                           # rows vals rec
+            _P, _P,                               # rows vals (row-strided)
             _P,                                   # out
-            _I, _I, _I, _I, _I,                   # n d w b m
+            ctypes.c_float,                       # now (days)
+            _I, _I, _I, _I, _I, _I, _I,           # n d w b m rows_stride vals_stride
             _P,                                   # stream
         ],
+        "omni_recency": [_P, _P, ctypes.c_float, _I, _I, _P],  # created out now n exp_only stream
         "omni_refine_slab": [
             _P, _P, _P, _P, _P, _P, _P, _P,       # q1 q2 t1 t2 eq2 qn kwb kw_w8
             _P, _P, _P, _P, _P, _P, _P,           # c1 c2 bloom s1 s2 ec2 add

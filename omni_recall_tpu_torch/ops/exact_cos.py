@@ -137,6 +137,19 @@ def exact_cos_rows_plain(raw: torch.Tensor, rows: torch.Tensor, q_raw: torch.Ten
     return dd_sum_products(q_raw[:, None, :], c)
 
 
+DD_MAX_PAD = 16384  # the widest fold csrc/dd_rows.cu takes: 16 warps of 32 registers
+
+
+def dd_rows_layout(d: int) -> tuple[int, int, int]:
+    """K2's fold layout for rows of d (csrc/dd_rows.cu): (P, G, R) with P
+    the padded width (the next power of two), G the warps that fold one
+    pair and R the registers a thread holds; thread T of the pair's 32·G
+    holds the products T + 32·G·i, i < R."""
+    pad = 1 << max(0, d - 1).bit_length()
+    g = max(1, pad // 1024)
+    return pad, g, max(1, pad // (32 * g))
+
+
 def _dd_rows_cuda(raw: torch.Tensor, rows: torch.Tensor, q_raw: torch.Tensor):
     """Launch csrc/dd_rows.cu (K2): reads each candidate row straight from
     the raw plane by index, so no [B, t, d] gather is materialized."""
@@ -155,13 +168,11 @@ def _dd_rows_cuda(raw: torch.Tensor, rows: torch.Tensor, q_raw: torch.Tensor):
             )
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    pad = 1
-    while pad < d:
-        pad *= 2
-    if 2 * pad * 4 + 128 > cuda.MAX_SMEM:
+    pad, _, _ = dd_rows_layout(d)
+    if pad > DD_MAX_PAD:
         raise ValueError(
-            f"d={d} needs {2 * pad * 4} bytes of shared memory for the DD "
-            f"fold; one block can hold {cuda.MAX_SMEM}"
+            f"d={d} pads to a fold of {pad} products; the CUDA kernel folds at "
+            f"most {DD_MAX_PAD} (16 warps of 32 registers)"
         )
     hi = torch.empty((b, t), dtype=torch.float32, device=dev)
     lo = torch.empty((b, t), dtype=torch.float32, device=dev)

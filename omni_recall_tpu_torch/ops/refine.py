@@ -25,9 +25,12 @@ replacing the TPU kernel ``_make_refine_kernel_full`` (launched through
 ``_refine_bounds_fused``). A CUDA tensor launches it at every width; a CPU
 tensor takes ``refine_bounds_plain``, the same function in PyTorch. There
 is no fallback from one to the other. The kernel quantizes each query
-itself (quantize_queries_int8_residual's operations, bit for bit); only the
-recency term's exp is computed outside it, by the same PyTorch code for
-both (``recency_term``). Both evaluate the f32 combine in the TPU kernel's
+itself (quantize_queries_int8_residual's operations, bit for bit) and
+computes the recency term itself (``recency_term``'s operations; the CUDA
+math library's ``expf`` gives ``torch.exp``'s bits on the card, which
+chip_smoke.py checks over every row of its 2^20-row index), and it reads
+the candidate rows and scan bounds with a row stride, so one launch is all
+the CUDA path queues. Both evaluate the f32 combine in the TPU kernel's
 order (its per-row scale products last), with the multiply-adds
 contracted exactly where XLA's CPU compiler contracts the interpret-mode
 kernel (found by comparing against ``_refine_bounds_fused(interpret=True)``):
@@ -112,13 +115,34 @@ def quantize_queries_int8_residual(q: torch.Tensor):
 
 
 def recency_term(created, now_days, rows) -> torch.Tensor:
-    """exp(min(created - now, 0) / 30) of each candidate row [B, m] — the one
-    part of the refined bound computed outside K3 (as JAX computes it outside
-    its kernel, refine.py _refine_bounds_fused), by the same PyTorch code for
-    the kernel and its plain version, so the two share its bits. XLA's jit
-    form of the division by the half-life is a reciprocal multiply."""
+    """exp(min(created - now, 0) / 30) of each candidate row [B, m], computed
+    outside the kernel as JAX computes it (refine.py _refine_bounds_fused);
+    K3 evaluates the same operations in f32 inside (csrc/refine.cu). XLA's
+    jit form of the division by the half-life is a reciprocal multiply."""
     days = created[rows.clamp_min(0).long()]
     return torch.exp(torch.clamp_max(days - now_days, 0.0) * (1.0 / RECENCY_HALF_LIFE_DAYS))
+
+
+def kernel_recency(created: torch.Tensor, now_days=None) -> torch.Tensor:
+    """K3's recency term of every row [N], evaluated alone by csrc/refine.cu
+    (its ``recency``) on the card; with ``now_days`` None, its exp alone
+    (``recency_exp``) of every argument in ``created``. chip_smoke.py and
+    the card tests hold both bitwise to PyTorch's (``recency_term``,
+    ``torch.exp``): the exp on every f32 argument <= 0, the term over whole
+    indexes, the condition on which K3 computes the term inside. No serving
+    path launches it."""
+    if not created.is_cuda:
+        raise ValueError(f"kernel_recency needs a CUDA tensor, got {created.device}")
+    n = created.shape[0]
+    _check_cuda_operands(created.device, created=(created, torch.float32, (n,)))
+    out = torch.empty_like(created)
+    lib = cuda.library("refine")
+    exp_only = now_days is None
+    cuda.check(lib, lib.omni_recency(created.data_ptr(), out.data_ptr(),
+                                     0.0 if exp_only else float(now_days), n, int(exp_only),
+                                     cuda.stream_ptr(created.device)), "recency")
+    cuda.count_launch("recency")
+    return out
 
 
 def _refined(d11, d12, d21, d22, kwd, s1, s2, ec2, add, t1, t2, eq2, qn, kw_b):
@@ -182,13 +206,26 @@ def refine_bounds_plain(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
         kw_bias.to(torch.float32).reshape(-1, 1)))
 
 
-def refine_bounds_cuda(emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8, kw_bias,
-                       rows, vals, rec):
-    """Launch csrc/refine.cu (K3) on the current stream: the kernel
-    quantizes each query itself and reads each candidate row straight from
-    the index planes by index, so no [B, m, d] gather is materialized and
-    the only operand prepared outside it is the recency term ``rec``
-    (recency_term). Never synchronizes."""
+def _row_view(name: str, x: torch.Tensor, dtype, shape, device) -> int:
+    """The row stride of ``x``, a [B, m] view whose rows may lie apart (a
+    column slice of the engine's [B, m + 1] scan output); raises where the
+    kernel cannot read it."""
+    if x.device != device or x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(f"{name}: {x.dtype}{tuple(x.shape)} on {x.device}, expected "
+                         f"{dtype}{shape} on {device}")
+    if x.stride(1) != 1 and shape[1] > 1:
+        raise ValueError(f"{name} must have unit column stride, got {x.stride()}")
+    return x.stride(0) if shape[0] > 1 else shape[1]
+
+
+def refine_bounds_cuda(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
+                       q, kw_w8, kw_bias, now_days, rows, vals):
+    """Launch csrc/refine.cu (K3) on the current stream, operands as
+    ``refine_bounds_plain`` (``now_days`` a number): the kernel quantizes
+    each query, computes the recency term and reads each candidate row
+    straight from the index planes by index, so no [B, m, d] gather is
+    materialized, and it reads ``rows`` and ``vals`` with their row stride.
+    Never synchronizes."""
     n, d = emb1.shape
     b, m = rows.shape
     w = bloom.shape[1]
@@ -200,17 +237,20 @@ def refine_bounds_cuda(emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8,
     _check_cuda_operands(
         dev, emb1=(emb1, torch.int8, (n, d)), emb2=(emb2, torch.int8, (n, d)),
         bloom=(bloom, torch.uint8, (n, w)), scale1=(scale1, f32, (n,)),
-        scale2=(scale2, f32, (n,)), err2=(err2, f32, (n,)), valid=(valid, torch.bool, (n,)),
-        q=(q, f32, (b, d)), kw_w8=(kw_w8, torch.int8, (b, 8 * w)), kw_bias=(kw_bias, f32, (b,)),
-        rows=(rows, torch.int32, (b, m)), vals=(vals, f32, (b, m)), rec=(rec, f32, (b, m)),
+        scale2=(scale2, f32, (n,)), err2=(err2, f32, (n,)), created=(created, f32, (n,)),
+        valid=(valid, torch.bool, (n,)), q=(q, f32, (b, d)),
+        kw_w8=(kw_w8, torch.int8, (b, 8 * w)), kw_bias=(kw_bias, f32, (b,)),
     )
+    rows_stride = _row_view("rows", rows, torch.int32, (b, m), dev)
+    vals_stride = _row_view("vals", vals, f32, (b, m), dev)
     out = torch.empty((b, m), dtype=f32, device=dev)
     lib = cuda.library("refine")
     rc = lib.omni_refine(
         emb1.data_ptr(), emb2.data_ptr(), bloom.data_ptr(), scale1.data_ptr(),
-        scale2.data_ptr(), err2.data_ptr(), valid.data_ptr(), q.data_ptr(),
-        kw_w8.data_ptr(), kw_bias.data_ptr(), rows.data_ptr(), vals.data_ptr(),
-        rec.data_ptr(), out.data_ptr(), n, d, w, b, m, cuda.stream_ptr(dev),
+        scale2.data_ptr(), err2.data_ptr(), valid.data_ptr(), created.data_ptr(),
+        q.data_ptr(), kw_w8.data_ptr(), kw_bias.data_ptr(), rows.data_ptr(), vals.data_ptr(),
+        out.data_ptr(), float(now_days), n, d, w, b, m, rows_stride, vals_stride,
+        cuda.stream_ptr(dev),
     )
     cuda.check(lib, rc, "refine")
     cuda.count_launch("refine")
@@ -310,13 +350,13 @@ def _refine_dispatch(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
                      q, kw_w8, kw_bias, now_days, rows, vals):
     """Refined bounds [B, m]: K3 for CUDA tensors (any m), the plain
     version for CPU tensors."""
+    args = (emb1, scale1, emb2, scale2, err2, bloom, created, valid, q, kw_w8, kw_bias,
+            now_days, rows, vals)
     if emb1.is_cuda:
-        return refine_bounds_cuda(emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8,
-                                  kw_bias, rows, vals, recency_term(created, now_days, rows))
+        return refine_bounds_cuda(*args)
     if emb1.device.type != "cpu":
         raise ValueError(f"no kernel for device {emb1.device}")
-    return refine_bounds_plain(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
-                               q, kw_w8, kw_bias, now_days, rows, vals)
+    return refine_bounds_plain(*args)
 
 
 def refine_ub_from_scan(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
@@ -326,8 +366,7 @@ def refine_ub_from_scan(emb1, scale1, emb2, scale2, err2, bloom, created, valid,
     bounds [B, m], queued after the scan on the same stream."""
     return _refine_dispatch(
         emb1, scale1, emb2, scale2, err2, bloom, created, valid, q,
-        quantize_kw_weights(kw_weights), kw_bias, now_days,
-        idxs_full[:, :-1].contiguous(), vals_full[:, :-1].contiguous(),
+        quantize_kw_weights(kw_weights), kw_bias, now_days, idxs_full[:, :-1], vals_full[:, :-1],
     )
 
 
@@ -347,8 +386,7 @@ def refine_select_from_scan(emb1, scale1, emb2, scale2, err2, bloom, created, va
     r = m if r is None else max(1, min(r, m))
     refined = _refine_dispatch(
         emb1, scale1, emb2, scale2, err2, bloom, created, valid, q,
-        quantize_kw_weights(kw_weights), kw_bias, now_days,
-        idxs_full[:, :r].contiguous(), vals_full[:, :r].contiguous(),
+        quantize_kw_weights(kw_weights), kw_bias, now_days, idxs_full[:, :r], vals_full[:, :r],
     )
     return compact_select(vals_full, idxs_full, refined, t_out, r)
 

@@ -23,16 +23,21 @@ import time
 import torch
 
 
-def median_ms(fn, device: torch.device, runs: int = 8) -> float:
+def median_ms(fn, device: torch.device, runs: int = 8, device_only: bool = False) -> float:
     """Median wall time of ``runs`` calls of fn() after one warm-up call: on
     the card each call is timed with CUDA events (the device's time, the
-    host's launch included), on the CPU by the host clock."""
+    host's launch included), on the CPU by the host clock. ``device_only``
+    queues a ~10 ms device sleep first, so that fn's launches are all queued
+    before its first event and a kernel shorter than its host launch is
+    timed on the device alone."""
     fn()
     times = []
     for _ in range(runs):
         if device.type == "cuda":
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            if device_only:
+                torch.cuda._sleep(20_000_000)
             start.record()
             fn()
             end.record()

@@ -436,16 +436,28 @@ def test_probe_keys_emit_t4(dev, emit, c, sub, t1, b):
     assert scorer.int8_query_tile(sub, 768) == {2048: 16, 4096: 8}.get(sub, 32)
 
 
-@pytest.mark.parametrize("d", [768, 100])
+@pytest.mark.parametrize("d", [768, 100, 1, 2048, 3072])
 def test_dd_rows_kernel(dev, d):
+    """K2 against its plain version, at one warp a pair (d <= 1024) and at
+    two and four (2048, 3072), with a zero row (read by the empty slots), a
+    zero query and a row whose products cancel pairwise."""
     g = torch.Generator(device=dev).manual_seed(3)
     raw = torch.randn((5000, d), generator=g, device=dev)
     q = torch.randn((37, d), generator=g, device=dev)
     rows = torch.randint(-1, 5000, (37, 32), generator=g, device=dev).to(torch.int32)
+    raw[0] = 0.0
+    q[1] = 0.0
+    half = d // 2
+    q[5, half:2 * half] = q[5, :half]
+    raw[9, half:2 * half] = -raw[9, :half]
+    rows[5, 3] = 9
     h, lo, s = exact_cos.exact_cos_rows(raw, rows, q)
     ph, plo, ps = exact_cos.exact_cos_rows_plain(raw, rows, q)
     assert _same(h, ph) and _same(lo, plo)
-    assert float(((s - ps).abs() / ps.abs()).max()) <= exact_cos.SABS_REL
+    nonzero = ps != 0
+    assert bool(torch.equal(s[~nonzero], ps[~nonzero]))
+    assert float(((s - ps).abs()[nonzero] / ps[nonzero]).max()) <= exact_cos.SABS_REL
+    assert bool((h[1] == 0).all()) and bool((h[rows < 0] == 0).all())
 
 
 def _refine_inputs(dev, n, d, b, m, w, seed):
@@ -482,6 +494,50 @@ def test_refine_kernel(dev, b, m):
     assert cuda.LAUNCHES["refine"] == before + 1
     assert _same(got, want)
     assert bool(torch.isneginf(got).any()) and bool(torch.isfinite(got).any())
+    # rows and scan bounds as the engine passes them: column slices of its
+    # [B, m + 1] scan output, read with their row stride, one launch
+    rows, vals = args[12], args[13]
+    wide = [torch.cat([x, x[:, :1]], dim=1)[:, :m] for x in (rows, vals)]
+    assert not wide[0].is_contiguous()
+    strided = refine._refine_dispatch(*args[:12], *wide)
+    assert cuda.LAUNCHES["refine"] == before + 2
+    assert _same(strided, want)
+
+
+@pytest.mark.parametrize("d, w", [(1024, 128), (16, 125), (1040, 256), (768, 4)])
+def test_refine_kernel_widths(dev, d, w):
+    """K3 where rows are wider than a lane's loads ahead (d > 768), the bloom
+    wider than one 16-byte chunk a lane (W = 256) or read by bytes
+    (W % 16 != 0), and d = 16 (no full 32-element block)."""
+    args = _refine_inputs(dev, 4096, d, 24, 100, w, seed=d + w)
+    assert _same(refine._refine_dispatch(*args), refine.refine_bounds_plain(*args))
+
+
+def test_kernel_recency_is_torch_exp(dev):
+    """K3's recency term (its expf) against recency_term over 2^20 created
+    days: uniform in [0, 400) and on the serve corpus's grid at now = 365,
+    and over ten years before a serving day (now = 1020, about 2026-10)
+    and a month after it."""
+    n = 1 << 20
+    g = torch.Generator(device=dev).manual_seed(11)
+    rows = torch.arange(n, dtype=torch.int32, device=dev)
+    for days, now in ((torch.rand((n,), generator=g, device=dev) * 400.0, 365.0),
+                      (torch.linspace(0.0, 365.0, n, device=dev), 365.0),
+                      (torch.rand((n,), generator=g, device=dev) * 3680.0 - 2630.0, 1020.0)):
+        before = cuda.LAUNCHES["recency"]
+        got = refine.kernel_recency(days, now)
+        assert cuda.LAUNCHES["recency"] == before + 1
+        assert _same(got, refine.recency_term(days, now, rows))
+
+
+def test_kernel_recency_exp_is_torch_exp_on_every_argument(dev):
+    """K3's expf alone against torch.exp on every f32 from -0 down to -inf
+    (the recency term's arguments), in chunks of 2^27 bit patterns."""
+    neg_zero, neg_inf, chunk = -(1 << 31), -(1 << 23), 1 << 27
+    for start in range(neg_zero, neg_inf + 1, chunk):
+        x = torch.arange(start, min(start + chunk, neg_inf + 1), dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        assert _same(refine.kernel_recency(x), torch.exp(x)), start
 
 
 @pytest.mark.parametrize("m", [16, 64, 128, 512])
@@ -549,7 +605,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
                           torch.zeros((8, 70), device=dev), torch.zeros((8, 128), device=dev),
                           o["kw_b"], o["add_row"], t=4)
     raw = torch.zeros((10, 1 << 15), device=dev)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="at most 16384"):
         exact_cos.exact_cos_rows(raw, torch.zeros((1, 1), dtype=torch.int32, device=dev),
                                  torch.zeros((1, 1 << 15), device=dev))
     args = list(_refine_inputs(dev, 4096, 768, 8, 16, 128, seed=4))
