@@ -80,8 +80,12 @@ Phases, one JSON line each:
                 m = 128). It must launch T3, K1, K3 and K2 and nothing else.
 3. ``server``   the app of ``python -m omni_recall_tpu_torch.server`` in
                 process on the card (Backend=pallas, int8, Refine=true,
-                DirectSelect=true, Hash embeddings): three uploads, five
-                searches, each equal to the oracle-backend response.
+                DirectSelect=true, Hash embeddings, Storage:SnapshotDir in
+                a temporary directory): three uploads, five searches, each
+                equal to the oracle-backend response; then POST
+                /api/snapshot, and a second app on the same directory must
+                restore the same documents and chunks by the slab route and
+                answer a search as the first did.
 4. ``serve``    a 2^20 x 768 clustered corpus bulk-loaded into the headline
                 index, DeviceIndex(scan_dtype="int8", refine=True,
                 exact_cos=True) — the repository bench's configuration —
@@ -103,12 +107,36 @@ Phases, one JSON line each:
                 bench's bf16 mode: K6), f32 storage (K6), and EngineOptions()
                 with only the corpus keys set (the reference's defaults:
                 backend xla over f32 storage, no kernel of the repository).
+4b. ``snapshot`` (paths ``snapshot`` and ``rebuild``) a 2^17-row headline
+                index (the serve corpus's recipe, refine planes, device-exact
+                cosine, rows going round eight documents of a store): saved
+                (its device planes read back), loaded and restored into a
+                fresh engine, which must take the slab route and serve the
+                source's batches DTO for DTO; a copy with its error-bound
+                plane zeroed must take the rebuild and serve the same. Then
+                one document is deleted from the restored engine and
+                ``rebuild_index`` must compact its planes on the device,
+                bitwise equal to a fresh index of the surviving chunks. Save,
+                load, restore, upload and rebuild seconds and chunks/s.
+4c. ``compact`` the compact 10M store of the repository bench (10 x 2^20 x
+                768 rows, 512 bloom bits, batches of 896, kw_frac 0.75,
+                ``bench.py st_10m``), built by ``build_compact_engine`` after
+                the earlier paths' engines are freed: host build and device
+                fill seconds, host store bytes, every device plane bitwise
+                against the host columns slab by slab, three timed batches
+                and one split (dispatch / device wait / finalize), four
+                queries a batch DTO-identical to an exact float64 scan of
+                every row (``compact_exact_scan``); K1, K4 and K5 over the
+                whole plane at W = 64, bitwise to their plain versions slab
+                by slab, each timed beside its bound (K1 also beside
+                ``torch._int_mm``); and the card's peak allocation.
 5. ``kernels``  per kernel: its parity and times, and its launches on each
                 path (the profiling path, the server of phase 3 and each path
                 of phase 4; the counts are zeroed just before a path and read
                 just after it, and each path must launch its kernels); T1, T2,
                 T4 and T5 with one sub-entry per variant, layout or emit; T3
-                with its select-shape line and the stage times.
+                with its select-shape line and the stage times; K1, K4 and
+                K5 each with its line at the compact shape.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and the
 script exits non-zero; it needs CUDA and the repository beside it.
@@ -1212,16 +1240,24 @@ QUERIES = ["tensor cores int8", "exact certificate upper bound", "garden water b
 
 
 def server_phase() -> dict:
+    import shutil
+    import tempfile
+
     from omni_recall_tpu_torch.config import load_config
 
+    snapshot_dir = tempfile.mkdtemp(prefix="omni_server_snapshot_")
     config = load_config(settings_file=None, env={}, overrides={
         "Engine:Backend": "pallas", "Engine:ScanDtype": "int8", "Engine:Refine": "true",
         "Engine:DirectSelect": "true", "Engine:DeviceExactCos": "true",
         "Engine:EmbeddingDim": DIM, "Engine:BloomBits": BITS,
         "Embeddings:Provider": "Hash", "Embeddings:Dim": DIM,
+        "Storage:SnapshotDir": snapshot_dir,
     })
-    with fixed_clock():  # the app's and the oracle's recency, to the bit
-        return _server_checks(config)
+    try:
+        with fixed_clock():  # the app's and the oracle's recency, to the bit
+            return _server_checks(config)
+    finally:
+        shutil.rmtree(snapshot_dir, ignore_errors=True)
 
 
 @contextlib.contextmanager
@@ -1275,10 +1311,36 @@ def _server_checks(config) -> dict:
             raise AssertionError(f"search {q!r}: {got} != oracle {want}")
         citations += len(got["citations"])
     health = client.get("/health")
-    line = {"phase": "server", "documents": len(DOCS), "searches": len(QUERIES),
+    # snapshot persistence: POST /api/snapshot, then a second app on the
+    # same Storage:SnapshotDir restores by the slab route
+    if app.restore_route is not None:
+        raise AssertionError(f"an empty snapshot directory restored: {app.restore_route}")
+    saved = client.post("/api/snapshot", json_body={})
+    if saved.status != 200:
+        raise AssertionError(f"POST /api/snapshot: HTTP {saved.status}")
+    saved = saved.json()
+    chunks = sum(d.chunk_count for d in app.store.list_documents(2**31 - 1))
+    if (saved["documents"], saved["chunks"]) != (len(DOCS), chunks):
+        raise AssertionError(f"POST /api/snapshot: {saved}, want {len(DOCS)} documents, "
+                             f"{chunks} chunks")
+    again = build_app(config)
+    restored = {"route": again.restore_route,
+                "documents": len(again.store.list_documents(2**31 - 1)),
+                "chunks": sum(d.chunk_count for d in again.store.list_documents(2**31 - 1)),
+                "device_index_rows": again.engine.device_index.n_rows}
+    if restored != {"route": "slabs", "documents": len(DOCS), "chunks": chunks,
+                    "device_index_rows": app.engine.device_index.n_rows}:
+        raise AssertionError(f"the restarted app restored {restored}")
+    q = QUERIES[0]
+    first = client.post("/api/recall/search", json_body={"query": q, "topK": 3}).json()
+    second = TestClient(again).post("/api/recall/search", json_body={"query": q, "topK": 3})
+    if second.status != 200 or second.json() != first:
+        raise AssertionError(f"the restarted app answers {q!r} otherwise")
+    line = {"phase": "server", "documents": len(DOCS), "searches": len(QUERIES) + 2,
             "citations": citations, "oracle_identical": True,
             "health": health.json()["status"],
-            "device_index_rows": app.engine.device_index.n_rows}
+            "device_index_rows": app.engine.device_index.n_rows,
+            "snapshot": {"saved": saved, "restored": restored, "same_search": True}}
     emit(line)
     return line
 
@@ -1316,6 +1378,29 @@ def build_corpus(seed: int, n: int, d: int):
     return emb, assign, contents, corpus_created_days(n), centers.cpu().numpy()
 
 
+def corpus_requests(centers, rseed: int, empty: bool = False, keyword_led: int = 0):
+    """One batch of BATCH queries over a ``build_corpus`` corpus: each query
+    near a cluster center, its text the cluster's token. ``keyword_led``:
+    every such query's vector points nowhere near any cluster (a random
+    direction), so only its words match — the cosine-only coarse
+    certificate cannot hold for it."""
+    import numpy as np
+
+    n_clusters, d = centers.shape
+    r = np.random.default_rng(rseed)
+    reqs = []
+    for i in range(BATCH):
+        c = int(r.integers(n_clusters))
+        qn = r.standard_normal(d).astype(np.float32)
+        if keyword_led and i % keyword_led == 0:
+            q = qn
+        else:
+            q = centers[c] + 0.2 * qn / np.linalg.norm(qn)
+        q = (q / np.linalg.norm(q)).astype(np.float32)
+        reqs.append((f"c{c:05d}x", [] if empty else q, 10))
+    return reqs
+
+
 def corpus_created_days(n: int):
     """The corpus's created days: spread over a year, to 3 decimals."""
     import numpy as np
@@ -1339,6 +1424,9 @@ PATH_KERNELS = {
     "reference_default_batches": (),
     "profile": ("profile_kernel", "profile_bloomT", "probe_pipe", "probe_keys_emit"),
     "probe_serve": ("probe_serve", "coarse_scan", "refine", "dd_rows"),
+    "snapshot": ("coarse_scan", "dd_rows"),
+    "rebuild": ("coarse_scan", "dd_rows"),
+    "compact": ("coarse_scan",),
 }
 # the int8 kernels: an f32/bf16 index must not reach them
 INT8_KERNELS = ("coarse_scan", "coarse_pair", "dd_rows", "refine", "fused_scan")
@@ -1350,6 +1438,8 @@ _SERVING_FORBIDS = {
     # the device-exact cosine needs them, no raw plane (K2)
     "keyword_led_batch": ("refine", "dd_rows"),
     "pair_emit_batch": ("coarse_scan",),
+    # the compact configuration has neither the residual nor the raw plane
+    "compact": ("refine", "dd_rows", "coarse_pair", "fp_scan"),
     "bf16_batches": INT8_KERNELS,
     "f32_batches": INT8_KERNELS,
     # backend xla: the plain-torch scorer, no kernel of the repository
@@ -1456,6 +1546,35 @@ def corpus_records(emb, assign, contents, created_days, bloom_bits, ngram, bloom
     return sigs[assign], meta, aux
 
 
+def headline_options(n: int, refine: bool = True):
+    """The bench headline's engine options (bench.py:392-417) with its
+    serving layout, over n rows of DIM dims and BITS bloom bits."""
+    from omni_recall_tpu_torch.config import EngineOptions
+
+    return EngineOptions(
+        backend="pallas", embedding_dim=DIM, recent_window=0, candidate_m=128,
+        bloom_bits=BITS, scan_dtype="int8", capacity_block=max(8192, n // 64),
+        device_exact_cos=True, direct_select=True, refine=refine,
+        coarse_sub=1024, coarse_t=2,
+    )
+
+
+def dto(hits):
+    """A query's hits as the DTO carries them: ids in order, 4-decimal scores."""
+    return [(h.chunk.id, round(h.score, 4)) for h in hits]
+
+
+def oracle_check(eng, reqs, results, positions, now) -> int:
+    """Each sampled query's served hits against the exact float64 host scan
+    of the engine's own index, DTO-identical; returns the count checked."""
+    for i in positions:
+        q, e, k = reqs[i]
+        want = eng._search_full_host(q, e, k, 0, now)
+        if dto(results[i]) != dto(want):
+            raise AssertionError(f"query {q!r}: {dto(results[i])} != oracle {dto(want)}")
+    return len(positions)
+
+
 def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
                 sample: int = 8, n_fp: int = 3, fp_sample: int = 4) -> dict:
     from datetime import timedelta
@@ -1475,14 +1594,8 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
     corpus_s = time.perf_counter() - t0
 
     def engine_for(refine: bool):
-        # the bench's headline options (bench.py:392-417), its serving
-        # layout at 1M rows; refine=False is the capacity configuration
-        return RecallEngine(InMemoryIngestionStore(), options=EngineOptions(
-            backend="pallas", embedding_dim=d, recent_window=0, candidate_m=128,
-            bloom_bits=BITS, scan_dtype="int8", capacity_block=max(8192, n // 64),
-            device_exact_cos=True, direct_select=True, refine=refine,
-            coarse_sub=1024, coarse_t=2,
-        ))
+        # refine=False is the capacity configuration
+        return RecallEngine(InMemoryIngestionStore(), options=headline_options(n, refine))
 
     t0 = time.perf_counter()
     engine = engine_for(True)
@@ -1495,39 +1608,16 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
     resident = {"refine": load_index(engine, emb, assign, contents, created_days, records)}
     build_s = time.perf_counter() - t0
     now = EPOCH + timedelta(days=365.0)
-    n_clusters = len(contents)
 
     def make_requests(rseed: int, empty: bool = False, keyword_led: int = 0):
-        """One batch: each query near a cluster center, its text the
-        cluster's token. ``keyword_led``: every such query's vector points
-        nowhere near any cluster (a random direction), so only its words
-        match — the cosine-only coarse certificate cannot hold for it."""
-        r = np.random.default_rng(rseed)
-        reqs = []
-        for i in range(BATCH):
-            c = int(r.integers(n_clusters))
-            qn = r.standard_normal(d).astype(np.float32)
-            if keyword_led and i % keyword_led == 0:
-                q = qn
-            else:
-                q = centers[c] + 0.2 * qn / np.linalg.norm(qn)
-            q = (q / np.linalg.norm(q)).astype(np.float32)
-            reqs.append((f"c{c:05d}x", [] if empty else q, 10))
-        return reqs
-
-    def dto(hits):
-        return [(h.chunk.id, round(h.score, 4)) for h in hits]
+        return corpus_requests(centers, rseed, empty, keyword_led)
 
     checked = 0
 
     def check(eng, reqs, results, positions=None):
         nonlocal checked
-        for i in (range(sample) if positions is None else positions):
-            q, e, k = reqs[i]
-            want = eng._search_full_host(q, e, k, 0, now)
-            if dto(results[i]) != dto(want):
-                raise AssertionError(f"query {q!r}: {dto(results[i])} != oracle {dto(want)}")
-            checked += 1
+        checked += oracle_check(eng, reqs, results,
+                                range(sample) if positions is None else positions, now)
 
     batches = [make_requests(seed + i) for i in range(n_batches)]
     timing: dict = {}
@@ -1754,6 +1844,547 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
     return line
 
 
+# ---------------------------------------------------------------- phase 4b
+
+SNAPSHOT_ROWS = 1 << 17  # the repository bench's restore size (bench.py:1748)
+SNAPSHOT_DOCS = 8        # the corpus's rows, in order, make these documents
+SNAPSHOT_BATCHES = 2
+SNAPSHOT_SAMPLE = 8      # oracle-checked queries a batch
+DELETED_DOC = "doc3"     # the document the rebuild path deletes
+
+
+def snapshot_phase(seed: int, paths: dict) -> dict:
+    """The ``snapshot`` and ``rebuild`` paths on a 2^17-row headline index
+    (refine planes, device-exact cosine; the serve phase's corpus recipe,
+    its rows in order making eight documents of a store, 2^14 rows each).
+
+    snapshot: the source engine serves two batches; ``save_snapshot`` reads
+    its device planes back, ``load_snapshot_full`` maps the archive and
+    ``restore_engine`` must take the slab route into a fresh engine, whose
+    batches must equal the source's DTO for DTO (and the oracle on the
+    sample). A copy of the archive with its error-bound plane zeroed must
+    take the rebuild and still serve the same results.
+    rebuild: one document deleted from the restored engine, a batch served
+    (its tombstones synced), ``rebuild_index`` must compact on the device;
+    the planes must equal those of a fresh index bulk-loaded from the
+    surviving chunks, bit for bit, and both must serve the same DTOs. (A
+    sync re-quantizes the dirty capacity blocks on the host, whose bits
+    differ from the device quantizer's of a full upload, both sound: the
+    document spans whole capacity blocks, so only its own rows are
+    re-quantized.)"""
+    import shutil
+    import tempfile
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    from omni_recall_tpu_torch.index import snapshot
+    from omni_recall_tpu_torch.index.device_index import EPOCH, PLANES
+    from omni_recall_tpu_torch.index.records import DocumentRecord
+    from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
+    from omni_recall_tpu_torch.search.engine import RecallEngine
+
+    n = SNAPSHOT_ROWS
+    options = headline_options(n)
+    emb, assign, contents, created_days, centers = build_corpus(seed, n, DIM)
+    sigs, meta, aux = corpus_records(emb, assign, contents, created_days,
+                                     options.bloom_bits, options.ngram, options.bloom_hashes)
+    store = InMemoryIngestionStore()
+    per_doc = n // SNAPSHOT_DOCS
+    if per_doc % options.capacity_block:
+        raise AssertionError("a document must span whole capacity blocks")
+    for i, c in enumerate(meta):
+        c.document_id = f"doc{i // per_doc}"
+    for k in range(SNAPSHOT_DOCS):
+        store.upsert_document(DocumentRecord(id=f"doc{k}", file_name=f"doc{k}.txt",
+                                             chunk_count=per_doc))
+    store.upsert_chunks(meta)
+    source = RecallEngine(store, options=options)
+    source.device_index.bulk_load(emb, sigs, created_days, meta, aux=aux)
+    source.device_index.device_arrays()
+    torch.cuda.synchronize()
+    now = EPOCH + timedelta(days=365.0)
+    batches = [corpus_requests(centers, seed + 1100 + i) for i in range(SNAPSHOT_BATCHES)]
+    line = {"phase": "snapshot", "rows": n, "dim": DIM, "bloom_bits": BITS,
+            "documents": SNAPSHOT_DOCS, "batch": BATCH, "batches": SNAPSHOT_BATCHES,
+            "oracle_per_batch": SNAPSHOT_SAMPLE, "oracle_checked": 0}
+
+    def serve(eng):
+        out = [eng.search_batch(reqs, now=now) for reqs in batches]
+        for reqs, res in zip(batches, out):
+            line["oracle_checked"] += oracle_check(eng, reqs, res, range(SNAPSHOT_SAMPLE), now)
+        return [[dto(h) for h in res] for res in out]
+
+    def timed(fn):
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    tmp = tempfile.mkdtemp(prefix="omni_snapshot_")
+    try:
+        def snapshot_path():
+            want = serve(source)
+            _, line["save_s"] = timed(lambda: snapshot.save_snapshot(
+                store, tmp, device_index=source.device_index))
+            (restored, aux_r), line["load_s"] = timed(lambda: snapshot.load_snapshot_full(tmp))
+            line["deriv"] = aux_r["meta"]["slabs"]["deriv"]
+            if line["deriv"] != "device":
+                raise AssertionError(f"the save did not read the device planes back: {line}")
+            fast = RecallEngine(restored, options=headline_options(n))
+            line["route"], line["restore_s"] = timed(
+                lambda: snapshot.restore_engine(restored, fast, aux=aux_r))
+            if line["route"] != "slabs":
+                raise AssertionError(f"the restore did not take the slab route: {line}")
+            _, line["upload_s"] = timed(fast.device_index.device_arrays)
+            if serve(fast) != want:
+                raise AssertionError("the restored engine serves other results than the source")
+            # one tampered plane: every error bound zeroed (understated)
+            bad = dict(aux_r)
+            bad["slabs"] = {**aux_r["slabs"], "e1": np.zeros_like(aux_r["slabs"]["e1"])}
+            slow = RecallEngine(restored, options=headline_options(n))
+            line["tampered_route"], line["tampered_restore_s"] = timed(
+                lambda: snapshot.restore_engine(restored, slow, aux=bad))
+            if line["tampered_route"] != "rebuild":
+                raise AssertionError(f"the tampered copy did not take the rebuild: {line}")
+            if serve(slow) != want:
+                raise AssertionError("the rebuilt engine serves other results than the source")
+            return restored, fast
+
+        restored, fast = run_path(paths, "snapshot", 3 * SNAPSHOT_BATCHES, snapshot_path)
+        for key in ("save", "load", "restore", "upload"):
+            line[f"{key}_chunks_per_s"] = n / line[f"{key}_s"]
+
+        def rebuild_path():
+            restored.delete_document(DELETED_DOC)
+            fast.on_document_deleted(DELETED_DOC)
+            before = serve(fast)  # serves the tombstones and syncs them to the card
+            route, line["rebuild_s"] = timed(fast.rebuild_index)
+            line["rebuild_route"] = route
+            if route != "device":
+                raise AssertionError(f"the rebuild did not compact on the device: {line}")
+            survivors = np.asarray([i for i in range(n)
+                                    if meta[i].document_id != DELETED_DOC], dtype=np.int64)
+            fresh = RecallEngine(restored, options=headline_options(n))
+            fresh.device_index.bulk_load(emb[survivors], sigs[survivors],
+                                         created_days[survivors], [meta[i] for i in survivors])
+            a, b = fast.device_index.device_arrays(), fresh.device_index.device_arrays()
+            m = len(survivors)  # pad rows past it differ by design (masked by valid)
+
+            def same(k):
+                x, y = getattr(a, k), getattr(b, k)
+                if x is None or y is None:
+                    return x is None and y is None
+                return bitwise(x, y) if k == "valid" else bitwise(x[:m], y[:m])
+
+            differ = [k for k in PLANES if not same(k)]
+            if differ or fast.device_index.n_rows != m:
+                raise AssertionError(f"rebuilt planes differ from a fresh index: {differ}")
+            after = serve(fast)
+            if after != before or after != serve(fresh):
+                raise AssertionError("the rebuilt index serves other results than the "
+                                     "tombstoned one or a fresh one")
+            line.update(rebuild_rows=len(survivors), rebuild_planes="bitwise",
+                        rebuild_chunks_per_s=len(survivors) / line["rebuild_s"])
+
+        run_path(paths, "rebuild", 3 * SNAPSHOT_BATCHES, rebuild_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    line["paths"] = {k: paths[k] for k in ("snapshot", "rebuild")}
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------- phase 4c
+
+COMPACT_ROWS = 10 * (1 << 20)  # the repository bench's st_10m (bench.py:2136-2197)
+COMPACT_BATCH = 896
+COMPACT_KW_FRAC = 0.75
+COMPACT_BATCHES = 3           # timed; then one more, split
+COMPACT_SAMPLE = 4            # oracle-checked queries a batch
+COMPACT_SLAB = 1 << 20        # rows a check, kernel slice or scan slab holds
+COMPACT_RESCORE_ROWS = 1 << 16  # random rows whose native rescore is held to numpy
+
+
+def compact_exact_scan(dix, reqs, now) -> list:
+    """The exact float64 scan of every row of a compact index for each
+    request, as DTOs: ops/oracle.py's hybrid score over the rows that
+    materialize_raw_rows defines (the native int8 rescore, which its loader
+    holds bit-identical to numpy's materialize-then-rescore chain, and
+    compact_rescore_check to numpy at this shape) plus the recency term, in
+    slabs of rows; each query's top-k by score, created and seq,
+    descending."""
+    import numpy as np
+
+    from omni_recall_tpu_torch.index.device_index import to_micros
+    from omni_recall_tpu_torch.ops import native, oracle
+
+    nq = len(reqs)
+    q = np.stack([np.asarray(e, dtype=np.float32) for _, e, _ in reqs])
+    qn = np.sum(q * q, axis=1, dtype=np.float64)
+    terms = [oracle.query_terms(t) if t.strip() else [] for t, _, _ in reqs]
+    flat = [t.encode("utf-8") for ts in terms for t in ts]
+    term_off = np.zeros(len(flat) + 1, dtype=np.int64)
+    np.cumsum([len(t) for t in flat], out=term_off[1:])
+    q_term_off = np.zeros(nq + 1, dtype=np.int64)
+    np.cumsum([len(ts) for ts in terms], out=q_term_off[1:])
+    ks = [k for _, _, k in reqs]
+    now_us = to_micros(now)
+    kept: list[list] = [[] for _ in range(nq)]
+    for lo in range(0, dix.n_rows, COMPACT_SLAB):
+        rows = np.arange(lo, min(lo + COMPACT_SLAB, dix.n_rows), dtype=np.int64)
+        m = rows.size
+        partial = native.hybrid_rescore_int8(
+            dix.emb8_host, dix.scale_host, dix.raw_norm_sq, dix._arena, dix.content_off,
+            np.tile(rows, nq), np.repeat(np.arange(nq, dtype=np.int64), m), q, qn,
+            b"".join(flat), term_off, q_term_off)
+        if partial is None:
+            raise AssertionError("the native int8 rescore is not available")
+        age = np.maximum(0.0, ((now_us - dix.created_us[rows]).astype(np.float64) / 1e6)
+                         / 86400.0)
+        scores = partial.reshape(nq, m) + oracle.RECENCY_WEIGHT * np.exp(
+            -age / oracle.RECENCY_HALF_LIFE_DAYS)
+        for i in range(nq):
+            kth = np.partition(scores[i], m - ks[i])[m - ks[i]]
+            sel = np.nonzero(scores[i] >= kth)[0]  # ties at the kth stay
+            kept[i].append((rows[sel], scores[i][sel]))
+    out = []
+    for i in range(nq):
+        r = np.concatenate([x for x, _ in kept[i]])
+        v = np.concatenate([y for _, y in kept[i]])
+        order = np.lexsort((-dix.seqs[r], -dix.created_ts[r], -v))[: ks[i]]
+        out.append([(dix.meta[int(x)].id, round(float(y), 4)) for x, y in zip(r[order], v[order])])
+    return out
+
+
+def compact_rescore_check(dix, sampled, now, seed: int) -> dict:
+    """The native int8 rescore, which both the served compact path and
+    compact_exact_scan score with, held bit for bit to plain numpy written
+    from the definitions, for every sampled query: on its served top-k rows
+    and on COMPACT_RESCORE_ROWS random rows of the store. The numpy chain
+    is the rows materialize_raw_rows defines (fl32(int8 * scale)), their
+    f32 products with the query summed in float64, the store's raw_norm_sq
+    as the row's norm, and ops/oracle.py's keyword term on each row's
+    content; with its recency term added, the served hits' exact scores
+    must equal it too."""
+    import numpy as np
+
+    from omni_recall_tpu_torch.index.device_index import to_micros
+    from omni_recall_tpu_torch.ops import native, oracle
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(seed + 3000)
+    slab = np.sort(rng.choice(dix.n_rows, COMPACT_RESCORE_ROWS, replace=False))
+    slab_raw = dix.materialize_raw_rows(slab)
+
+    def contents(rows):
+        return [bytes(dix._arena[dix.content_off[r] : dix.content_off[r + 1]]).decode(
+            "utf-8", errors="surrogatepass") for r in rows]
+
+    slab_contents = contents(slab)
+    now_us = to_micros(now)
+    pairs = 0
+    for (text, emb, _), hits in sampled:
+        q = np.zeros(dix.dim, dtype=np.float32) if emb is None else np.asarray(
+            emb, dtype=np.float32)
+        qn = float(np.sum((q * q).astype(np.float64)))
+        terms = oracle.query_terms(text) if text.strip() else []
+        flat = [x.encode("utf-8") for x in terms]
+        term_off = np.zeros(len(flat) + 1, dtype=np.int64)
+        np.cumsum([len(x) for x in flat], out=term_off[1:])
+        served = np.asarray([h.chunk.chunk_index for h in hits], dtype=np.int64)
+        for rows, raw, texts in ((served, dix.materialize_raw_rows(served), contents(served)),
+                                 (slab, slab_raw, slab_contents)):
+            dot = np.sum(raw * q[None, :], axis=1, dtype=np.float64)
+            ns = dix.raw_norm_sq[rows]
+            ok = (ns > 0.0) & (qn > 0.0)
+            cos = np.zeros(rows.size, dtype=np.float64)
+            cos[ok] = dot[ok] / (np.sqrt(qn) * np.sqrt(ns[ok]))
+            kw_of: dict[str, float] = {}
+            kw = np.asarray([
+                kw_of.setdefault(c, oracle.keyword_score_terms(terms, c)
+                                 if terms and c.strip() else 0.0)
+                for c in texts], dtype=np.float64)
+            want = oracle.COSINE_WEIGHT * cos + oracle.KEYWORD_WEIGHT * kw
+            got = native.hybrid_rescore_int8(
+                dix.emb8_host, dix.scale_host, dix.raw_norm_sq, dix._arena, dix.content_off,
+                rows, np.zeros(rows.size, dtype=np.int64), q[None, :], np.asarray([qn]),
+                b"".join(flat), term_off, np.asarray([0, len(flat)], dtype=np.int64))
+            if got is None:
+                raise AssertionError("the native int8 rescore is not available")
+            bad = np.nonzero(got.view(np.int64) != want.view(np.int64))[0]
+            if bad.size:
+                raise AssertionError(
+                    f"query {text!r}: native int8 rescore of row {int(rows[bad[0]])} is "
+                    f"{got[bad[0]]!r}, numpy {want[bad[0]]!r} ({bad.size} of {rows.size} "
+                    "rows differ)")
+            pairs += rows.size
+            if rows is served:
+                age = np.maximum(0.0, ((now_us - dix.created_us[rows]).astype(np.float64)
+                                       / 1e6) / 86400.0)
+                full = want + oracle.RECENCY_WEIGHT * np.exp(
+                    -age / oracle.RECENCY_HALF_LIFE_DAYS)
+                if [h.score for h in hits] != full.tolist():
+                    raise AssertionError(f"query {text!r}: served scores "
+                                         f"{[h.score for h in hits]} != numpy {full.tolist()}")
+    return {"queries": len(sampled), "slab_rows": int(slab.size), "pairs": pairs,
+            "seconds": time.perf_counter() - t}
+
+
+def compact_plane_check(dix, n_clusters: int) -> dict:
+    """Every device plane of the compact index against the host's columns,
+    slab by slab on the card: the int8 rows against the host emb8 column,
+    the bloom rows against the signature of each row's cluster (the table
+    by the batch signature function, 64 clusters also by the Python
+    one), scale
+    against the host column, err against the derivation from the host
+    rows' exact sums of squares, created against the host days."""
+    import numpy as np
+    import torch
+
+    from omni_recall_tpu_torch.index import compact
+    from omni_recall_tpu_torch.ops import hashing
+
+    dev = dix.device_arrays()
+    contents = compact.cluster_contents(n_clusters)
+    table = hashing.chunk_signatures_batch(contents, dix.bloom_bits, dix.ngram, dix.bloom_hashes)
+    for c in range(0, n_clusters, max(1, n_clusters // 64)):
+        if not np.array_equal(table[c], hashing.chunk_signature(
+                contents[c], dix.bloom_bits, dix.ngram, dix.bloom_hashes)):
+            raise AssertionError(f"cluster {c}: batch and Python signatures differ")
+    cuda = dev.emb.device
+    differ: dict[str, list[int]] = {}
+    t = time.perf_counter()
+    for lo in range(0, dix.n_rows, COMPACT_SLAB):
+        hi = min(lo + COMPACT_SLAB, dix.n_rows)
+        cid, _ = compact.row_ids_np(lo, hi, n_clusters, 4096)
+        rows = torch.from_numpy(dix.emb8_host[lo:hi]).to(cuda)
+        s2 = rows.to(torch.int32).square().sum(dim=1).cpu().numpy().astype(np.int64)
+        scale, err, _ = compact.derive_columns(s2)
+        want = {"emb": rows, "bloom": table[cid], "scale": dix.scale_host[lo:hi], "err": err,
+                "created": dix.created[lo:hi]}
+        if not np.array_equal(scale, dix.scale_host[lo:hi]):
+            differ.setdefault("scale_host", []).append(lo)
+        for name, host in want.items():
+            host = host if isinstance(host, torch.Tensor) else torch.from_numpy(
+                np.ascontiguousarray(host)).to(cuda)
+            if not bitwise(getattr(dev, name)[lo:hi], host):
+                differ.setdefault(name, []).append(lo)
+    if not bool(dev.valid.all()) or dev.valid.shape[0] != dix.n_rows:
+        differ["valid"] = [0]
+    if differ:
+        raise AssertionError(f"compact device planes differ from the host columns at {differ}")
+    return {"planes": ["emb", "bloom", "scale", "err", "created", "valid"], "parity": "bitwise",
+            "slab_rows": COMPACT_SLAB, "check_s": time.perf_counter() - t}
+
+
+def compact_kernel_lines(planes, seed: int) -> dict:
+    """K1, K4 and K5 over the whole compact plane (N = 10 x 2^20, B = 896,
+    W = 64; K1 at the serving layout (1024, t 2), K4 at the rescue layout
+    (512, t 4), K5 at the keyword layout (1024, t 4)), each held bitwise to
+    its plain version slab by slab: the plain version scans each 2^20-row
+    slab (whose slices are the kernel's, indices shifted by the slab's first
+    row) since at 10 x 2^20 rows it would hold scores of every row and
+    query at once. Each line: the kernel's time on the whole plane beside
+    its bound, the plain version's over the ten slabs (one run), and for K1
+    the int8 product alone (``torch._int_mm`` over the ten slabs)."""
+    import torch
+
+    from omni_recall_tpu_torch.ops import scorer
+
+    emb, bloom = planes.emb, planes.bloom
+    (n, d), w, b, s = emb.shape, bloom.shape[1], COMPACT_BATCH, COMPACT_SLAB
+    dev = emb.device
+    g = torch.Generator(device=dev).manual_seed(seed + 17)
+
+    def ri(lo, hi, shape, dtype):
+        return torch.randint(lo, hi, shape, generator=g, device=dev).to(dtype)
+
+    def rf(shape, scale=1.0, offset=0.0):
+        return torch.rand(shape, generator=g, device=dev) * scale + offset
+
+    q8 = ri(-127, 128, (b, d), torch.int8)
+    add_row = rf((1, n), 0.1)
+    add_row[0, rf((n,)) < 0.01] = -1e30  # tombstones
+    scale_row = planes.scale.view(1, n)
+    q_scale, q_bias = rf((b, 1), 1e-3, 1e-3), rf((b, 1), 0.01)
+    # about 24 nonzero keyword weights a query, 1 to 8: the term stays
+    # below its clamp at 1, so the keyword dot's value shows
+    kw_w8 = torch.where(rf((b, 8 * w)) < 24 / (8 * w), ri(1, 9, (b, 8 * w), torch.int8),
+                        torch.zeros((), dtype=torch.int8, device=dev))
+    kw_b = rf((b, 1), 0.05)
+
+    def coarse(fn, lo, hi, sub, t):
+        return fn(emb[lo:hi], q8, add_row[:, lo:hi], scale_row[:, lo:hi], q_scale, q_bias,
+                  t=t, sub=sub)
+
+    def fused(fn, lo, hi, sub, t):
+        return fn(emb[lo:hi], bloom[lo:hi], q8, kw_w8, kw_b, add_row[:, lo:hi],
+                  scale_row[:, lo:hi], q_scale, q_bias, t=t, sub=sub)
+
+    def kw(fn, lo, hi, sub, t):
+        return fn(bloom[lo:hi], kw_w8, kw_b, add_row[:, lo:hi], t=t, sub=sub)
+
+    # name: (call, kernel, plain version, layout (sub, t), its TPU kernel's line, bound)
+    scans = {
+        "coarse_scan": (coarse, scorer.block_topt_int8_coarse,
+                        scorer.block_topt_int8_coarse_plain, (1024, 2), 628,
+                        coarse_bound(n, b, d, 4, b * (n // 1024) * 3 * 8)),
+        "fused_scan": (fused, scorer.block_topt_int8, scorer.block_topt_int8_plain, (512, 4), 824,
+                       bound_ms(n * d + n * w + b * d + b * 8 * w + 8 * n + 12 * b
+                                + b * (n // 512) * 5 * 8, 2.0 * n * b * (d + 8 * w),
+                                INT8_OPS_PER_S)),
+        "kw_scan": (kw, scorer.block_topt_kw_only, scorer.block_topt_kw_only_plain, (1024, 4), 519,
+                    bound_ms(n * w + b * 8 * w + 4 * n + 4 * b + b * (n // 1024) * 5 * 8,
+                             2.0 * n * b * 8 * w, INT8_OPS_PER_S)),
+    }
+
+    def int_mm_slabs():
+        for lo in range(0, n, s):
+            torch._int_mm(q8, emb[lo:lo + s].t())
+
+    library = {"coarse_scan": (
+        time_ms(int_mm_slabs, device_only=True),
+        f"torch._int_mm(q8, emb8[slab].t()) over the {n // s} slabs of {s} rows: the int8 "
+        "cosine product alone")}
+    torch.cuda.empty_cache()
+    lines = {}
+    for name, (call, kern, plain, layout, line_no, (bms, by)) in scans.items():
+        sub = layout[0]
+        kv, ki = call(kern, 0, n, *layout)
+        per = s // sub  # the kernel's slices of one slab
+        ok, err, plain_s = True, 0.0, 0.0
+        for j, lo in enumerate(range(0, n, s)):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            pv, pi = call(plain, lo, lo + s, *layout)
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t
+            pi = torch.where(pi >= 0, pi + lo, pi)
+            part = slice(j * per, (j + 1) * per)
+            ok = ok and bitwise(kv[:, part].contiguous(), pv) and bitwise(
+                ki[:, part].contiguous(), pi)
+            err = max(err, float((kv[:, part] - pv).abs().max()))
+            del pv, pi
+        del kv, ki
+        lines[name] = dict(
+            name=f"{name}[compact]", replaces=f"omni_recall_tpu/ops/pallas_scorer.py:{line_no}",
+            shape=[b, n, d], bloom_bits=8 * w, layout=list(layout),
+            parity=bitwise_parity(ok), parity_by=f"slabs of {s} rows", max_abs_err=err,
+            ms=time_ms(lambda: call(kern, 0, n, *layout), device_only=True),  # noqa: B023
+            plain_ms=plain_s * 1e3, plain_runs=1, bound_ms=bms, bound_by=by,
+            library_ms=library.get(name, (None,))[0], library=library.get(name, (None, "none"))[1])
+        emit({"phase": "kernel", **lines[name]})
+        if not ok:
+            raise AssertionError(f"{name}[compact]: kernel disagrees with its plain version")
+        torch.cuda.empty_cache()
+    return lines
+
+
+def compact_phase(seed: int, paths: dict) -> dict:
+    """The ``compact`` path: the compact 10M store of the repository bench
+    (n = 10 x 2^20, d 768, B 896, kw_frac 0.75, bench.py st_10m) built by
+    ``build_compact_engine`` (host columns by the slab loop, device planes
+    filled on the card), every device plane held bitwise to the host
+    columns, then batches served with a sample of every batch DTO-identical
+    to the exact float64 scan of every row (``compact_exact_scan``) and the
+    native rescore both score with held bit for bit to plain numpy
+    (``compact_rescore_check``); K1, K4 and K5 at this shape
+    (``compact_kernel_lines``)."""
+    import gc
+
+    import torch
+
+    from omni_recall_tpu_torch.index import compact
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    n, b = COMPACT_ROWS, COMPACT_BATCH
+    ticks: list[float] = []
+    t0 = time.perf_counter()
+    engine, make_requests, now, n_clusters = compact.build_compact_engine(
+        n, DIM, checkpoint=lambda: ticks.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    host_ticks = n // (1 << 19) + 1  # one a host slab, one after the derived columns
+    dix = engine.device_index
+    line = {"phase": "compact", "rows": n, "dim": DIM, "bloom_bits": dix.bloom_bits,
+            "batch": b, "kw_frac": COMPACT_KW_FRAC, "n_clusters": n_clusters,
+            "config": "build_compact_engine: pallas int8, coarse (1024, 2), direct selection, "
+                      "select_t_out 32, candidate_m 128, no refine, no DD",
+            "reduced": "none: 10 x 2^20 rows as bench.py st_10m",
+            "host_build_s": ticks[host_ticks - 1] - t0,
+            "device_fill_s": t_end - ticks[host_ticks - 1],
+            "host_store_bytes": int(
+                dix.emb8_host.nbytes + dix.scale_host.nbytes + dix.raw_norm_sq.nbytes
+                + dix.created_us.nbytes + dix.created_ts.nbytes + dix.created.nbytes
+                + dix.seqs.nbytes + len(dix._arena) + dix.content_off.nbytes
+                + dix.valid.nbytes),
+            "device_plane_gib": {k: round(getattr(dix.device_arrays(), k).numel()
+                                          * getattr(dix.device_arrays(), k).element_size()
+                                          / 2**30, 3) for k in ("emb", "bloom")}}
+    line["plane_check"] = compact_plane_check(dix, n_clusters)
+
+    def serve():
+        engine.search_batch(make_requests(seed + 2000, b, COMPACT_KW_FRAC), now=now)  # warm-up
+        batches = [make_requests(seed + 2001 + i, b, COMPACT_KW_FRAC)
+                   for i in range(COMPACT_BATCHES)]
+        lat, out = [], []
+        for reqs in batches:
+            t = time.perf_counter()
+            out.append(engine.search_batch(reqs, now=now))
+            lat.append(time.perf_counter() - t)
+        # where one more batch's time goes
+        reqs = make_requests(seed + 2100, b, COMPACT_KW_FRAC)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ctx = engine._dispatch_device_batch(reqs, 0, now)
+        t_dispatch = time.perf_counter()
+        torch.cuda.synchronize()
+        t_device = time.perf_counter()
+        out.append(engine._finalize_device_batch(ctx))
+        t_final = time.perf_counter()
+        batches.append(reqs)
+        line["breakdown"] = {"dispatch_host_ms": (t_dispatch - t) * 1e3,
+                             "device_wait_ms": (t_device - t_dispatch) * 1e3,
+                             "finalize_host_ms": (t_final - t_device) * 1e3}
+        return batches, out, lat
+
+    batches, out, lat = run_path(paths, "compact", COMPACT_BATCHES + 2, serve, engine.stats)
+    rec = paths["compact"]
+    stats = rec["stats"]
+    line.update(
+        certified_qps=COMPACT_BATCHES * b / sum(lat), p50_batch_ms=statistics.median(lat) * 1e3,
+        batch_ms=[x * 1e3 for x in lat],
+        launches_per_batch={k: rec["launches"][k] / rec["batches"]
+                            for k in ("coarse_scan", "fused_scan", "kw_scan")},
+        # the split batch bypasses search_batch's query count: every
+        # served query is a batch's
+        resolved_share=stats.get("coarse_resolved_total", 0) / (rec["batches"] * b),
+        host_fallbacks=stats.get("host_fallbacks_total", 0), stats=stats)
+    if any(len(hits) != 10 for res in out for hits in res):
+        raise AssertionError("a compact query returned fewer than 10 hits")
+    t = time.perf_counter()
+    sampled = [(reqs[i], res[i]) for reqs, res in zip(batches, out) for i in range(COMPACT_SAMPLE)]
+    want = compact_exact_scan(dix, [r for r, _ in sampled], now)
+    for ((text, _, _), hits), w in zip(sampled, want):
+        if dto(hits) != w:
+            raise AssertionError(f"compact query {text!r}: {dto(hits)} != exact scan {w}")
+    line.update(oracle_checked=len(sampled), oracle_per_batch=COMPACT_SAMPLE,
+                exact_scan_s=time.perf_counter() - t)
+    line["rescore_check"] = compact_rescore_check(dix, sampled, now, seed)
+    line["kernels"] = compact_kernel_lines(dix.device_arrays(), seed)
+    line["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    line["path"] = paths["compact"]
+    emit({k: v for k, v in line.items() if k != "kernels"})
+    del engine, dix, batches, out, sampled
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
 # ---------------------------------------------------------------- main
 
 
@@ -1790,8 +2421,10 @@ def main() -> int:
     paths: dict = {}
     profile = profile_path(paths)
     stages = probe_serve_path(paths)
-    run_path(paths, "server", len(QUERIES), server_phase)
+    run_path(paths, "server", len(QUERIES) + 2, server_phase)
     serve_phase(args.seed, paths)
+    snapshot_phase(args.seed, paths)
+    compact = compact_phase(args.seed, paths)
 
     def entry(name, route_key, source, line, extra=None):
         home = paths[HOME_PATH[route_key]]
@@ -1846,12 +2479,20 @@ def main() -> int:
     rescue = k["refine_rescue"]
     ab_keys = ("library", *PARENT_KEYS)
 
-    def int8_entry(name, route_key, line, keys=()):
+    def int8_entry(name, route_key, line, keys=(), extra=None):
         return entry(name, route_key, int8_src, line,
-                     {key: line[key] for key in ab_keys + keys if key in line})
+                     {**{key: line[key] for key in ab_keys + keys if key in line},
+                      **(extra or {})})
+
+    def compact_extra(route_key):
+        """A kernel's line at the compact shape, with its launches there."""
+        return {"compact": {**compact["kernels"][route_key],
+                            "launches": paths["compact"]["launches"][route_key],
+                            "launches_per_batch": compact["launches_per_batch"][route_key]}}
 
     kernels = [
-        int8_entry("K1 coarse_scan", "coarse_scan", k["coarse_packed"]),
+        int8_entry("K1 coarse_scan", "coarse_scan", k["coarse_packed"],
+                   extra=compact_extra("coarse_scan")),
         int8_entry("K7a coarse_scan pair mode", "coarse_pair", k["coarse_two_reduce"]),
         entry("K2 dd_rows", "dd_rows", "omni_recall_tpu_torch/csrc/dd_rows.cu", k["dd"],
               {key: k["dd"][key] for key in ("sabs_rel_err", "layout", "l2_rows_ms", "gather_ms",
@@ -1866,8 +2507,9 @@ def main() -> int:
                       "max_abs_err", "strided_bitwise", "l2_rows_ms", "gather_ms",
                       *PARENT_KEYS) if key in rescue},
                   "recency_check": k["refine_recency"]}),
-        int8_entry("K4 fused_scan", "fused_scan", k["fused"]),
-        int8_entry("K5 kw_scan", "kw_scan", k["kw"], ("query_tile", "sub512")),
+        int8_entry("K4 fused_scan", "fused_scan", k["fused"], extra=compact_extra("fused_scan")),
+        int8_entry("K5 kw_scan", "kw_scan", k["kw"], ("query_tile", "sub512"),
+                   extra=compact_extra("kw_scan")),
         entry("K6 fp_scan", "fp_scan", fp_src, k["fp_bf16"], {
             "storage": "bf16", "plain_runs": 1,
             **{key: k["fp_bf16"][key] for key in FP_RULE_KEYS},

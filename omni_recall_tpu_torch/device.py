@@ -21,3 +21,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def is_device_error(exc: BaseException) -> bool:
+    """True for a failure of the card or its runtime: out of memory, a
+    failed launch, an illegal address. Such errors pass through every
+    fallback of the port, which exist for bad inputs (a malformed snapshot,
+    a parameter mismatch), not for a bad device."""
+    if isinstance(exc, torch.cuda.OutOfMemoryError):
+        return True
+    accelerator_error = getattr(torch, "AcceleratorError", None)
+    if accelerator_error is not None and isinstance(exc, accelerator_error):
+        return True
+    return isinstance(exc, RuntimeError) and "CUDA" in str(exc)

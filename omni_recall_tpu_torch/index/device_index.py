@@ -31,8 +31,16 @@ grows in ``capacity_block`` row blocks; a capacity change re-uploads
 everything (new tensors — searches in flight keep the old ones), otherwise
 dirty capacity blocks are copied in place into the device planes
 (``Tensor.copy_``, ordered on the current stream after any scan already
-queued). Not in this port yet: snapshot restore, compact bulk indexes and
-the sharded mesh.
+queued). Large host arrays go up in 64 MiB slabs through pinned staging
+buffers (``upload_slabbed``).
+
+Besides ``append``, rows arrive by ``bulk_load``, by ``load_slabs`` (the
+snapshot fast restore, index/snapshot.py: every host mirror adopted from
+persisted arrays, the pre-quantized planes staged for the first upload), by
+``append_from_index`` (the compaction of ``RecallEngine.rebuild_index``:
+derived columns reused, the device planes gathered on the device) and by
+``bulk_load_compact`` (the compact store, index/compact.py: serving-only).
+Not in this port yet: the sharded mesh.
 
 The entry point runs on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -161,6 +169,55 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def upload_slabbed(host, device, slab_bytes: int = 64 << 20, tick=None) -> torch.Tensor:
+    """Upload a large host array (numpy, copy-on-write memmaps included, or
+    a CPU tensor) in ~64 MiB slabs assembled in one device tensor.
+
+    Each slab is copied into one of two pinned staging buffers and sent
+    with a non-blocking copy; a buffer is refilled only once the copy that
+    read it has finished (its event), so the host fill of one slab overlaps
+    the transfer of the last. Page faults and pinned memory cost O(slab)
+    instead of O(total): a memmap pages in one slab at a time. ``tick`` (no
+    arguments) is called before each slab, so a deadline-aware caller can
+    abort at a slab boundary by raising; the host arrays stay intact. On a
+    CPU device the slabs are copied into one CPU tensor."""
+    device = torch.device(device)
+    rows = host.shape[0]
+    row_bytes = max(1, int(np.prod(host.shape[1:], dtype=np.int64)) * host.itemsize)
+    slab = max(1 if slab_bytes < (64 << 20) else 1024, slab_bytes // row_bytes)
+    if rows <= slab:
+        return _host_tensor(host).to(device, copy=True)
+    out = None
+    staging: list[torch.Tensor] = []
+    done: list[torch.cuda.Event] = []
+    try:
+        for k, lo in enumerate(range(0, rows, slab)):
+            if tick is not None:
+                tick()
+            piece = _host_tensor(host[lo : lo + slab])
+            if out is None:
+                out = torch.empty((rows, *piece.shape[1:]), dtype=piece.dtype, device=device)
+            hi = lo + piece.shape[0]
+            if device.type != "cuda":
+                out[lo:hi].copy_(piece)
+                continue
+            b = k % 2
+            if len(staging) <= b:
+                staging.append(torch.empty((slab, *piece.shape[1:]), dtype=piece.dtype,
+                                           pin_memory=True))
+                done.append(torch.cuda.Event())
+            else:
+                done[b].synchronize()  # the copy that last read this buffer is done
+            buf = staging[b][: hi - lo]
+            buf.copy_(piece)
+            out[lo:hi].copy_(buf, non_blocking=True)
+            done[b].record()
+    finally:
+        for event in done:  # no copy may still read a buffer freed below
+            event.synchronize()
+    return out
+
+
 class DeviceIndex:
     def __init__(
         self,
@@ -217,7 +274,15 @@ class DeviceIndex:
         self._update_seq = 0
         self._block_valid = np.zeros((0,), dtype=np.int64)
         self._rows_by_doc: dict[str, list[int]] = {}
+        # compact bulk mode (bulk_load_compact): int8+scale embedding
+        # columns replace the f32 mirrors; serving-only
+        self.host_compact = False
+        self.emb8_host: np.ndarray | None = None
+        self.scale_host: np.ndarray | None = None
         self._device: DeviceArrays | None = None
+        # one-shot pre-quantized planes staged by load_slabs (snapshot fast
+        # restore); consumed by the next full upload
+        self._preconverted: dict[str, np.ndarray] | None = None
         # emb and raw_emb may share storage after an exact-fit bulk_load
         self._raw_aliased = False
         self._dirty_blocks: set[int] = set()
@@ -314,9 +379,16 @@ class DeviceIndex:
             return None
         return (vec.astype(np.float64) / np.sqrt(norm_sq)).astype(np.float32)
 
+    def _require_mutable(self) -> None:
+        if self.host_compact:
+            raise RuntimeError(
+                "compact bulk index is serving-only (bulk_load_compact)"
+            )
+
     def append(self, chunks: list[ChunkRecord]) -> None:
         if not chunks:
             return
+        self._require_mutable()
         with self._lock:
             self._append_locked(chunks)
 
@@ -419,6 +491,157 @@ class DeviceIndex:
         self._count_valid_added(start, end)
         self._mark_dirty(start, end)
 
+    def append_from_index(self, old: "DeviceIndex", chunks: list[ChunkRecord]) -> str:
+        """Compaction fast path for RecallEngine.rebuild_index: fill this
+        (empty) index from ``chunks``, REUSING ``old``'s derived columns —
+        bloom signatures, normalized/raw embeddings, f64 norms, timestamp
+        columns and arena bytes — for every chunk whose record OBJECT is the
+        one ``old`` indexed (in-place embedding updates keep the object and
+        the arrays in sync; a store upsert that replaces a record fails the
+        identity test, so that chunk re-derives through the append path).
+        When every row is reused and ``old``'s device planes are current,
+        the new planes are one on-device ``index_select`` of each of old's
+        planes: no host quantization, no upload.
+
+        Returns the route of the device planes: ``"device"`` (gathered on
+        the device) or ``"upload"`` (built by the next ``device_arrays``).
+        Requirements: ``chunks`` in (created_at, seq) order; this index
+        empty; derivation parameters matching ``old``'s; neither index a
+        compact bulk store (its chunks are not records, so ``old`` cannot be
+        rebuilt from them)."""
+        self._require_mutable()
+        old._require_mutable()
+        nc = len(chunks)
+        if nc == 0:
+            return "upload"
+        params = lambda x: (x.dim, x.bloom_bits, x.ngram, x.bloom_hashes,  # noqa: E731
+                            x.scan_dtype)
+        if params(self) != params(old):
+            raise ValueError("append_from_index requires matching index parameters")
+        with self._lock:
+            if self._n != 0:
+                raise ValueError("append_from_index requires an empty index")
+            self._ensure_capacity(nc)
+
+            src = np.full(nc, -1, dtype=np.int64)
+            with old._lock:
+                row_of, ometa, ovalid = old._row_by_chunk_id, old.meta, old.valid
+                for i, c in enumerate(chunks):
+                    r = row_of.get(c.id)
+                    if r is not None and ometa[r] is c and ovalid[r]:
+                        src[i] = r
+                hit_dst = np.nonzero(src >= 0)[0]
+                hit_src = src[hit_dst]
+                if hit_dst.size:
+                    # gather every reused column while old's arrays are
+                    # stable (the arena-read-under-lock contract)
+                    self.emb[hit_dst] = old.emb[hit_src]
+                    self.raw_emb[hit_dst] = old.raw_emb[hit_src]
+                    self.raw_norm_sq[hit_dst] = old.raw_norm_sq[hit_src]
+                    self.bloom[hit_dst] = old.bloom[hit_src]
+                    self.created[hit_dst] = old.created[hit_src]
+                    self.created_us[hit_dst] = old.created_us[hit_src]
+                    self.created_ts[hit_dst] = old.created_ts[hit_src]
+                    self.seqs[hit_dst] = old.seqs[hit_src]
+                h_start = old.content_off[hit_src]
+                h_len = old.content_off[hit_src + 1] - h_start
+                old_arena = np.frombuffer(old._arena, dtype=np.uint8)
+
+                miss_dst = np.nonzero(src < 0)[0]
+                miss = [chunks[int(i)] for i in miss_dst]
+                d = self._derive_columns(miss) if miss else None
+
+                lens = np.zeros(nc, dtype=np.int64)
+                lens[hit_dst] = h_len
+                if d is not None:
+                    lens[miss_dst] = d["lens"]
+                out_off = np.zeros(nc + 1, dtype=np.int64)
+                np.cumsum(lens, out=out_off[1:])
+                arena = np.empty(int(out_off[-1]), dtype=np.uint8)
+                # hit bytes: sources ascend (rows are in seq order), so
+                # adjacent ranges coalesce into runs — one copy per
+                # tombstone gap. A run is contiguous at BOTH ends: in the
+                # source arena and in the output rows (no interleaved miss).
+                if hit_dst.size:
+                    brk = np.nonzero(
+                        (h_start[1:] != h_start[:-1] + h_len[:-1])
+                        | (hit_dst[1:] != hit_dst[:-1] + 1)
+                    )[0] + 1
+                    run_lo = np.concatenate(([0], brk))
+                    run_hi = np.concatenate((brk, [hit_dst.size]))
+                    for lo, hi in zip(run_lo, run_hi):
+                        start = int(h_start[lo])
+                        o = int(out_off[hit_dst[lo]])
+                        ln = int(h_start[hi - 1] + h_len[hi - 1]) - start
+                        arena[o : o + ln] = old_arena[start : start + ln]
+                del old_arena  # release the export before old's arena may grow
+                if d is not None:
+                    for k, i in enumerate(miss_dst):
+                        e = d["encs"][k]
+                        o = int(out_off[i])
+                        arena[o : o + len(e)] = np.frombuffer(e, dtype=np.uint8)
+
+            # -- mutation outside old's lock (no more old reads) --
+            if d is not None:
+                self.bloom[miss_dst] = d["sigs"]
+                self.created[miss_dst] = d["days"]
+                self.created_us[miss_dst] = d["us"]
+                self.created_ts[miss_dst] = d["ts"]
+                self.seqs[miss_dst] = d["seqs"]
+                if d["dim_ok"]:
+                    rows_ok = miss_dst[np.asarray(d["dim_ok"], dtype=np.int64)]
+                    self.emb[rows_ok] = d["normed"]
+                    self.raw_emb[rows_ok] = d["a"]
+                    self.raw_norm_sq[rows_ok] = d["norm_sq"]
+            self._arena = bytearray(memoryview(arena))
+            self.content_off[: nc + 1] = out_off
+            self.valid[:nc] = True
+            self.meta.extend(chunks)
+            self._row_by_chunk_id.update(zip((c.id for c in chunks), range(nc)))
+            for row, c in enumerate(chunks):
+                self._rows_by_doc.setdefault(c.document_id, []).append(row)
+            self._n = nc
+            self._n_valid = nc
+            self._count_valid_added(0, nc)
+            self._mark_dirty(0, nc)
+
+            # device-side plane compaction: every row reuses an old row and
+            # old's planes are current. Old's tensors stay untouched
+            # (searches in flight on the old index keep their data).
+            if (self.refine == old.refine and self.exact_cos == old.exact_cos
+                    and self.device == old.device and miss_dst.size == 0):
+                with old._lock:
+                    odev = old._device
+                    current = (odev is not None and old._device_cap == old._cap
+                               and not old._dirty_blocks)
+                if current:
+                    self._adopt_compacted_planes(odev, src)
+                    return "device"
+        return "upload"
+
+    def _adopt_compacted_planes(self, odev: DeviceArrays, src: np.ndarray) -> None:
+        """Install this index's device planes as a row gather of ``odev``'s
+        (src[i] = old row of new row i; pad rows gather row 0 and are masked
+        by valid=False). created and valid come up from the host mirrors,
+        which are authoritative for the pad rows."""
+        cap = self._cap
+        idx = np.zeros(cap, dtype=np.int64)
+        idx[: src.shape[0]] = src
+        idx_dev = torch.from_numpy(idx).to(self.device)
+
+        def take(plane):
+            return None if plane is None else plane.index_select(0, idx_dev)
+
+        self._device = DeviceArrays(
+            emb=take(odev.emb), bloom=take(odev.bloom),
+            created=self._put(self.created), valid=self._put(self.valid),
+            scale=take(odev.scale), err=take(odev.err),
+            emb2=take(odev.emb2), scale2=take(odev.scale2), err2=take(odev.err2),
+            raw=take(odev.raw),
+        )
+        self._device_cap = cap
+        self._dirty_blocks.clear()
+
     def bulk_load(
         self,
         emb_normalized: np.ndarray,       # f32 [n, d], rows already L2-normalized (or zero)
@@ -496,6 +719,155 @@ class DeviceIndex:
             self._n_valid = n
             self._count_valid_added(0, n)
             self._mark_dirty(0, n)
+
+    def load_slabs(
+        self,
+        meta: list[ChunkRecord],
+        *,
+        emb_norm: np.ndarray,      # f32 [n, d] normalized (or zero) rows
+        raw_emb: np.ndarray,       # f32 [n, d] raw mirror (exact rescore)
+        raw_norm_sq: np.ndarray,   # f64 [n]
+        bloom: np.ndarray,         # u8 [n, W]
+        created: np.ndarray,       # f32 [n] days
+        created_us: np.ndarray,    # i64 [n] exact micros
+        created_ts: np.ndarray,    # f64 [n] timestamp() mirror
+        seqs: np.ndarray,          # i64 [n]
+        lower_arena: bytes,        # concatenated lowercased UTF-8 contents
+        lower_off: np.ndarray,     # i64 [n + 1]
+        converted: dict[str, np.ndarray] | None = None,
+    ) -> None:
+        """Snapshot fast-restore injection (index/snapshot.py): installs
+        EVERY host mirror from persisted arrays — no hashing, normalization,
+        quantization or per-chunk work. ``converted`` carries the
+        pre-quantized planes (``_QUANT_PLANES`` keys); the first device
+        upload consumes them instead of re-quantizing.
+
+        CONTRACT: arrays mutually consistent and derived with this index's
+        parameters (the snapshot layer checks a sample before calling and
+        falls back to the rebuild otherwise); rows in (created_at, seq)
+        order; the index empty. The arrays are ADOPTED as the index storage
+        (capacity == n; the next append grows by capacity blocks as usual).
+        Copy-on-write memmaps work as they are: restore pays page-in only
+        for rows a later rescore or upload touches, and writes never reach
+        the snapshot files."""
+        self._require_mutable()
+        n = len(meta)
+        with self._lock:
+            if self._n != 0:
+                raise ValueError("load_slabs requires an empty index")
+            if not (
+                n == emb_norm.shape[0] == bloom.shape[0] == created.shape[0]
+                == raw_emb.shape[0] == seqs.shape[0]
+            ):
+                raise ValueError("load_slabs arrays must have matching rows")
+            if bloom.shape[1] != self.bloom_bits // 8 or emb_norm.shape[1] != self.dim:
+                raise ValueError("slab geometry mismatch")
+            self.emb = emb_norm
+            self.bloom = bloom
+            self.created = np.asarray(created, dtype=np.float32)
+            self.valid = np.ones(n, dtype=bool)
+            self.raw_emb = raw_emb
+            self._raw_aliased = False
+            self.raw_norm_sq = np.asarray(raw_norm_sq, dtype=np.float64)
+            self.created_us = np.asarray(created_us, dtype=np.int64)
+            self.created_ts = np.asarray(created_ts, dtype=np.float64)
+            self.seqs = np.asarray(seqs, dtype=np.int64)
+            self._arena = bytearray(lower_arena)
+            self.content_off = np.array(lower_off, dtype=np.int64)
+            self.meta.extend(meta)
+            self._row_by_chunk_id.update(zip((c.id for c in meta), range(n)))
+            for row, c in enumerate(meta):
+                self._rows_by_doc.setdefault(c.document_id, []).append(row)
+            self._cap = n
+            self._device = None
+            self._device_cap = -1
+            self._dirty_blocks.clear()
+            self._n = n
+            self._n_valid = n
+            nb = (n + VALID_BLOCK - 1) // VALID_BLOCK
+            self._block_valid = np.zeros(max(nb, 1), dtype=np.int64)
+            self._count_valid_added(0, n)
+            if converted is not None:
+                self._preconverted = dict(converted)
+
+    def bulk_load_compact(
+        self,
+        *,
+        emb8: np.ndarray,         # i8 [n, d] — the embedding column itself
+        scale: np.ndarray,        # f32 [n] dequant scales
+        raw_norm_sq: np.ndarray,  # f64 [n] (see index/compact.py soundness)
+        created_days: np.ndarray, # f32 [n]
+        created_us: np.ndarray,   # i64 [n]
+        created_ts: np.ndarray,   # f64 [n]
+        arena: bytes,             # lowercased contents, concatenated
+        content_off: np.ndarray,  # i64 [n+1]
+        doc_id: str,
+        device: DeviceArrays,     # pre-built device planes (same bits)
+    ) -> None:
+        """Compact bulk injection for very large corpora (index/compact.py):
+        the host keeps int8+scale embedding columns, timestamp columns and
+        the content arena — ~850 B/chunk instead of ~6 KB — and chunk
+        metadata is a LAZY CompactMeta sequence. The device planes come in
+        pre-built (generated on the device from the same integer recipe as
+        the host columns, rows_np / rows_torch), so no multi-GB embedding
+        transfer crosses the link.
+
+        The index becomes SERVING-ONLY: append, update_embedding,
+        append_from_index, load_slabs and snapshots raise; delete is a no-op
+        (no id map). Serving reads valid and the window (real columns), the
+        arena (native keyword rescore), created_us/_ts and seqs (recency and
+        tie-breaks), materialize_raw_rows (exact f64 cosine of selected
+        rows) and meta[row] for the hits."""
+        from omni_recall_tpu_torch.index.compact import CompactMeta
+
+        n = int(emb8.shape[0])
+        with self._lock:
+            if self._n != 0:
+                raise ValueError("bulk_load_compact requires an empty index")
+            if emb8.shape[1] != self.dim:
+                raise ValueError("emb8 dim mismatch")
+            if device.emb.shape[0] != n or device.emb.device.type != self.device.type:
+                raise ValueError("device planes must hold the n rows on this index's device")
+            self.host_compact = True
+            self.emb8_host = np.ascontiguousarray(emb8)
+            self.scale_host = np.asarray(scale, dtype=np.float32)
+            # poison the f32 mirrors: any code path that still reads them
+            # under compact mode must fail loudly, not serve zeros
+            self.emb = None
+            self.raw_emb = None
+            self.bloom = None
+            self.raw_norm_sq = np.asarray(raw_norm_sq, dtype=np.float64)
+            self.created = np.asarray(created_days, dtype=np.float32)
+            self.created_us = np.asarray(created_us, dtype=np.int64)
+            self.created_ts = np.asarray(created_ts, dtype=np.float64)
+            self.seqs = np.arange(n, dtype=np.int64)
+            self.valid = np.ones(n, dtype=bool)
+            self._arena = bytearray(arena)
+            self.content_off = np.asarray(content_off, dtype=np.int64)
+            # the arena bytearray is shared (no copy): compact mode never
+            # appends, so it never reallocates under a reader
+            self.meta = CompactMeta(
+                doc_id, self.emb8_host, self.scale_host, self._arena,
+                self.content_off, self.created_us, to_micros(EPOCH),
+            )
+            self._cap = n
+            self._n = n
+            self._n_valid = n
+            nb = (n + VALID_BLOCK - 1) // VALID_BLOCK
+            self._block_valid = np.zeros(max(nb, 1), dtype=np.int64)
+            self._count_valid_added(0, n)
+            # adopt the caller's planes: the sync path short-circuits
+            # (capacity matches, no dirty blocks)
+            self._device = device
+            self._device_cap = n
+            self._dirty_blocks.clear()
+
+    def materialize_raw_rows(self, rows: np.ndarray) -> np.ndarray:
+        """Compact-mode exact-rescore gather: f32 rows for the selected
+        candidates, fl32(q8 * scale) — exactly the embedding column the
+        compact store defines (index/compact.py soundness note)."""
+        sel = self.emb8_host[rows]
+        return sel.astype(np.float32) * self.scale_host[rows, None]
 
     @classmethod
     def from_numpy_planes(
@@ -592,6 +964,7 @@ class DeviceIndex:
         return index
 
     def update_embedding(self, chunk_id: str, embedding: list[float] | None) -> bool:
+        self._require_mutable()
         with self._lock:
             row = self._row_by_chunk_id.get(chunk_id)
             if row is None or not self.valid[row]:
@@ -663,7 +1036,7 @@ class DeviceIndex:
     # ---- device sync ----
 
     def _put(self, host) -> torch.Tensor:
-        return _host_tensor(host).to(self.device, copy=True)
+        return upload_slabbed(host, self.device)
 
     # full uploads at/above this row count quantize (or round to bf16) ON
     # DEVICE; below it the host quantizer (ops/quantize.py) keeps small
@@ -706,7 +1079,13 @@ class DeviceIndex:
     def _full_upload(self) -> None:
         raw_dev = None
         large = self._cap >= self._DEVICE_QUANTIZE_MIN_ROWS
-        if large and self.scan_dtype == "int8":
+        pre = self._preconverted
+        if pre is not None and pre["emb"].shape[0] == self._cap:
+            # snapshot restore: the staged planes, no re-quantization
+            converted = {k: self._put(v) for k, v in pre.items()}
+            if self.exact_cos:
+                raw_dev = self._put(self.raw_emb)
+        elif large and self.scan_dtype == "int8":
             up = self._put(self.emb)
             converted = device_quantize(up, refine=self.refine)
             if self.exact_cos:
@@ -719,6 +1098,7 @@ class DeviceIndex:
                 converted = {k: self._put(v) for k, v in self._convert_host(self.emb).items()}
             if self.exact_cos:
                 raw_dev = self._put(self.raw_emb)
+        self._preconverted = None
         self._device = DeviceArrays(
             bloom=self._put(self.bloom), created=self._put(self.created),
             valid=self._put(self.valid), raw=raw_dev, **converted,

@@ -36,8 +36,8 @@ also serves pallas f32 scans beyond K6's extraction budget) and ``oracle``
 at construction, naming its ROADMAP.md item.
 
 Invariants this port preserves, word for word from the repository's working
-notes ("Invariants to preserve"; the sharded and compact paths they name
-are not in this port):
+notes ("Invariants to preserve"; the sharded path they name is not in
+this port):
 
 - Exactness = runtime certificate (`exact kth > max excluded upper bound`);
   any device-side approximation MUST keep scores sound UPPER bounds (see
@@ -74,7 +74,7 @@ are not in this port):
   |norm − 1| + the raw_norm_sq shortcut — re-derive that bound before
   changing scale/S2 construction. Host and device planes MUST come from
   the same integer recipe (`rows_np`/`rows_jnp` are bit-identical
-  mirrors); `install_device_planes` callers own the same contract.
+  mirrors); `bulk_load_compact` callers own the same contract.
 - Every DD consumer must go through `exact_cos.dd_rows` (backend
   dispatcher): single-device and sharded paths must produce the same
   bits per backend (tools/tpu_sharded_check.py asserts it on chip).
@@ -356,6 +356,45 @@ class RecallEngine:
         with self.mutation_lock:
             if self.device_index is not None:
                 self.device_index.delete_document(document_id)
+
+    def rebuild_index(self) -> str:
+        """Shadow rebuild + atomic swap: build a fresh device index from the
+        store's current chunks (compacting tombstones; unchanged records
+        reuse the old index's derived columns and, when every row is reused,
+        its device planes through one on-device gather — see
+        DeviceIndex.append_from_index), upload it, then swap it in. Searches
+        in flight keep the old index and its tensors, which nothing writes
+        to after the swap, so there is no torn state.
+
+        Holds ``mutation_lock`` across the store read, the build and the
+        swap, so a concurrent ingest lands either in the store before the
+        read or in the new index after the swap. Returns the route of the
+        new device planes (``"device"`` or ``"upload"``), ``"none"`` without
+        an index. A compact bulk index is serving-only: its rebuild raises
+        RuntimeError and leaves it in place."""
+        with self.mutation_lock:
+            if self.device_index is None:
+                return "none"
+            old = self.device_index
+            shadow = DeviceIndex(
+                old.dim,
+                capacity_block=self.options.capacity_block,
+                bloom_bits=old.bloom_bits,
+                ngram=old.ngram,
+                bloom_hashes=old.bloom_hashes,
+                scan_dtype=old.scan_dtype,
+                refine=old.refine,
+                exact_cos=old.exact_cos,
+                device=old.device,
+            )
+            chunks: list[ChunkRecord] = []
+            for doc in self.store.list_documents(2**31 - 1):
+                chunks.extend(self.store.get_chunks_by_document_id(doc.id))
+            chunks.sort(key=lambda c: c.seq)
+            route = shadow.append_from_index(old, chunks)
+            shadow.device_arrays()  # upload before the swap so search never waits
+            self.device_index = shadow
+            return route
 
     # refine width ceiling: the refine gather grows with m, and beyond this
     # width the escalation path is rare anyway (search/engine.py)
@@ -828,19 +867,30 @@ class RecallEngine:
         rec = np.exp(-age / oracle.RECENCY_HALF_LIFE_DAYS)
 
         partial = None
+        # compact bulk indexes (index/compact.py) hold int8+scale rows: the
+        # native int8 variant dequantizes the candidates in its own scratch,
+        # bit-identical to materialize_raw_rows + the numpy chain below
+        compact = dix.host_compact
         if dix.dim <= 8192 and native.rescore_available():
             terms_blob, term_off, q_term_off = self._flat_terms(term_lists)
             with dix._lock:  # arena stability (appends reallocate)
-                partial = native.hybrid_rescore(
-                    dix.raw_emb, dix.raw_norm_sq, dix._arena, dix.content_off,
-                    rows, owner, q_matrix, q_norms, terms_blob, term_off,
-                    q_term_off,
-                )
+                if compact:
+                    partial = native.hybrid_rescore_int8(
+                        dix.emb8_host, dix.scale_host, dix.raw_norm_sq,
+                        dix._arena, dix.content_off, rows, owner, q_matrix,
+                        q_norms, terms_blob, term_off, q_term_off,
+                    )
+                else:
+                    partial = native.hybrid_rescore(
+                        dix.raw_emb, dix.raw_norm_sq, dix._arena, dix.content_off,
+                        rows, owner, q_matrix, q_norms, terms_blob, term_off,
+                        q_term_off,
+                    )
         if partial is not None:
             scores = partial + oracle.RECENCY_WEIGHT * rec
         else:
             kw_term = self._kw_scores_flat(rows, owner, term_lists, dix)
-            raw = dix.raw_emb[rows]
+            raw = dix.materialize_raw_rows(rows) if compact else dix.raw_emb[rows]
             dot = np.sum(raw * q_matrix[owner], axis=1, dtype=np.float64)
             ns = dix.raw_norm_sq[rows]
             qn = q_norms[owner]

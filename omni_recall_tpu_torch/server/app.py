@@ -5,10 +5,12 @@ Mirrors the reference's Program.cs + Endpoints/: DI wiring by configuration
 (provider switches, Program.cs:40-69), the document and recall routes
 (DocumentEndpoints.cs, RecallEndpoints.cs), /health (Program.cs:104-115),
 /metrics, CORS, and the global exception -> ProblemDetails handler
-(server/http.py). Chat, train, snapshot, swagger and the UI page wait for
-later slices: their routes are registered with the reference's methods and
-paths and answer a 501 problem that names their ROADMAP.md item. The engine
-runs on CUDA unless ``device="cpu"`` is passed.
+(server/http.py), and snapshot persistence: ``Storage:SnapshotDir``
+restores the store and the device index at startup, ``POST /api/snapshot``
+saves both (index/snapshot.py). Chat, train, swagger and the UI page wait
+for later slices: their routes are registered with the reference's methods
+and paths and answer a 501 problem that names their ROADMAP.md item. The
+engine runs on CUDA unless ``device="cpu"`` is passed.
 
 ``build_app`` accepts overrides for every dependency so tests can boot the
 whole app in-process with fakes — the reference's WebApplicationFactory
@@ -43,8 +45,6 @@ NOT_PORTED_ROUTES = (
     ("POST", "/api/documents/train", "Embedder training",
      '(ROADMAP.md, "Local models")'),
     ("POST", "/api/chat", "Chat", '(ROADMAP.md, "Host-only providers and routes")'),
-    ("POST", "/api/snapshot", "Snapshots",
-     '(ROADMAP.md, "Snapshot, compact store and rebuild")'),
     ("GET", "/swagger/v1/swagger.json", "The OpenAPI document",
      '(ROADMAP.md, "Host-only providers and routes")'),
     ("GET", "/swagger", "The Swagger UI", '(ROADMAP.md, "Host-only providers and routes")'),
@@ -95,11 +95,6 @@ class OmniRecallApp(WsgiApp):
                 "Ai:Provider=Local (the on-device chat decoder) is not ported yet "
                 '(ROADMAP.md, "Local models"); leave it unset'
             )
-        if (config.storage.snapshot_dir or "").strip():
-            raise NotImplementedError(
-                "Storage:SnapshotDir (snapshot restore/save) is not ported yet "
-                '(ROADMAP.md, "Snapshot, compact store and rebuild"); leave it unset'
-            )
         self.store = store if store is not None else InMemoryIngestionStore()
 
         if raw_store is not None:
@@ -139,6 +134,14 @@ class OmniRecallApp(WsgiApp):
                 "scan. Align the two settings.",
                 config.embeddings.dim, config.engine.embedding_dim,
             )
+        # snapshot restore: load the archived store and device index before
+        # any service wiring. The device-slab fast path skips bloom hashing
+        # and re-quantization; a malformed snapshot logs and boots empty
+        # (serving must come up regardless), a failure of the card raises.
+        self.snapshot_dir = (config.storage.snapshot_dir or "").strip() or None
+        self.restore_route = None
+        if self.snapshot_dir:
+            self._restore_snapshot(Path(self.snapshot_dir))
         self.search_executor = None
         if config.engine.coalesce_window_ms > 0 and config.engine.backend != "oracle":
             from omni_recall_tpu_torch.search.coalesce import CoalescingSearchExecutor
@@ -186,6 +189,7 @@ class OmniRecallApp(WsgiApp):
         router.add("POST", "/api/recall/search", self._search_recall)
         router.add("GET", "/health", self._health)
         router.add("GET", "/metrics", self._metrics)
+        router.add("POST", "/api/snapshot", self._save_snapshot)
         origins = [
             o.strip()
             for o in (config.cors.allowed_origins_csv or "").split(",")
@@ -196,6 +200,53 @@ class OmniRecallApp(WsgiApp):
         super().__init__(
             router, allowed_origins=origins,
             max_body_bytes=max(1, config.ingestion.max_upload_bytes) + (64 << 10),
+        )
+
+    def _restore_snapshot(self, path: Path) -> None:
+        from omni_recall_tpu_torch.device import is_device_error
+        from omni_recall_tpu_torch.index import snapshot as snap
+
+        log = logging.getLogger(__name__)
+        try:
+            if not snap.snapshot_exists(path):
+                return
+            restored, aux = snap.load_snapshot_full(path)
+            with restored._lock:
+                self.store.bulk_restore(
+                    list(restored._documents.values()), restored._chunks, restored._seq,
+                )
+            self.restore_route = snap.restore_engine(self.store, self.engine, aux=aux)
+            log.info("restored snapshot from %s (%d documents, %s)", path,
+                     len(self.store.list_documents(2**31 - 1)), self.restore_route)
+        except Exception as exc:
+            if is_device_error(exc):
+                raise
+            log.exception("snapshot restore from %s failed; starting empty", path)
+
+    def _save_snapshot(self, request: Request) -> Response:
+        """POST /api/snapshot — persist the store and the device-index slabs
+        atomically to Storage:SnapshotDir. Holds the engine's mutation lock
+        so the store view and the gathered slabs are one consistent state; a
+        restart with the same configuration restores by the slab fast path."""
+        if not self.snapshot_dir:
+            return Response.problem(
+                "Snapshots not configured",
+                "Set Storage:SnapshotDir to enable snapshot persistence.",
+                409,
+            )
+        from omni_recall_tpu_torch.index import snapshot as snap
+
+        with self.engine.mutation_lock:
+            snap.save_snapshot(self.store, self.snapshot_dir,
+                               device_index=self.engine.device_index)
+        docs = self.store.list_documents(2**31 - 1)
+        return Response.json(
+            {
+                "path": str(Path(self.snapshot_dir) / "snapshot.d"),
+                "documents": len(docs),
+                "chunks": sum(d.chunk_count for d in docs),
+            },
+            200,
         )
 
     # -- documents (DocumentEndpoints.cs) --

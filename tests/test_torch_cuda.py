@@ -612,3 +612,103 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     args[12] = args[12].to(torch.int64)  # rows must be int32
     with pytest.raises(ValueError, match="rows"):
         refine._refine_dispatch(*args)
+
+
+# ---- the compact store's shapes (W = 64: 512 bloom bits) and its device paths ----
+
+
+@pytest.mark.parametrize("b", [1, 45, 896])
+def test_scans_at_512_bloom_bits(dev, b):
+    """K1 at the compact engine's layout (sub 1024, t 2) and batch (896),
+    K4 at its rescue layout and K5 at its keyword layout, all over W = 64
+    bloom bytes (the 512-bit compact index; the W % 64 == 0 load path at its
+    edge): bitwise against their plain versions."""
+    o = _operands(dev, 16384, 768, b, 64, seed=5, kw_nonzero=24)
+    coarse = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
+    fused = [o[k] for k in ("emb8", "bloom", "q8", "kw_w8", "kw_b", "add_row", "scale_row",
+                            "q_scale", "q_bias")]
+    kw = [o[k] for k in ("bloom", "kw_w8", "kw_b", "add_row")]
+    for kern, plain, args, t, sub in (
+        (scorer.block_topt_int8_coarse, scorer.block_topt_int8_coarse_plain, coarse, 2, 1024),
+        (scorer.block_topt_int8, scorer.block_topt_int8_plain, fused, 4, 512),
+        (scorer.block_topt_kw_only, scorer.block_topt_kw_only_plain, kw, 4, 1024),
+    ):
+        kv, ki = kern(*args, t=t, sub=sub)
+        pv, pi = plain(*args, t=t, sub=sub)
+        assert _same(kv, pv) and _same(ki, pi), kern.__name__
+
+
+@pytest.mark.parametrize("lo", [0, (1 << 24) + 77, (1 << 32) - (1 << 15)])
+def test_rows_torch_on_the_card_equals_rows_np(dev, lo):
+    from omni_recall_tpu_torch.index import compact
+
+    n_clusters = 512
+    center8, noise8 = compact.make_tables(n_clusters, 768)
+    got = compact.rows_torch(lo, 1 << 15, torch.from_numpy(center8).to(dev),
+                             torch.from_numpy(noise8).to(dev), n_clusters, noise8.shape[0])
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), torch.from_numpy(compact.rows_np(lo, lo + (1 << 15),
+                                                                   center8, noise8)))
+
+
+def test_upload_slabbed_through_pinned_staging(dev):
+    """Slabs through the two pinned staging buffers, ticked at each slab,
+    land bitwise; a copy-on-write memmap goes the same way."""
+    import numpy as np
+
+    from omni_recall_tpu_torch.index.device_index import upload_slabbed
+
+    host = np.random.default_rng(1).integers(-127, 128, (10000, 768), dtype=np.int8)
+    ticks = []
+    out = upload_slabbed(host, dev, slab_bytes=768 * 999, tick=lambda: ticks.append(1))
+    assert out.device.type == "cuda" and len(ticks) == 11
+    assert torch.equal(out.cpu(), torch.from_numpy(host))
+
+
+def test_restore_through_cuda_tensors_takes_the_fast_path(dev, tmp_path):
+    """A snapshot of an int8 engine with the refine and raw planes on the
+    card restores into a fresh engine on the card by the slab route; the
+    uploaded planes equal the source's and the searches agree."""
+    import random
+    from datetime import datetime, timedelta, timezone
+
+    from omni_recall_tpu_torch.config import EngineOptions
+    from omni_recall_tpu_torch.index import snapshot
+    from omni_recall_tpu_torch.index.records import ChunkRecord, DocumentRecord
+    from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
+    from omni_recall_tpu_torch.models import hash_embedder
+    from omni_recall_tpu_torch.search.engine import RecallEngine
+
+    t0 = datetime(2026, 8, 1, tzinfo=timezone.utc)
+    rng = random.Random(3)
+    words = ["".join(rng.choices("abcdefghij", k=5)) for _ in range(40)]
+    store = InMemoryIngestionStore()
+    store.upsert_document(DocumentRecord(id="d", file_name="d.txt"))
+    chunks = [ChunkRecord(id=f"d:{i:05d}", document_id="d", chunk_index=i,
+                          content=" ".join(rng.choices(words, k=8)),
+                          embedding=hash_embedder.embed_text(f"row {i}", 64),
+                          created_at_utc=t0 + timedelta(minutes=i)) for i in range(3000)]
+    store.upsert_chunks(chunks)
+    opts = dict(backend="pallas", scan_dtype="int8", embedding_dim=64, capacity_block=1024,
+                candidate_m=32, bloom_bits=512, recent_window=0, refine=True,
+                device_exact_cos=True, direct_select=True)
+    src = RecallEngine(store, options=EngineOptions(**opts))
+    src.on_chunks_upserted(chunks, new=True)
+    src.device_index.device_arrays()
+    snapshot.save_snapshot(store, tmp_path, device_index=src.device_index)
+    restored, aux = snapshot.load_snapshot_full(tmp_path)
+    assert aux["meta"]["slabs"]["deriv"] == "device"
+    eng = RecallEngine(restored, options=EngineOptions(**opts))
+    assert snapshot.restore_engine(restored, eng, aux=aux) == "slabs"
+    a, b = src.device_index.device_arrays(), eng.device_index.device_arrays()
+    n = len(chunks)
+    for name in ("emb", "scale", "err", "emb2", "scale2", "err2", "bloom", "created", "raw"):
+        assert torch.equal(getattr(a, name)[:n], getattr(b, name)[:n]), name
+    now = t0 + timedelta(days=3)
+    reqs = [(" ".join(rng.choices(words, k=2)), hash_embedder.embed_text(f"q{i}", 64), 5)
+            for i in range(32)]
+
+    def dto(batch):
+        return [[(h.chunk.id, round(h.score, 4)) for h in hits] for hits in batch]
+
+    assert dto(eng.search_batch(reqs, now=now)) == dto(src.search_batch(reqs, now=now))

@@ -228,13 +228,12 @@ def test_bf16_scan_storage_serves():
 @pytest.mark.parametrize("method, path, title", [
     ("POST", "/api/documents/train", "Local models"),
     ("POST", "/api/chat", "Host-only providers and routes"),
-    ("POST", "/api/snapshot", "Snapshot, compact store and rebuild"),
     ("GET", "/swagger/v1/swagger.json", "Host-only providers and routes"),
     ("GET", "/swagger", "Host-only providers and routes"),
     ("GET", "/", "Host-only providers and routes"),
 ])
 def test_unported_routes_answer_501_naming_their_roadmap_item(method, path, title):
-    """The reference's six routes the port does not serve yet are registered
+    """The reference's five routes the port does not serve yet are registered
     with its methods and paths: each answers a 501 problem naming its
     ROADMAP.md item, never 404 or 405 (POST /api/documents/train must not
     fall through to /api/documents/{document_id})."""
@@ -255,3 +254,78 @@ def test_local_chat_provider_not_ported_raises():
         tbuild(config, device="cpu")
     remote = tload(settings_file=None, env={}, overrides={**OVERRIDES, "Ai:Provider": "Remote"})
     assert tbuild(remote, device="cpu").config.ai.provider == "Remote"
+
+
+def _snapshot_app(snapshot_dir, overrides=OVERRIDES):
+    config = tload(settings_file=None, env={}, overrides={
+        **overrides, "Storage:SnapshotDir": str(snapshot_dir)})
+    return tbuild(config, device="cpu")
+
+
+def test_snapshot_route_answers_409_without_a_directory():
+    """POST /api/snapshot answers the reference's 409 problem when no
+    Storage:SnapshotDir is configured."""
+    client = TClient(tbuild(tload(settings_file=None, env={}, overrides=OVERRIDES),
+                            device="cpu"))
+    resp = client.post("/api/snapshot", json_body={})
+    assert resp.status == 409
+    body = resp.json()
+    assert body["status"] == 409 and "Storage:SnapshotDir" in body["detail"]
+
+
+def test_snapshot_route_saves_and_a_restart_restores(tmp_path):
+    """POST /api/snapshot saves the store and the device slabs (200 with
+    path, documents and chunks); a second app on the same directory restores
+    the same documents and chunks through the slab fast path and answers
+    the same searches."""
+    app = _snapshot_app(tmp_path / "snap")
+    assert app.restore_route is None  # nothing to restore yet
+    client = TClient(app)
+    for name, data in DOCS:
+        assert client.upload("/api/documents/upload", filename=name, data=data).status == 201
+    before = [client.post("/api/recall/search", json_body={"query": q, "topK": 3}).json()
+              for q in QUERIES]
+    resp = client.post("/api/snapshot", json_body={})
+    assert resp.status == 200
+    body = resp.json()
+    chunks = sum(d.chunk_count for d in app.store.list_documents(100))
+    assert body == {"path": str(tmp_path / "snap" / "snapshot.d"),
+                    "documents": len(DOCS), "chunks": chunks}
+    assert chunks > len(DOCS)
+
+    again = _snapshot_app(tmp_path / "snap")
+    assert again.restore_route == "slabs"
+    assert len(again.store.list_documents(100)) == len(DOCS)
+    assert again.engine.device_index.n_rows == chunks
+    client2 = TClient(again)
+    docs = client2.get("/api/documents").json()
+    assert sorted(d["fileName"] for d in docs) == sorted(name for name, _ in DOCS)
+    after = [client2.post("/api/recall/search", json_body={"query": q, "topK": 3}).json()
+             for q in QUERIES]
+    assert after == before
+
+
+def test_snapshot_restore_boots_empty_on_a_malformed_archive(tmp_path):
+    (tmp_path / "snapshot.d").mkdir()
+    (tmp_path / "snapshot.d" / "meta.json").write_text("{not json")
+    app = _snapshot_app(tmp_path)
+    assert app.restore_route is None and app.store.list_documents(10) == []
+
+
+def test_snapshot_restore_raises_on_a_device_error(tmp_path, monkeypatch):
+    """A failure of the card during the restore is not a malformed archive:
+    the app does not boot empty over it."""
+    import torch
+
+    from omni_recall_tpu_torch.index import snapshot as snap
+
+    app = _snapshot_app(tmp_path)
+    TClient(app).upload("/api/documents/upload", filename=DOCS[0][0], data=DOCS[0][1])
+    assert TClient(app).post("/api/snapshot", json_body={}).status == 200
+
+    def oom(*args, **kwargs):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory")
+
+    monkeypatch.setattr(snap, "restore_engine", oom)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        _snapshot_app(tmp_path)
