@@ -82,7 +82,13 @@ Phases, one JSON line each:
                 process on the card (Backend=pallas, int8, Refine=true,
                 DirectSelect=true, Hash embeddings, Storage:SnapshotDir in
                 a temporary directory): three uploads, five searches, each
-                equal to the oracle-backend response; then POST
+                equal to the oracle-backend response; POST /api/chat twice:
+                through an app sharing the store and engine with a scripted
+                chat client injected as its chat_router (the answer's
+                citations must be the recall's [1] and [2]), and through the
+                default remote chain, which has no keys and must answer the
+                reference's recall-only fallback; GET
+                /swagger/v1/swagger.json, /swagger and /; then POST
                 /api/snapshot, and a second app on the same directory must
                 restore the same documents and chunks by the slab route and
                 answer a search as the first did.
@@ -117,19 +123,43 @@ Phases, one JSON line each:
                 one document is deleted from the restored engine and
                 ``rebuild_index`` must compact its planes on the device,
                 bitwise equal to a fresh index of the surviving chunks. Save,
-                load, restore, upload and rebuild seconds and chunks/s.
+                load, restore, upload and rebuild seconds and chunks/s. Then
+                the rebuild's stages on the restored store
+                (``omni_recall_tpu_torch.tools.probe_rebuild``, path
+                ``probe_rebuild``: fetch, append, two uploads, a rebuild that
+                derives every row, one that compacts on the card; no kernel).
+4d. ``localq`` the self-contained deployment (Embeddings:Provider=Local): the
+                full-width encoder (vocab 32768, d_model 256, 4 layers, out
+                768, bf16 compute) at its seed-0 init embeds 2^20 chunk texts
+                ("topic c{k}x note r{i}", ~24 rows a cluster token) into the
+                headline index; the app attaches it to the engine. A mixed
+                batch (device-embedded and explicit vectors through K1 and
+                K2, empty vectors through K5; ``localq_mixed``), then one
+                timed, split batch of 448 text-only queries ("c{k}x r{i}")
+                through the device-resident query pipeline, a sample of each
+                batch DTO-identical to the exact float64 scan of every row
+                fed the bits the engine's forward materialized. The forward's
+                time a batch, the corpus encode rate, certified QPS, the
+                batch's time, the resolved share, escalations, host
+                fallbacks.
+4e. ``bench_ingest`` the append pipeline at 100k chunks
+                (``omni_recall_tpu_torch.tools.bench_ingest``): append and
+                upload for f32 and int8 storage, chunks/s; no kernel.
 4c. ``compact`` the compact 10M store of the repository bench (10 x 2^20 x
                 768 rows, 512 bloom bits, batches of 896, kw_frac 0.75,
                 ``bench.py st_10m``), built by ``build_compact_engine`` after
                 the earlier paths' engines are freed: host build and device
                 fill seconds, host store bytes, every device plane bitwise
-                against the host columns slab by slab, three timed batches
+                against the host columns slab by slab, two timed batches
                 and one split (dispatch / device wait / finalize), four
                 queries a batch DTO-identical to an exact float64 scan of
                 every row (``compact_exact_scan``); K1, K4 and K5 over the
                 whole plane at W = 64, bitwise to their plain versions slab
                 by slab, each timed beside its bound (K1 also beside
-                ``torch._int_mm``); and the card's peak allocation.
+                ``torch._int_mm``); and the card's peak allocation. Then
+                ``sweep_10m`` (``omni_recall_tpu_torch.tools.sweep_10m`` on
+                these planes): K1 and the coarse entry at B in {448, 896,
+                1536} and (sub, t) in {512, 1024} x {2, 4}.
 5. ``kernels``  per kernel: its parity and times, and its launches on each
                 path (the profiling path, the server of phase 3 and each path
                 of phase 4; the counts are zeroed just before a path and read
@@ -1252,6 +1282,9 @@ def server_phase() -> dict:
         "Engine:EmbeddingDim": DIM, "Engine:BloomBits": BITS,
         "Embeddings:Provider": "Hash", "Embeddings:Dim": DIM,
         "Storage:SnapshotDir": snapshot_dir,
+        # with no provider keys, chat answers the reference's recall-only
+        # fallback instead of a 503
+        "ChatQuality:EnableRecallOnlyFallbackOnProviderFailure": "true",
     })
     try:
         with fixed_clock():  # the app's and the oracle's recency, to the bit
@@ -1311,6 +1344,17 @@ def _server_checks(config) -> dict:
             raise AssertionError(f"search {q!r}: {got} != oracle {want}")
         citations += len(got["citations"])
     health = client.get("/health")
+    chat = _chat_checks(config, app, client)
+    pages = {}
+    for path, kind in (("/swagger/v1/swagger.json", "application/json"),
+                       ("/swagger", "text/html"), ("/", "text/html")):
+        resp = client.get(path)
+        if resp.status != 200 or not resp.headers.get("Content-Type", "").startswith(kind):
+            raise AssertionError(f"GET {path}: HTTP {resp.status} {resp.headers}")
+        pages[path] = len(resp.body)
+    doc = client.get("/swagger/v1/swagger.json").json()
+    if not {"/api/chat", "/api/recall/search"} <= set(doc["paths"]):
+        raise AssertionError(f"the OpenAPI document lacks routes: {sorted(doc['paths'])}")
     # snapshot persistence: POST /api/snapshot, then a second app on the
     # same Storage:SnapshotDir restores by the slab route
     if app.restore_route is not None:
@@ -1338,11 +1382,67 @@ def _server_checks(config) -> dict:
         raise AssertionError(f"the restarted app answers {q!r} otherwise")
     line = {"phase": "server", "documents": len(DOCS), "searches": len(QUERIES) + 2,
             "citations": citations, "oracle_identical": True,
-            "health": health.json()["status"],
+            "health": health.json()["status"], "chat": chat, "page_bytes": pages,
             "device_index_rows": app.engine.device_index.n_rows,
             "snapshot": {"saved": saved, "restored": restored, "same_search": True}}
     emit(line)
     return line
+
+
+CHAT_PROMPT = QUERIES[1]
+
+
+class ScriptedChat:
+    """A chat client for the server check: it answers every grounded prompt
+    citing snippets [1] and [2], and an out-of-range [9] the orchestration
+    must drop."""
+
+    def __init__(self):
+        self.prompts = []
+
+    def complete(self, request):
+        from omni_recall_tpu_torch.contracts import AiChatResponse
+
+        self.prompts.append(request.prompt)
+        return AiChatResponse(text="The certificate compares bounds [1]  and widens [2] [9].",
+                              model="scripted-1", provider="Scripted")
+
+
+def _chat_checks(config, app, client) -> dict:
+    """POST /api/chat twice: through an app sharing this one's store and
+    engine with a scripted chat client injected as its ``chat_router`` (the
+    answer's citations must be recall's [1] and [2]), and through this app's
+    default remote chain, which has no provider keys and must answer the
+    reference's recall-only fallback over recall's citations."""
+    from omni_recall_tpu_torch.chat.orchestration import build_recall_only_fallback_answer
+    from omni_recall_tpu_torch.server.app import build_app
+    from omni_recall_tpu_torch.server.testing import TestClient
+
+    body = {"prompt": CHAT_PROMPT, "topK": 3}
+    recall = client.post("/api/recall/search", json_body={"query": CHAT_PROMPT, "topK": 3})
+    recall = recall.json()["citations"]
+    scripted = ScriptedChat()
+    other = build_app(config, store=app.store, raw_store=app.raw_store, engine=app.engine,
+                      embedding_client=app.embedding_client, chat_router=scripted)
+    resp = TestClient(other).post("/api/chat", json_body=body)
+    got = resp.json()
+    if (resp.status != 200 or got["provider"] != "Scripted" or len(scripted.prompts) != 1
+            or got["citations"] != recall[:2] or "[9]" in got["answer"]
+            or "[1]" not in got["answer"] or recall[0]["snippet"] not in scripted.prompts[0]):
+        raise AssertionError(f"scripted chat: HTTP {resp.status} {got}, recall {recall}")
+    resp = client.post("/api/chat", json_body=body)
+    fallback = resp.json()
+    from omni_recall_tpu_torch.contracts import RecallCitation
+
+    want = build_recall_only_fallback_answer(
+        [RecallCitation(c["documentId"], c["fileName"], c["chunkId"], c["chunkIndex"],
+                        c["snippet"], c["score"], None) for c in recall], config.chat_quality)
+    if (resp.status != 200 or fallback["provider"] != "recall-only"
+            or fallback["citations"] != recall or fallback["answer"] != want):
+        raise AssertionError(f"default chat chain: HTTP {resp.status} {fallback}")
+    return {"scripted": {"provider": got["provider"], "citations": len(got["citations"])},
+            "default_chain": {"provider": fallback["provider"],
+                              "citations": len(fallback["citations"])}}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1427,6 +1527,11 @@ PATH_KERNELS = {
     "snapshot": ("coarse_scan", "dd_rows"),
     "rebuild": ("coarse_scan", "dd_rows"),
     "compact": ("coarse_scan",),
+    "localq": ("coarse_scan", "dd_rows"),
+    "localq_mixed": ("coarse_scan", "dd_rows", "kw_scan"),
+    "sweep_10m": ("coarse_scan",),
+    "probe_rebuild": (),
+    "bench_ingest": (),
 }
 # the int8 kernels: an f32/bf16 index must not reach them
 INT8_KERNELS = ("coarse_scan", "coarse_pair", "dd_rows", "refine", "fused_scan")
@@ -1449,6 +1554,11 @@ _SERVING_FORBIDS = {
 # probe, and the stage decomposition nothing but T3, K1, K3 and K2
 _OWN_FORBIDS = {
     "profile": SERVING_KERNELS + ("probe_serve",),
+    # the host-only tools: the rebuild's stages and the ingest pipeline
+    # launch no kernel, the 10M sweep K1 alone
+    "probe_rebuild": SERVING_KERNELS + PROBE_KERNELS,
+    "bench_ingest": SERVING_KERNELS + PROBE_KERNELS,
+    "sweep_10m": tuple(k for k in SERVING_KERNELS if k != "coarse_scan") + PROBE_KERNELS,
     "probe_serve": ("coarse_pair", "fused_scan", "kw_scan", "fp_scan")
     + tuple(k for k in PROBE_KERNELS if k != "probe_serve"),
 }
@@ -1575,6 +1685,26 @@ def oracle_check(eng, reqs, results, positions, now) -> int:
     return len(positions)
 
 
+def split_batch(eng, reqs, now):
+    """Serve one batch split where its time goes: host dispatch (query
+    prep, launches), the wait for the device queue, host finalize
+    (certification, rescue). Bypasses ``search_batch`` and its query count.
+    Returns (results, seconds, breakdown)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ctx = eng._dispatch_device_batch(reqs, 0, now)
+    t_dispatch = time.perf_counter()
+    torch.cuda.synchronize()
+    t_device = time.perf_counter()
+    res = eng._finalize_device_batch(ctx)
+    t_final = time.perf_counter()
+    return res, t_final - t, {"dispatch_host_ms": (t_dispatch - t) * 1e3,
+                              "device_wait_ms": (t_device - t_dispatch) * 1e3,
+                              "finalize_host_ms": (t_final - t_device) * 1e3}
+
+
 def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
                 sample: int = 8, n_fp: int = 3, fp_sample: int = 4) -> dict:
     from datetime import timedelta
@@ -1658,19 +1788,9 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
         torch.cuda.set_sync_debug_mode(0)
         dispatch_syncs = sum("synchronizing" in str(w.message) for w in caught)
         eng._finalize_device_batch(ctx)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ctx = eng._dispatch_device_batch(reqs, 0, now)
-        t_dispatch = time.perf_counter()
-        torch.cuda.synchronize()
-        t_device = time.perf_counter()
-        res = eng._finalize_device_batch(ctx)
-        t_final = time.perf_counter()
+        res, _, split = split_batch(eng, reqs, now)
         check(eng, reqs, res, positions)
-        return {"dispatch_sync_calls": dispatch_syncs,
-                "dispatch_host_ms": (t_dispatch - t) * 1e3,
-                "device_wait_ms": (t_device - t_dispatch) * 1e3,
-                "finalize_host_ms": (t_final - t_device) * 1e3}
+        return {"dispatch_sync_calls": dispatch_syncs, **split}
 
     def refine_select_batches():
         """DirectSelect off, the reference's own selection: K3 refines the
@@ -1989,9 +2109,235 @@ def snapshot_phase(seed: int, paths: dict) -> dict:
                         rebuild_chunks_per_s=len(survivors) / line["rebuild_s"])
 
         run_path(paths, "rebuild", 3 * SNAPSHOT_BATCHES, rebuild_path)
+        # the rebuild's stages (omni_recall_tpu_torch/tools/probe_rebuild.py)
+        # on the restored store: an engine with an empty index derives every
+        # row, then compacts on the card
+        from omni_recall_tpu_torch.tools import probe_rebuild
+
+        probe = RecallEngine(restored, options=headline_options(n))
+        line["probe_rebuild"] = run_path(paths, "probe_rebuild", 0,
+                                         lambda: probe_rebuild.stages(probe))
+        routes = [r["route"] for r in line["probe_rebuild"] if "route" in r]
+        if routes != ["upload", "device"]:
+            raise AssertionError(f"probe_rebuild: routes {routes}, want upload then device")
+        del probe
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    line["paths"] = {k: paths[k] for k in ("snapshot", "rebuild")}
+    line["paths"] = {k: paths[k] for k in ("snapshot", "rebuild", "probe_rebuild")}
+    emit(line)
+    return line
+
+
+# ---------------------------------------------------------------- phase 4d
+
+
+LOCALQ_ROWS = 1 << 20
+LOCALQ_PER_CLUSTER = 24  # rows a cluster token (bench.py build_localq_engine)
+LOCALQ_MIXED = 32        # queries of the mixed batch
+LOCALQ_SAMPLE = 8        # oracle-checked queries a batch
+LOCALQ_SLAB = 1 << 15    # corpus rows a forward
+
+
+def localq_phase(seed: int, paths: dict) -> dict:
+    """The ``localq`` path: the self-contained deployment
+    (Embeddings:Provider=Local) on the bench headline's engine. The port's
+    full-width encoder at its seed-0 init (the JAX package's
+    ``init_params(PRNGKey(0))``: vocab 32768, d_model 256, 4 layers, 4
+    heads, d_ff 1024, max_len 128, out 768, bf16 compute) embeds 2^20 chunk
+    texts in slabs (``embed_rows``, the array form of ``embed_batch``; one
+    slab is held bitwise to ``embed_batch``), the recipe of
+    ``bench.py build_localq_engine``: "topic c{k}x note r{i}" with about 24
+    rows a cluster token. The app attaches the client to the engine (the
+    device-resident query pipeline). First one mixed batch, while the
+    coarse gate is still open: device-embedded queries and explicit host
+    vectors, assembled on the card for K1 and K2, and empty vectors (K5).
+    Then one text-only batch of 448 queries naming a cluster and a row
+    ("c{k}x r{i}"), timed split (an exact host scan of 2^20 rows takes
+    ~0.4 s, and under the seed-0 weights most queries need one). A sample
+    of each batch must be DTO-identical to the exact float64 scan of every
+    row, fed the query bits the engine's own forward materialized. Prints
+    the forward's time a batch (CUDA events), the corpus encode rate,
+    certified QPS and the batch's time, the resolved share, escalation
+    rounds, host fallbacks and the launches of the path."""
+    import gc
+    from datetime import timedelta
+
+    import numpy as np
+    import torch
+
+    from omni_recall_tpu_torch.config import load_config
+    from omni_recall_tpu_torch.index.device_index import EPOCH
+    from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
+    from omni_recall_tpu_torch.ingest.embedding import LocalEncoderEmbeddingClient
+    from omni_recall_tpu_torch.search.engine import RecallEngine
+    from omni_recall_tpu_torch.server.app import build_app
+    from omni_recall_tpu_torch.tools import median_ms
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = LOCALQ_ROWS
+    n_clusters = n // LOCALQ_PER_CLUSTER
+    client = LocalEncoderEmbeddingClient(DIM, seed=0)  # CUDA, the default config
+    cfg = client.cfg
+    line = {"phase": "localq", "rows": n, "dim": DIM, "bloom_bits": BITS, "batch": BATCH,
+            "n_clusters": n_clusters, "encoder": dict(cfg.__dict__), "weights": "seed 0",
+            "config": "headline: pallas int8, refine planes, direct selection, device-exact "
+                      "cosine, coarse (1024, 2); Embeddings:Provider=Local, DeviceQuery",
+            "gpu": nvidia_smi()}
+    assign = np.random.default_rng(7).integers(0, n_clusters, size=n)
+    contents = [f"topic c{assign[i]}x note r{i}" for i in range(n)]
+
+    # the corpus, slab by slab (tokenize, forward on the card, read back)
+    emb = np.empty((n, DIM), dtype=np.float32)
+    client.embed_rows(contents[:LOCALQ_SLAB])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for s0 in range(0, n, LOCALQ_SLAB):
+        emb[s0:s0 + LOCALQ_SLAB] = client.embed_rows(contents[s0:s0 + LOCALQ_SLAB])
+    line["corpus_encode_s"] = time.perf_counter() - t0
+    line["corpus_chunks_per_s"] = n / line["corpus_encode_s"]
+    probe = contents[:BATCH]
+    batch_vecs = np.asarray([r.vector for r in client.embed_batch(probe)], dtype=np.float32)
+    if not bitwise(torch.from_numpy(batch_vecs), torch.from_numpy(client.embed_rows(probe))):
+        raise AssertionError("embed_batch and embed_rows differ on one slab")
+    norms = np.linalg.norm(emb[:: 1 << 10], axis=1)
+    if not (np.isfinite(emb[:: 1 << 10]).all() and np.allclose(norms, 1.0, atol=1e-3)):
+        raise AssertionError("the encoder's rows are not finite unit rows")
+    sample_rows = emb[np.random.default_rng(seed).integers(0, n, 512)].astype(np.float64)
+    gram = sample_rows @ sample_rows.T
+    line["mean_offdiag_cosine"] = float((gram.sum() - np.trace(gram)) / (512 * 511))
+
+    t0 = time.perf_counter()
+    engine = RecallEngine(InMemoryIngestionStore(), options=headline_options(n))
+    records: dict = {}
+    line["resident_gib"] = load_index(engine, emb, np.arange(n), contents,
+                                      corpus_created_days(n), records)
+    line["index_build_s"] = time.perf_counter() - t0
+    del records
+    # attached as the app attaches it (Embeddings:Provider=Local)
+    config = load_config(settings_file=None, env={}, overrides={
+        "Engine:Backend": "pallas", "Engine:ScanDtype": "int8", "Engine:Refine": "true",
+        "Engine:DirectSelect": "true", "Engine:DeviceExactCos": "true",
+        "Engine:EmbeddingDim": DIM, "Engine:BloomBits": BITS,
+        "Embeddings:Provider": "Local", "Embeddings:Dim": DIM})
+    app = build_app(config, engine=engine, embedding_client=client)
+    if not (app.search_service.device_query and engine._device_embedder is client):
+        raise AssertionError("the app did not attach the local encoder to the engine")
+    # the query bits each forward materialized: the oracle is fed these
+    forwards: list = []
+    real_embed_device = client.embed_device
+
+    def recording(texts):
+        out = real_embed_device(texts)
+        forwards.append(out)
+        return out
+
+    client.embed_device = recording
+    now = EPOCH + timedelta(days=365.0)
+
+    def make_requests(rseed: int):
+        r = np.random.default_rng(rseed)
+        rows = r.integers(0, n, BATCH)
+        return [(f"c{assign[i]}x r{i}", None, 10) for i in rows]
+
+    # the forward of one batch of 448 query texts: on token ids already on
+    # the card, and with the host's tokenization (embed_device)
+    texts = [t for t, _, _ in make_requests(seed + 2999)]
+    ids = torch.from_numpy(client._bucketed_ids(texts)).cuda()
+    line["encoder_forward_ms"] = median_ms(lambda: client.encoder(ids), torch.device("cuda"),
+                                           runs=5)
+    line["embed_device_ms"] = median_ms(lambda: real_embed_device(texts), torch.device("cuda"),
+                                        runs=5)
+    line["encoder_shape"] = list(ids.shape)
+    checked = 0
+
+    def check(reqs, results, bits, positions):
+        """``bits``: the forward's rows of the batch's device-embedded
+        queries, in request order."""
+        nonlocal checked
+        dev_pos = [i for i, (q, e, _) in enumerate(reqs) if e is None and q.strip()]
+        rows = bits.cpu().numpy()
+        for i in positions:
+            q, e, k = reqs[i]
+            if e is None and q.strip():
+                e = rows[dev_pos.index(i)].tolist()
+            want = engine._search_full_host(q, e, k, 0, now)
+            if dto(results[i]) != dto(want):
+                raise AssertionError(f"localq query {q!r}: {dto(results[i])} != oracle "
+                                     f"{dto(want)}")
+        checked += len(positions)
+
+    def mixed():
+        """One batch: a quarter explicit host vectors (the client's own
+        host embed), a quarter empty vectors (keyword-only, K5), the rest
+        embedded on the card."""
+        reqs = []
+        for i, (q, _, k) in enumerate(make_requests(seed + 3200)[:LOCALQ_MIXED]):
+            if i % 4 == 1:
+                reqs.append((q, client.embed(q).vector, k))
+            elif i % 4 == 2:
+                reqs.append((q, [], k))
+            else:
+                reqs.append((q, None, k))
+        forwards.clear()
+        t = time.perf_counter()
+        res = engine.search_batch(reqs, now=now)
+        line["mixed_batch_ms"] = (time.perf_counter() - t) * 1e3
+        if len(forwards) != 1 or forwards[0].shape[0] != sum(e is None for _, e, _ in reqs):
+            raise AssertionError("the mixed batch did not embed its text-only queries in "
+                                 "one forward")
+        return reqs, res, forwards[0]
+
+    reqs, res, b = run_path(paths, "localq_mixed", 1, mixed, engine.stats)
+    check(reqs, res, b, range(LOCALQ_SAMPLE))
+
+    def serve():
+        reqs = make_requests(seed + 3001)
+        forwards.clear()
+        res, seconds, split = split_batch(engine, reqs, now)
+        return reqs, res, forwards[0], seconds, split
+
+    reqs, res, b, seconds, split = run_path(paths, "localq", 1, serve, engine.stats)
+    t = time.perf_counter()
+    check(reqs, res, b, range(LOCALQ_SAMPLE))
+    line["oracle_s"] = time.perf_counter() - t
+    rec = paths["localq"]
+    stats = rec["stats"]  # the split batch bypasses search_batch's query count
+    line.update(
+        # one batch: its time is the p50
+        batches=1, certified_qps=BATCH / seconds, p50_batch_ms=seconds * 1e3, breakdown=split,
+        encoder_share_of_batch=line["embed_device_ms"] / (seconds * 1e3),
+        resolved_share=stats.get("coarse_resolved_total", 0) / BATCH,
+        dd_resolved_share=stats.get("dd_resolved_total", 0) / BATCH,
+        host_fallback_share=stats.get("host_fallbacks_total", 0) / BATCH,
+        escalation_rounds=stats.get("escalation_rounds_total", 0),
+        host_fallbacks=stats.get("host_fallbacks_total", 0), stats=stats,
+        launches={k: rec["launches"][k] for k in ("coarse_scan", "dd_rows", "refine",
+                                                  "fused_scan")},
+        reduced="1 timed batch of 448 (each text-only query needing an exact host scan "
+                "of 2^20 rows costs ~0.4 s)",
+        mixed_queries=LOCALQ_MIXED, mixed_stats=paths["localq_mixed"]["stats"],
+        oracle_checked=checked, oracle_per_batch=LOCALQ_SAMPLE,
+        paths={k: paths[k] for k in ("localq", "localq_mixed")})
+    emit(line)
+    client.embed_device = real_embed_device
+    del engine, app, client, emb, contents, reqs, res, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def bench_ingest_path(paths: dict) -> dict:
+    """The ingest pipeline (omni_recall_tpu_torch/tools/bench_ingest.py) at
+    its default of 100k chunks: append and upload, f32 and int8 storage."""
+    from omni_recall_tpu_torch.tools import bench_ingest
+
+    def go():
+        return bench_ingest.measure(bench_ingest.chunks_of(100_000, DIM), DIM,
+                                    __import__("torch").device("cuda"))
+
+    line = {"phase": "bench_ingest", "gpu": nvidia_smi(),
+            "records": run_path(paths, "bench_ingest", 0, go)}
     emit(line)
     return line
 
@@ -2001,7 +2347,7 @@ def snapshot_phase(seed: int, paths: dict) -> dict:
 COMPACT_ROWS = 10 * (1 << 20)  # the repository bench's st_10m (bench.py:2136-2197)
 COMPACT_BATCH = 896
 COMPACT_KW_FRAC = 0.75
-COMPACT_BATCHES = 3           # timed; then one more, split
+COMPACT_BATCHES = 2           # timed; then one more, split
 COMPACT_SAMPLE = 4            # oracle-checked queries a batch
 COMPACT_SLAB = 1 << 20        # rows a check, kernel slice or scan slab holds
 COMPACT_RESCORE_ROWS = 1 << 16  # random rows whose native rescore is held to numpy
@@ -2338,18 +2684,9 @@ def compact_phase(seed: int, paths: dict) -> dict:
             lat.append(time.perf_counter() - t)
         # where one more batch's time goes
         reqs = make_requests(seed + 2100, b, COMPACT_KW_FRAC)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        ctx = engine._dispatch_device_batch(reqs, 0, now)
-        t_dispatch = time.perf_counter()
-        torch.cuda.synchronize()
-        t_device = time.perf_counter()
-        out.append(engine._finalize_device_batch(ctx))
-        t_final = time.perf_counter()
+        res, _, line["breakdown"] = split_batch(engine, reqs, now)
+        out.append(res)
         batches.append(reqs)
-        line["breakdown"] = {"dispatch_host_ms": (t_dispatch - t) * 1e3,
-                             "device_wait_ms": (t_device - t_dispatch) * 1e3,
-                             "finalize_host_ms": (t_final - t_device) * 1e3}
         return batches, out, lat
 
     batches, out, lat = run_path(paths, "compact", COMPACT_BATCHES + 2, serve, engine.stats)
@@ -2376,9 +2713,19 @@ def compact_phase(seed: int, paths: dict) -> dict:
                 exact_scan_s=time.perf_counter() - t)
     line["rescore_check"] = compact_rescore_check(dix, sampled, now, seed)
     line["kernels"] = compact_kernel_lines(dix.device_arrays(), seed)
+    # K1's layouts over these planes (omni_recall_tpu_torch/tools/sweep_10m.py)
+    from omni_recall_tpu_torch.index.device_index import to_days
+    from omni_recall_tpu_torch.tools import sweep_10m
+
+    line["sweep_10m"] = run_path(paths, "sweep_10m", len(sweep_10m.DEFAULT_CONFIGS), lambda: (
+        sweep_10m.sweep(dix.device_arrays(), float(to_days(now)))))
+    failed = [r for r in line["sweep_10m"] if "failed" in r]
+    if failed:
+        raise AssertionError(f"sweep_10m: configurations failed: {failed}")
+    emit({"phase": "sweep_10m", "gpu": nvidia_smi(), "records": line["sweep_10m"]})
     line["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2**30
     line["path"] = paths["compact"]
-    emit({k: v for k, v in line.items() if k != "kernels"})
+    emit({k: v for k, v in line.items() if k not in ("kernels", "sweep_10m")})
     del engine, dix, batches, out, sampled
     gc.collect()
     torch.cuda.empty_cache()
@@ -2416,15 +2763,32 @@ def main() -> int:
           "nvcc": nvcc, "gpu": smi, "kernel_build_s": build_s,
           "device": torch.cuda.get_device_name(0)})
 
+    t_start = time.perf_counter()
     k = kernel_phase(args.seed, parent)
 
     paths: dict = {}
-    profile = profile_path(paths)
-    stages = probe_serve_path(paths)
-    run_path(paths, "server", len(QUERIES) + 2, server_phase)
-    serve_phase(args.seed, paths)
-    snapshot_phase(args.seed, paths)
-    compact = compact_phase(args.seed, paths)
+    clock = [("kernel", time.perf_counter() - t_start)]
+
+    def timed(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        clock.append((name, time.perf_counter() - t))
+        return out
+
+    profile = timed("profile", profile_path, paths)
+    stages = timed("probe_serve", probe_serve_path, paths)
+    timed("server", run_path, paths, "server", len(QUERIES) + 2, server_phase)
+    # the localq path's exact host scans (~0.36 s a query at 2^20 rows) grew
+    # the run past 450 s: the refine-select and the bf16 / f32 /
+    # reference-default paths serve 2 timed batches here, not 3, and the
+    # compact path 2 (COMPACT_BATCHES), each batch still with its oracle sample
+    timed("serve", serve_phase, args.seed, paths, 4, 2, 8, 2)
+    timed("snapshot", snapshot_phase, args.seed, paths)
+    timed("localq", localq_phase, args.seed, paths)
+    timed("bench_ingest", bench_ingest_path, paths)
+    compact = timed("compact", compact_phase, args.seed, paths)
+    emit({"phase": "clock", "seconds": dict(clock),
+          "total_s": time.perf_counter() - t_start})
 
     def entry(name, route_key, source, line, extra=None):
         home = paths[HOME_PATH[route_key]]

@@ -39,6 +39,7 @@ from omni_recall_tpu_torch.contracts import (
     ReindexDocumentResponse,
     UploadDocumentResponse,
 )
+from omni_recall_tpu_torch.device import is_device_error
 from omni_recall_tpu_torch.index.records import ChunkRecord, DocumentRecord
 from omni_recall_tpu_torch.ingest.embedding import EmbeddingResult, EmbeddingStatus
 from omni_recall_tpu_torch.snippets import PREVIEW_SNIPPET_LEN, build_snippet
@@ -287,6 +288,8 @@ class DocumentIngestionService:
                     len(results_b), len(texts), operation, context_id,
                 )
             except Exception as exc:
+                if is_device_error(exc):
+                    raise  # a failure of the card, not of the batch
                 logger.warning(
                     "Batch embedding failed during %s for %s: %s; falling "
                     "back to per-text embedding", operation, context_id, exc,
@@ -298,6 +301,8 @@ class DocumentIngestionService:
             try:
                 results[index] = self.embedding_client.embed(texts[index])
             except Exception as exc:
+                if is_device_error(exc):
+                    raise
                 logger.warning(
                     "Embedding generation failed during %s for %s chunk %d: %s",
                     operation, context_id, index, exc,

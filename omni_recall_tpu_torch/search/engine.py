@@ -28,6 +28,11 @@ their compact results into pinned host memory) and
 ``search_batches_pipelined`` overlaps one batch's host work with the next
 batch's device work.
 
+With an embedder attached (``attach_device_embedder``: the local encoder of
+Embeddings:Provider=Local), requests without an embedding are embedded on
+the card inside the dispatch; their rows feed the scans directly and reach
+the host only when a certificate escalates (``ensure_host_q``).
+
 Backends: ``pallas`` (the hand-written-kernel backend; the name is kept so
 configurations carry over) over int8, f32 or bf16 scan storage, ``xla``
 (the reference's default: the plain-torch scorer over f32 storage, which
@@ -86,6 +91,7 @@ this port):
 
 from __future__ import annotations
 
+import logging
 import math
 import threading
 from dataclasses import dataclass
@@ -95,7 +101,7 @@ import numpy as np
 import torch
 
 from omni_recall_tpu_torch.config import EngineOptions
-from omni_recall_tpu_torch.device import resolve_device
+from omni_recall_tpu_torch.device import is_device_error, resolve_device
 from omni_recall_tpu_torch.index.device_index import DeviceIndex, to_days, to_micros
 from omni_recall_tpu_torch.index.records import ChunkRecord
 from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
@@ -305,6 +311,10 @@ class RecallEngine:
             # warm the native library (compile + bit-identity self-check)
             # outside any index lock
             native.rescore_available()
+        # device-resident query pipeline (attach_device_embedder): requests
+        # arriving without an embedding are embedded on the card and their
+        # raw query rows cross to the host only for escalations
+        self._device_embedder = None
         self.last_escalations = 0
         self.last_coarse_resolved = 0
         self.stats = {
@@ -339,6 +349,27 @@ class RecallEngine:
         # serializes index mutation (append/update/delete); searches never
         # take it
         self.mutation_lock = threading.RLock()
+
+    def attach_device_embedder(self, embedder) -> None:
+        """Enable the device-resident query pipeline (search/engine.py:408-434):
+        requests whose query_embedding is None (and whose text is non-blank)
+        are embedded on the card by ``embedder.embed_device(texts) ->
+        f32[B, dim]`` and chained straight into the scan dispatch: no
+        per-query vector upload, no embedding readback on certified
+        queries. The exactness contract is unchanged: every certificate is
+        taken against the materialized bits of the forward (the canonical
+        query embedding), and escalations read those bits back losslessly.
+        ``None`` detaches. Requires a device backend whose index has the
+        embedder's dim."""
+        if embedder is None:
+            self._device_embedder = None
+            return
+        if self.options.backend == "oracle" or self.device_index is None:
+            raise ValueError("device embedder requires a device backend")
+        dim = getattr(embedder, "dim", None)
+        if dim != self.device_index.dim:
+            raise ValueError(f"embedder dim {dim} != index dim {self.device_index.dim}")
+        self._device_embedder = embedder
 
     # -- index lifecycle hooks (called by the ingestion service) --
 
@@ -1078,6 +1109,7 @@ class RecallEngine:
         q_raw = np.zeros((b, dix.dim), dtype=np.float32)
         host_only: list[int] = []
         has_vec = np.zeros(b, dtype=bool)
+        dev_embed_idx: list[int] = []
         for i, (query, query_embedding, _) in enumerate(requests):
             if query_embedding is not None and len(query_embedding) == dix.dim:
                 q_raw[i] = query_embedding
@@ -1086,10 +1118,37 @@ class RecallEngine:
                 # an embedding the index cannot represent (dim mismatch): the
                 # device cosine bound would not be sound — exact host scan
                 host_only.append(i)
+            elif query_embedding is None and self._device_embedder is not None \
+                    and query.strip():
+                # embedded on the card below. Only for None (the caller left
+                # the embedding to the engine): an explicit empty vector keeps
+                # the reference's embed-failure semantics, keyword-only
+                # scoring (RecallSearchService.cs:70-71)
+                dev_embed_idx.append(i)
         q_norms = np.sum(q_raw * q_raw, axis=1, dtype=np.float64)
         ok = has_vec & (q_norms > 0.0)
         # zero-norm vectors of matching dim also go host-only
         host_only.extend(int(i) for i in np.nonzero(has_vec & ~ok)[0])
+
+        # one forward for the batch's embedding-less queries; the rows stay
+        # on the card. A forward that fails on its input degrades those
+        # queries to keyword-only scoring (the reference's embed-failure
+        # semantics); a failure of the card raises
+        dev_embedded = np.zeros(b, dtype=bool)
+        q_enc = None
+        if dev_embed_idx:
+            try:
+                q_enc = self._device_embedder.embed_device(
+                    [requests[i][0] for i in dev_embed_idx])
+            except Exception as exc:
+                if is_device_error(exc):
+                    raise
+                logging.getLogger(__name__).warning(
+                    "device query forward failed; %d queries score keyword and "
+                    "recency only", len(dev_embed_idx), exc_info=True)
+                q_enc = None
+            if q_enc is not None:
+                dev_embedded[dev_embed_idx] = True
 
         terms_all = [oracle.query_terms(query) for query, _, _ in requests]
         # sparse keyword weights ((bit, value) pairs, a few dozen per query)
@@ -1111,14 +1170,39 @@ class RecallEngine:
 
         upd_seq0 = dix.update_seq  # read BEFORE the snapshot (reindex race)
         dev = dix.device_arrays()
-        # ONE raw [B, d] f32 upload + f32 inverse norms, normalized on
-        # device: q_raw * f32(1/sqrt(qn)) is within ~2 ulps of the host's
-        # f64 normalization, inside the scan bounds' documented slack
-        inv = np.zeros(b, dtype=np.float32)
-        if ok.any():
-            inv[ok] = (1.0 / np.sqrt(q_norms[ok])).astype(np.float32)
-        q_raw_dev = _upload(q_raw, device)
-        q_dev = q_raw_dev * _upload(inv, device)[:, None]
+        qn_dd_dev = None
+        if q_enc is not None:
+            # device-embedded batch: assemble the raw query matrix on the
+            # card (encoder rows never leave it; explicit host vectors
+            # upload as a compact slab), take the double-float self-norms
+            # (8 B a query read back instead of the [B, d] matrix) and
+            # normalize on the card (_normalize_q_dd, search/engine.py:87-97)
+            if len(dev_embed_idx) == b:
+                q_raw_dev = q_enc.to(torch.float32).contiguous()
+            else:
+                q_raw_dev = torch.zeros((b, dix.dim), dtype=torch.float32, device=device)
+                q_raw_dev[torch.as_tensor(dev_embed_idx, device=device)] = q_enc.to(
+                    torch.float32)
+                host_idx = np.nonzero(ok)[0]
+                if len(host_idx):
+                    q_raw_dev[torch.from_numpy(host_idx).to(device)] = _upload(
+                        np.ascontiguousarray(q_raw[host_idx]), device)
+            qhi, qlo = exact_cos.self_norm_dd(q_raw_dev)
+            qn_dd_dev = _HostCopy((qhi, qlo))
+            # inv = 1/sqrt(qhi) in f32 is within ~2 ulps + DD_SUM_REL/2 of the
+            # host path's f32(1/sqrt(qn_f64)): inside the same documented
+            # slack of the scan and refine bounds; zero rows normalize to 0
+            inv_dev = torch.where(qhi > 0.0, 1.0 / torch.sqrt(qhi), torch.zeros_like(qhi))
+            q_dev = q_raw_dev * inv_dev[:, None]
+        else:
+            # ONE raw [B, d] f32 upload + f32 inverse norms, normalized on
+            # device: q_raw * f32(1/sqrt(qn)) is within ~2 ulps of the host's
+            # f64 normalization, inside the scan bounds' documented slack
+            inv = np.zeros(b, dtype=np.float32)
+            if ok.any():
+                inv[ok] = (1.0 / np.sqrt(q_norms[ok])).astype(np.float32)
+            q_raw_dev = _upload(q_raw, device)
+            q_dev = q_raw_dev * _upload(inv, device)[:, None]
         if sparse_kw is None:
             w_dev = _upload(weights.astype(np.float32, copy=False), device)
         else:
@@ -1136,10 +1220,17 @@ class RecallEngine:
             upd_seq0=upd_seq0, dev=dev, q_dev=q_dev, q_raw_dev=q_raw_dev,
             w_dev=w_dev, bias_dev=bias_dev, now_dev=now_dev, m=m,
             kw_scan=None, coarse_scan=None,
+            dev_embedded=dev_embedded if q_enc is not None else None,
+            qn_dd_dev=qn_dd_dev,
+            # rows already on the host: explicit vectors carry exact values,
+            # device rows materialize on demand (ensure_host_q)
+            q_ready=~dev_embedded if q_enc is not None else None,
         )
         if not self.options.exact:
             return ctx
         host_set = set(host_only)
+        # embedding-backed queries: a nonzero host vector, or device-embedded
+        q_live = ok | dev_embedded
 
         def chain_dd(sel, zero: bool = False):
             """Chain the device-exact cosine (K2) onto a compact selection:
@@ -1156,7 +1247,7 @@ class RecallEngine:
         # keyword-only prepass: queries WITHOUT an embedding have cosine
         # exactly 0 (RecallSearchService.cs:70-71) — the bloom + recency
         # scan (K5) gives the same sound bounds with no emb stream
-        kw_only = [i for i in range(b) if i not in host_set and not ok[i]]
+        kw_only = [i for i in range(b) if i not in host_set and not q_live[i]]
         if kw_only:
             kw_scorer = self._select_kw_scorer(m, int(dev.emb.shape[0]))
             if kw_scorer is not None:
@@ -1182,7 +1273,7 @@ class RecallEngine:
 
         # coarse prepass (K1): cosine-only scan with a sound per-query
         # keyword cap; failures continue into the wide rescue / fused loop
-        prepass = [i for i in range(b) if i not in host_set and ok[i]]
+        prepass = [i for i in range(b) if i not in host_set and q_live[i]]
         if prepass and not self._coarse_gate_open():
             self._coarse_gate_advance(len(prepass))
             prepass = []
@@ -1222,14 +1313,61 @@ class RecallEngine:
         results: list[list[SearchHit] | None] = [None] * b
         self.last_escalations = 0
 
+        # device-resident query pipeline: the raw query rows live on the
+        # card; only their double-float self-norms come back eagerly. Exact
+        # rows and oracle norms materialize lazily (ensure_host_q), so only
+        # escalations pay that readback (search/engine.py:1812-1884)
+        dev_embedded, q_ready = ctx["dev_embedded"], ctx["q_ready"]
+        qn_rel: np.ndarray | None = None
+        suspect_q: list[int] = []
+        if dev_embedded is not None:
+            qhi, qlo = ctx["qn_dd_dev"].get()
+            qn_dd = qhi.astype(np.float64) + qlo.astype(np.float64)
+            ctx["q_norms"][dev_embedded] = qn_dd[dev_embedded]
+            # the DD certificate's margin: the device norm deviates from the
+            # oracle's numpy norm by <= QN_DD_REL relative
+            qn_rel = np.where(dev_embedded, exact_cos.QN_DD_REL, 0.0)
+            # QN_DD_REL and the scans' device normalization are relative
+            # bounds, which f32 underflow in the self-dot could break for
+            # pathologically tiny rows (the encoder emits unit rows): such
+            # queries take the exact host scan
+            suspect_q = [int(i) for i in np.nonzero(dev_embedded & (qn_dd < 1e-26))[0]]
+
+        def ensure_host_q(indices) -> None:
+            """Materialize the exact f32 query rows and oracle f64 norms of
+            device-embedded queries: a lossless copy of the forward's bits;
+            np.sum matches the dispatch's host expression bit for bit."""
+            if dev_embedded is None:
+                return
+            need = [i for i in indices if dev_embedded[i] and not q_ready[i]]
+            if not need:
+                return
+            idx = torch.as_tensor(need, dtype=torch.long, device=device)
+            rows = ctx["q_raw_dev"].index_select(0, idx).cpu().numpy()
+            ctx["q_raw"][need] = rows
+            ctx["q_norms"][need] = np.sum(rows * rows, axis=1, dtype=np.float64)
+            q_ready[need] = True
+
+        def emb_for(i):
+            """The request's embedding for the host oracle: explicit vectors
+            pass through; device-embedded queries hand back their
+            materialized bits."""
+            if dev_embedded is not None and dev_embedded[i]:
+                ensure_host_q([i])
+                return ctx["q_raw"][i].tolist()
+            return requests[i][1]
+
         def oracle_fill(indices):
             self.stats["host_fallbacks_total"] += len(indices)
+            ensure_host_q(indices)
             for i in indices:
-                query, emb, _ = requests[i]
-                results[i] = self._search_full_host(query, emb, ks[i], window, now)
+                results[i] = self._search_full_host(requests[i][0], emb_for(i), ks[i],
+                                                    window, now)
 
         if host_only:
             oracle_fill(host_only)
+        if suspect_q:
+            oracle_fill(suspect_q)
 
         meta = dix.meta
 
@@ -1261,6 +1399,7 @@ class RecallEngine:
             return unresolved
 
         def rescore(pending, row_lists, ub_lists, phase1):
+            ensure_host_q(pending)  # exact query bits for the f64 rescore
             prune = self.options.rescore_prune
             return self._exact_rescore_rows(
                 [(requests[i][0], requests[i][1]) for i in pending],
@@ -1351,6 +1490,7 @@ class RecallEngine:
             cos, m_cos = exact_cos.finish_cosines(
                 hi_a[pend][live], lo_a[pend][live], sabs_a[pend][live],
                 ctx["q_norms"][own_q], dix.raw_norm_sq[rows_flat],
+                qn_rel=qn_rel[own_q] if qn_rel is not None else None,
             )
             kw_term = self._kw_scores_flat(
                 rows_flat, owner, [ctx["terms"][i] for i in pending], dix
@@ -1385,6 +1525,8 @@ class RecallEngine:
             unresolved = [pending[pi] for pi in np.nonzero(provable)[0]]
             esc_mask = ~provable & ~resolved
             escalate = [pending[pi] for pi in np.nonzero(esc_mask)[0]]
+            # both sets need exact host query bits next: one gather
+            ensure_host_q(escalate + unresolved)
             self.stats["rescore_pairs_total"] += total - int(lens[esc_mask].sum())
             self.stats["dd_resolved_total"] += int(resolved.sum())
             for pi in np.nonzero(resolved)[0]:

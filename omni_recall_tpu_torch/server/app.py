@@ -5,12 +5,18 @@ Mirrors the reference's Program.cs + Endpoints/: DI wiring by configuration
 (provider switches, Program.cs:40-69), the document and recall routes
 (DocumentEndpoints.cs, RecallEndpoints.cs), /health (Program.cs:104-115),
 /metrics, CORS, and the global exception -> ProblemDetails handler
-(server/http.py), and snapshot persistence: ``Storage:SnapshotDir``
-restores the store and the device index at startup, ``POST /api/snapshot``
-saves both (index/snapshot.py). Chat, train, swagger and the UI page wait
-for later slices: their routes are registered with the reference's methods
-and paths and answer a 501 problem that names their ROADMAP.md item. The
-engine runs on CUDA unless ``device="cpu"`` is passed.
+(server/http.py), snapshot persistence (``Storage:SnapshotDir`` restores
+the store and the device index at startup, ``POST /api/snapshot`` saves
+both, index/snapshot.py), chat (``POST /api/chat`` over the remote provider
+chain, ChatEndpoints.cs), the OpenAPI document, the API docs page and the
+UI page. ``Embeddings:Provider=Local`` embeds on the card with the local
+encoder, and its queries take the device-resident pipeline
+(``RecallEngine.attach_device_embedder``). Training the encoder
+(``POST /api/documents/train``) waits for a later slice: its route is
+registered with the reference's method and path and answers a 501 problem
+that names its ROADMAP.md item, and ``Ai:Provider=Local`` (the on-device
+chat decoder) raises at construction. The engine and the local encoder run
+on CUDA unless ``device="cpu"`` is passed.
 
 ``build_app`` accepts overrides for every dependency so tests can boot the
 whole app in-process with fakes — the reference's WebApplicationFactory
@@ -23,6 +29,9 @@ import logging
 import os
 from pathlib import Path
 
+from omni_recall_tpu_torch.chat.orchestration import ChatOrchestrationService
+from omni_recall_tpu_torch.chat.providers import GeminiChatClient, GitHubModelsChatClient
+from omni_recall_tpu_torch.chat.router import AiChatRouter, AiProviderUnavailableError
 from omni_recall_tpu_torch.config import AppConfig, load_config
 from omni_recall_tpu_torch.extract.pdf import NoOpOcrTextExtractor, PdfTextExtractor
 from omni_recall_tpu_torch.index.store import (
@@ -30,12 +39,17 @@ from omni_recall_tpu_torch.index.store import (
     InMemoryRawDocumentStore,
     LocalFileRawDocumentStore,
 )
-from omni_recall_tpu_torch.ingest.embedding import HashEmbeddingClient, NoOpEmbeddingClient
+from omni_recall_tpu_torch.ingest.embedding import (
+    GeminiEmbeddingClient,
+    HashEmbeddingClient,
+    NoOpEmbeddingClient,
+)
 from omni_recall_tpu_torch.ingest.service import DocumentIngestionService, IngestionError
 from omni_recall_tpu_torch.search.engine import RecallEngine
 from omni_recall_tpu_torch.search.service import RecallSearchService
 from omni_recall_tpu_torch.server.health import HealthProbeService
 from omni_recall_tpu_torch.server.http import Request, Response, Router, WsgiApp
+from omni_recall_tpu_torch.server.openapi import build_openapi_document
 
 ALLOWED_EXTENSIONS = {".pdf", ".txt", ".md", ".markdown"}  # DocumentEndpoints.cs:8-14
 
@@ -44,11 +58,6 @@ ALLOWED_EXTENSIONS = {".pdf", ".txt", ".md", ".markdown"}  # DocumentEndpoints.c
 NOT_PORTED_ROUTES = (
     ("POST", "/api/documents/train", "Embedder training",
      '(ROADMAP.md, "Local models")'),
-    ("POST", "/api/chat", "Chat", '(ROADMAP.md, "Host-only providers and routes")'),
-    ("GET", "/swagger/v1/swagger.json", "The OpenAPI document",
-     '(ROADMAP.md, "Host-only providers and routes")'),
-    ("GET", "/swagger", "The Swagger UI", '(ROADMAP.md, "Host-only providers and routes")'),
-    ("GET", "/", "The UI page", '(ROADMAP.md, "Host-only providers and routes")'),
 )
 
 
@@ -84,6 +93,7 @@ class OmniRecallApp(WsgiApp):
         store=None,
         raw_store=None,
         embedding_client=None,
+        chat_router=None,
         pdf_extractor=None,
         engine=None,
         health_service=None,
@@ -108,17 +118,21 @@ class OmniRecallApp(WsgiApp):
             self.embedding_client = embedding_client
         else:
             provider = (config.embeddings.provider or "").strip().lower()
-            if provider == "hash":
-                self.embedding_client = HashEmbeddingClient(config.embeddings.dim)
-            elif provider in ("", "none"):
-                self.embedding_client = NoOpEmbeddingClient()
-            else:
-                raise NotImplementedError(
-                    f"Embeddings:Provider={config.embeddings.provider!r} is not "
-                    "ported yet (the remote clients: ROADMAP.md, "
-                    '"Host-only providers and routes"; the local encoder: '
-                    'ROADMAP.md, "Local models"); use Hash or None'
+            if provider == "gemini":
+                self.embedding_client = GeminiEmbeddingClient(
+                    config.gemini, output_dim=config.embeddings.dim
                 )
+            elif provider == "hash":
+                self.embedding_client = HashEmbeddingClient(config.embeddings.dim)
+            elif provider == "local":
+                from omni_recall_tpu_torch.ingest.embedding import LocalEncoderEmbeddingClient
+
+                self.embedding_client = LocalEncoderEmbeddingClient(
+                    config.embeddings.dim, checkpoint=config.embeddings.checkpoint,
+                    device=device,
+                )
+            else:
+                self.embedding_client = NoOpEmbeddingClient()
 
         if engine is not None:
             self.engine = engine
@@ -151,26 +165,57 @@ class OmniRecallApp(WsgiApp):
                 window_ms=config.engine.coalesce_window_ms,
                 max_batch=max(1, config.engine.coalesce_max_batch),
             )
+        # device-resident query pipeline: with the local encoder and a
+        # device engine, query embeddings are computed inside the search
+        # dispatch, with no host embed and no per-query vector upload
+        # (engine.attach_device_embedder). A refusal of the attach (a bad
+        # configuration) logs and serves host embeds; a failure of the card
+        # raises
+        device_query = False
+        if (
+            config.embeddings.device_query
+            and (config.embeddings.provider or "").strip().lower() == "local"
+            and config.engine.backend != "oracle"
+            and self.engine.device_index is not None
+            and getattr(self.embedding_client, "dim", None) == self.engine.device_index.dim
+        ):
+            try:
+                self.engine.attach_device_embedder(self.embedding_client)
+                device_query = True
+            except ValueError:
+                logging.getLogger(__name__).exception(
+                    "device query pipeline unavailable; using host embeds"
+                )
         self.search_service = RecallSearchService(
             self.engine, self.embedding_client, executor=self.search_executor,
+            device_query=device_query,
         )
         self.ingestion_service = DocumentIngestionService(
             self.store, self.raw_store, self.embedding_client,
             config.ingestion, engine=self.engine,
         )
+        if chat_router is not None:
+            self.chat_router = chat_router
+        else:
+            self.chat_router = AiChatRouter(
+                GeminiChatClient(config.gemini),
+                GitHubModelsChatClient(config.github_models),
+                config.ai_routing,
+            )
+        self.chat_service = ChatOrchestrationService(
+            self.search_service, self.chat_router, config.chat_quality
+        )
         if pdf_extractor is not None:
             self.pdf_extractor = pdf_extractor
         else:
-            # the OCR providers are not ported yet: asking for one raises
-            # rather than silently extracting no text from scanned PDFs
-            if (config.ocr.provider or "").strip().lower() not in ("", "none"):
-                raise NotImplementedError(
-                    f"Ocr:Provider={config.ocr.provider!r} is not ported yet "
-                    '(ROADMAP.md, "Host-only providers and routes"); use None'
-                )
-            self.pdf_extractor = PdfTextExtractor(
-                NoOpOcrTextExtractor(), config.ocr.pdf_text_min_chars
-            )
+            ocr_provider = (config.ocr.provider or "").strip().lower()
+            if ocr_provider in ("documentintelligence", "azuredocumentintelligence"):
+                from omni_recall_tpu_torch.extract.ocr import DocumentIntelligenceOcrTextExtractor
+
+                ocr = DocumentIntelligenceOcrTextExtractor(config.ocr)
+            else:
+                ocr = NoOpOcrTextExtractor()
+            self.pdf_extractor = PdfTextExtractor(ocr, config.ocr.pdf_text_min_chars)
         self.health_service = health_service if health_service is not None else HealthProbeService(
             config, self.store, self.raw_store, self.engine
         )
@@ -187,9 +232,13 @@ class OmniRecallApp(WsgiApp):
         router.add("DELETE", "/api/documents/{document_id}", self._delete_document)
         router.add("POST", "/api/documents/{document_id}/reindex", self._reindex_document)
         router.add("POST", "/api/recall/search", self._search_recall)
+        router.add("POST", "/api/chat", self._complete_chat)
         router.add("GET", "/health", self._health)
         router.add("GET", "/metrics", self._metrics)
         router.add("POST", "/api/snapshot", self._save_snapshot)
+        router.add("GET", "/swagger/v1/swagger.json", self._swagger)
+        router.add("GET", "/swagger", self._swagger_ui)
+        router.add("GET", "/", self._index)
         origins = [
             o.strip()
             for o in (config.cors.allowed_origins_csv or "").split(",")
@@ -347,6 +396,27 @@ class OmniRecallApp(WsgiApp):
         result = self.search_service.search(query, top_k)
         return Response.json(result)
 
+    # -- chat (ChatEndpoints.cs:21-41) --
+
+    def _complete_chat(self, request: Request) -> Response:
+        try:
+            payload = request.json() or {}
+        except ValueError:
+            return Response.error("Invalid JSON body.")
+        if not isinstance(payload, dict):
+            return Response.error("Request body must be a JSON object.")
+        prompt = payload.get("prompt") or ""
+        if not isinstance(prompt, str) or not prompt.strip():
+            return Response.error("Prompt is required.")
+        top_k = _parse_top_k(payload.get("topK", 5))
+        if top_k is None:
+            return Response.error("topK must be an integer.")
+        try:
+            result = self.chat_service.complete(prompt, top_k)
+        except AiProviderUnavailableError as exc:
+            return Response.problem("AI provider unavailable", str(exc), 503)
+        return Response.json(result)
+
     # -- health (Program.cs:104-115) --
 
     def _health(self, request: Request) -> Response:
@@ -381,12 +451,35 @@ class OmniRecallApp(WsgiApp):
             {"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},
         )
 
+    def _swagger(self, request: Request) -> Response:
+        return Response.json(build_openapi_document())
+
+    def _index(self, request: Request) -> Response:
+        from omni_recall_tpu_torch.server.ui import INDEX_HTML
+
+        return Response(
+            200, INDEX_HTML.encode("utf-8"),
+            {"Content-Type": "text/html; charset=utf-8"},
+        )
+
+    def _swagger_ui(self, request: Request) -> Response:
+        """Self-contained API docs page (Swagger-UI parity, Program.cs:74-75,
+        without CDN assets: the page works offline)."""
+        from omni_recall_tpu_torch.server.ui import SWAGGER_HTML
+
+        return Response(
+            200, SWAGGER_HTML.encode("utf-8"),
+            {"Content-Type": "text/html; charset=utf-8"},
+        )
+
+
 def build_app(
     config: AppConfig | None = None,
     overrides: dict | None = None,
     **dependencies,
 ) -> OmniRecallApp:
-    """The app; ``device`` (default "cuda") goes to the engine."""
+    """The app; ``device`` (default "cuda") goes to the engine and the
+    local encoder."""
     if config is None:
         config = load_config(overrides=overrides)
     return OmniRecallApp(config, **dependencies)

@@ -1,4 +1,5 @@
-"""Counterparts of the repository's ``tools/`` probes that reach a TPU kernel.
+"""Counterparts of the repository's ``tools/``: the probes that reach a TPU
+kernel, and host-only tools.
 
 Each module mirrors its tool by name, holds the probe's CUDA kernel wrapper
 beside its plain PyTorch version, and runs the tool's own sweep from
@@ -13,6 +14,13 @@ beside its plain PyTorch version, and runs the tool's own sweep from
   bloom.
 - ``probe_serve`` (T3): K3's body over pre-gathered candidate slabs, and the
   tool's split of a serving batch into its device stages.
+
+Host-only tools (no kernel of their own), each beside the module it drives:
+
+- ``probe_rebuild``: the stages of a shadow rebuild of the device index.
+- ``sweep_10m``: K1 over the compact 10M store at several batches and
+  layouts.
+- ``bench_ingest``: the index append pipeline in chunks/s.
 """
 
 from __future__ import annotations

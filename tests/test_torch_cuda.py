@@ -712,3 +712,85 @@ def test_restore_through_cuda_tensors_takes_the_fast_path(dev, tmp_path):
         return [[(h.chunk.id, round(h.score, 4)) for h in hits] for hits in batch]
 
     assert dto(eng.search_batch(reqs, now=now)) == dto(src.search_batch(reqs, now=now))
+
+
+ENCODER_TEXTS = [f"topic c{k}x note r{i}" for k, i in zip(range(40, 100), range(900, 960))] + [
+    "", "Ünïcödé wörds", "x " * 200, "the certificate compares bounds"]
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_local_encoder_cuda_forward_matches_cpu(dev, compute_dtype):
+    """The full-width encoder (the default config, seed 0) on the card
+    against its CPU forward on the same token ids: f32 compute within 1e-5
+    max abs; bf16 compute within twice the port's own bf16-vs-f32 gap on the
+    CPU (a product's f32 bits differ between cuBLAS and the CPU, and one f32
+    ulp before a bf16 rounding becomes a bf16 ulp)."""
+    import dataclasses
+
+    from omni_recall_tpu_torch.models import encoder
+
+    cfg = dataclasses.replace(encoder.EncoderConfig(), compute_dtype=compute_dtype)
+    state = encoder.init_params(0, cfg)
+    ids = torch.from_numpy(encoder.tokenize_batch(ENCODER_TEXTS, cfg))[:, :32]
+    cpu = encoder.Encoder.from_state(state, cfg, "cpu")(ids)
+    got = encoder.Encoder.from_state(state, cfg, dev)(ids.to(dev)).cpu()
+    assert torch.isfinite(got).all() and not got[len(ENCODER_TEXTS) - 4].any()
+    if compute_dtype == "float32":
+        tol = 1e-5
+    else:
+        f32 = dataclasses.replace(cfg, compute_dtype="float32")
+        tol = 2 * float((encoder.Encoder.from_state(state, f32, "cpu")(ids) - cpu).abs().max())
+    assert float((got - cpu).abs().max()) <= tol
+
+
+def test_device_query_batch_on_cuda_is_certified(dev):
+    """One batch of text-only queries through the device-query pipeline on
+    the card (K1 and K2 launch), each DTO-identical to the port's float64
+    oracle fed the query bits the engine's forward materialized."""
+    import random
+    from datetime import datetime, timedelta, timezone
+
+    import numpy as np
+
+    from omni_recall_tpu_torch.config import EngineOptions
+    from omni_recall_tpu_torch.index.records import ChunkRecord, DocumentRecord
+    from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
+    from omni_recall_tpu_torch.ingest.embedding import LocalEncoderEmbeddingClient
+    from omni_recall_tpu_torch.models.encoder import EncoderConfig
+    from omni_recall_tpu_torch.search.engine import RecallEngine
+
+    d, n = 64, 4096
+    cfg = EncoderConfig(vocab_size=2048, d_model=64, n_layers=2, n_heads=4, d_ff=128,
+                        max_len=32, out_dim=d)
+    client = LocalEncoderEmbeddingClient(d, cfg=cfg)
+    rng = random.Random(5)
+    t0 = datetime(2026, 8, 1, tzinfo=timezone.utc)
+    store = InMemoryIngestionStore()
+    store.upsert_document(DocumentRecord(id="d", file_name="d.txt"))
+    contents = [f"topic c{rng.randrange(n // 24)}x note r{i}" for i in range(n)]
+    emb = client.embed_rows(contents)
+    chunks = [ChunkRecord(id=f"d:{i:05d}", document_id="d", chunk_index=i, content=c,
+                          embedding=emb[i], created_at_utc=t0 + timedelta(minutes=i))
+              for i, c in enumerate(contents)]
+    store.upsert_chunks(chunks)
+    engine = RecallEngine(store, options=EngineOptions(
+        backend="pallas", scan_dtype="int8", embedding_dim=d, capacity_block=1024,
+        candidate_m=32, bloom_bits=512, recent_window=0, refine=True,
+        device_exact_cos=True, direct_select=True))
+    engine.on_chunks_upserted(chunks, new=True)
+    engine.attach_device_embedder(client)
+    forwards = []
+    real = client.embed_device
+    client.embed_device = lambda texts: forwards.append(real(texts)) or forwards[-1]
+    reqs = [(f"{contents[i].split()[1]} r{i}", None, 5) for i in rng.sample(range(n), 64)]
+    cuda.reset_launches()
+    got = engine.search_batch(reqs, now=t0 + timedelta(days=4))
+    assert cuda.LAUNCHES["coarse_scan"] > 0 and cuda.LAUNCHES["dd_rows"] > 0
+    assert len(forwards) == 1 and forwards[0].is_cuda
+    rows = forwards[0].cpu().numpy()
+    oracle = RecallEngine(store, None, EngineOptions(backend="oracle", recent_window=0))
+    for (q, _, k), hits, row in zip(reqs, got, rows):
+        want = oracle.search(q, row.tolist(), k, now=t0 + timedelta(days=4))
+        assert [(h.chunk.id, round(h.score, 4)) for h in hits] == [
+            (h.chunk.id, round(h.score, 4)) for h in want], q
+    assert np.isfinite(rows).all()

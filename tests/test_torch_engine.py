@@ -253,7 +253,10 @@ def test_every_not_ported_message_names_a_roadmap_title():
         src = path.read_text()
         # a title may open the next line of an implicitly joined string
         named += re.findall(r'ROADMAP\.md, "?\s*\'?"([^"]+)"', src)
-    assert len(named) >= 5
+    # the 501 route, Ai:Provider=Local, the encoder's training functions
+    # and Engine:Shards each name their item
+    assert len(named) >= 4
+    assert {"Local models", "Row sharding over GPUs (parallel/)"} <= set(named)
     missing = [t for t in named if t not in titles]
     assert not missing, missing
 

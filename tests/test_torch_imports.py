@@ -40,6 +40,15 @@ def test_engine_and_server_import_without_jax():
         "import omni_recall_tpu_torch.search.engine\n"
         "import omni_recall_tpu_torch.server.app\n"
         "import omni_recall_tpu_torch.server.__main__\n"
+        "import omni_recall_tpu_torch.models.encoder\n"
+        "import omni_recall_tpu_torch.ingest.embedding\n"
+        "import omni_recall_tpu_torch.chat\n"
+        "import omni_recall_tpu_torch.extract.ocr\n"
+        "import omni_recall_tpu_torch.server.openapi\n"
+        "import omni_recall_tpu_torch.server.ui\n"
+        "import omni_recall_tpu_torch.tools.probe_rebuild\n"
+        "import omni_recall_tpu_torch.tools.sweep_10m\n"
+        "import omni_recall_tpu_torch.tools.bench_ingest\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'omni_recall_tpu.'))"
         " or m == 'omni_recall_tpu']\n"
         "assert not bad, bad\n"

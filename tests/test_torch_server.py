@@ -173,16 +173,23 @@ def test_refine_configuration_responses_equal_the_jax_app(direct):
     assert tlog == jlog
 
 
-def test_ocr_provider_not_ported_raises():
-    """An OCR provider the port cannot build raises instead of silently
-    extracting no text from scanned PDFs; None keeps the no-op extractor."""
-    for provider in ("DocumentIntelligence", "AzureDocumentIntelligence", "Tesseract"):
-        config = tload(settings_file=None, env={},
-                       overrides={**OVERRIDES, "Ocr:Provider": provider})
-        with pytest.raises(NotImplementedError, match="Host-only providers and routes"):
-            tbuild(config, device="cpu")
-    assert tbuild(tload(settings_file=None, env={}, overrides={**OVERRIDES, "Ocr:Provider": "None"}),
-                  device="cpu").pdf_extractor is not None
+def test_ocr_provider_builds_the_extractor():
+    """Ocr:Provider=DocumentIntelligence (or AzureDocumentIntelligence) builds
+    the Document Intelligence extractor as the JAX app does; None and
+    unknown names keep the no-op extractor."""
+    from omni_recall_tpu.extract.ocr import DocumentIntelligenceOcrTextExtractor as JOcr
+    from omni_recall_tpu_torch.extract.ocr import DocumentIntelligenceOcrTextExtractor as TOcr
+
+    for provider, built in (("DocumentIntelligence", True), ("AzureDocumentIntelligence", True),
+                            ("Tesseract", False), ("None", False)):
+        overrides = {**OVERRIDES, "Ocr:Provider": provider, "Ocr:Endpoint": "https://ocr.invalid",
+                     "Ocr:ApiKey": "k"}
+        tapp = tbuild(tload(settings_file=None, env={}, overrides=overrides), device="cpu")
+        japp = jbuild(jload(settings_file=None, env={}, overrides=overrides))
+        tocr, jocr = tapp.pdf_extractor.ocr, japp.pdf_extractor.ocr
+        assert isinstance(tocr, TOcr) is built and isinstance(jocr, JOcr) is built
+        assert type(tocr).__name__ == type(jocr).__name__
+        assert tapp.pdf_extractor.min_chars == japp.pdf_extractor.min_chars
 
 
 def _apps(overrides):
@@ -227,16 +234,12 @@ def test_bf16_scan_storage_serves():
 
 @pytest.mark.parametrize("method, path, title", [
     ("POST", "/api/documents/train", "Local models"),
-    ("POST", "/api/chat", "Host-only providers and routes"),
-    ("GET", "/swagger/v1/swagger.json", "Host-only providers and routes"),
-    ("GET", "/swagger", "Host-only providers and routes"),
-    ("GET", "/", "Host-only providers and routes"),
 ])
 def test_unported_routes_answer_501_naming_their_roadmap_item(method, path, title):
-    """The reference's five routes the port does not serve yet are registered
-    with its methods and paths: each answers a 501 problem naming its
-    ROADMAP.md item, never 404 or 405 (POST /api/documents/train must not
-    fall through to /api/documents/{document_id})."""
+    """The reference's route the port does not serve yet is registered with
+    its method and path: it answers a 501 problem naming its ROADMAP.md
+    item, never 404 or 405 (POST /api/documents/train must not fall through
+    to /api/documents/{document_id})."""
     client = TClient(tbuild(tload(settings_file=None, env={}, overrides=OVERRIDES),
                             device="cpu"))
     call = client.post if method == "POST" else client.get
@@ -244,6 +247,96 @@ def test_unported_routes_answer_501_naming_their_roadmap_item(method, path, titl
     assert resp.status == 501
     body = resp.json()
     assert body["status"] == 501 and f'(ROADMAP.md, "{title}")' in body["detail"]
+
+
+class _ScriptedChat:
+    """A chat client that answers every prompt with the same cited text."""
+
+    def __init__(self, contracts):
+        self.contracts = contracts
+        self.prompts = []
+
+    def complete(self, request):
+        self.prompts.append(request.prompt)
+        return self.contracts.AiChatResponse(
+            text="Tensor cores multiply int8 tiles [1].\n\n The certificate  compares "
+                 "bounds [2] [7].", model="scripted-1", provider="Scripted")
+
+
+CHAT_PROMPTS = ["how do tensor cores multiply int8 tiles?",
+                "what does the certificate compare?", "basil and tomatoes", "   "]
+
+
+def _chat_transcript(client, rename):
+    log = []
+    for name, data in DOCS:
+        client.upload("/api/documents/upload", filename=name, data=data)
+    for prompt in CHAT_PROMPTS:
+        resp = client.post("/api/chat", json_body={"prompt": prompt, "topK": 3})
+        log.append((resp.status, _normalize(resp.json(), rename)))
+    resp = client.post("/api/chat", body=b"{not json", headers={"content-type": "application/json"})
+    log.append((resp.status, _normalize(resp.json(), rename)))
+    return log
+
+
+@pytest.mark.parametrize("method, path", [
+    ("POST", "/api/chat"),
+    ("GET", "/swagger/v1/swagger.json"),
+    ("GET", "/swagger"),
+    ("GET", "/"),
+])
+def test_ported_routes_answer_as_the_jax_app(method, path):
+    """Chat, the OpenAPI document, the API docs page and the UI page answer
+    as the JAX app's routes: POST /api/chat the same DTOs under the same
+    scripted chat client and, with the default remote chain and no keys,
+    the same recall-only fallback; the documents and pages byte for byte."""
+    import omni_recall_tpu.contracts as jcontracts
+    import omni_recall_tpu_torch.contracts as tcontracts
+
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (jingest, jengine, tingest, tengine):
+            mp.setattr(module, "datetime", _FixedClock)
+        if method == "GET":
+            japp = jbuild(jload(settings_file=None, env={}, overrides=OVERRIDES))
+            tapp = tbuild(tload(settings_file=None, env={}, overrides=OVERRIDES), device="cpu")
+            jresp, tresp = JClient(japp).get(path), TClient(tapp).get(path)
+            assert tresp.status == jresp.status == 200
+            assert tresp.body == jresp.body
+
+            def headers(resp):  # the response time is each app's own
+                return {k: v for k, v in resp.headers.items() if k != "X-Response-Time-Ms"}
+            assert headers(tresp) == headers(jresp)
+            if path.endswith(".json"):
+                assert tresp.json() == jresp.json() and "/api/chat" in tresp.json()["paths"]
+            return
+        jchat, tchat = _ScriptedChat(jcontracts), _ScriptedChat(tcontracts)
+        japp = jbuild(jload(settings_file=None, env={}, overrides=OVERRIDES), chat_router=jchat)
+        tapp = tbuild(tload(settings_file=None, env={}, overrides=OVERRIDES),
+                      chat_router=tchat, device="cpu")
+        jlog = _chat_transcript(JClient(japp), _Renamer())
+        tlog = _chat_transcript(TClient(tapp), _Renamer())
+        assert tlog == jlog and tchat.prompts == jchat.prompts
+        assert any(body.get("provider") == "Scripted" for status, body in tlog if status == 200)
+        # the default remote chain with no API keys: the reference's fallback
+        japp = jbuild(jload(settings_file=None, env={}, overrides=OVERRIDES))
+        tapp = tbuild(tload(settings_file=None, env={}, overrides=OVERRIDES), device="cpu")
+        jlog = _chat_transcript(JClient(japp), _Renamer())
+        tlog = _chat_transcript(TClient(tapp), _Renamer())
+        assert tlog == jlog
+
+
+def test_remote_embedding_provider_is_built():
+    """Embeddings:Provider=Gemini builds the Gemini client (no call is made
+    at construction), as the JAX app does; the dim goes to its requests."""
+    from omni_recall_tpu_torch.ingest.embedding import GeminiEmbeddingClient
+
+    overrides = {**OVERRIDES, "Embeddings:Provider": "Gemini"}
+    tapp = tbuild(tload(settings_file=None, env={}, overrides=overrides), device="cpu")
+    japp = jbuild(jload(settings_file=None, env={}, overrides=overrides))
+    assert isinstance(tapp.embedding_client, GeminiEmbeddingClient)
+    assert type(japp.embedding_client).__name__ == "GeminiEmbeddingClient"
+    assert tapp.embedding_client.output_dim == japp.embedding_client.output_dim == 64
+    assert tapp.search_service.device_query is False
 
 
 def test_local_chat_provider_not_ported_raises():
