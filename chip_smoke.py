@@ -134,14 +134,38 @@ Phases, one JSON line each:
                 ("topic c{k}x note r{i}", ~24 rows a cluster token) into the
                 headline index; the app attaches it to the engine. A mixed
                 batch (device-embedded and explicit vectors through K1 and
-                K2, empty vectors through K5; ``localq_mixed``), then one
-                timed, split batch of 448 text-only queries ("c{k}x r{i}")
-                through the device-resident query pipeline, a sample of each
-                batch DTO-identical to the exact float64 scan of every row
-                fed the bits the engine's forward materialized. The forward's
-                time a batch, the corpus encode rate, certified QPS, the
-                batch's time, the resolved share, escalations, host
-                fallbacks.
+                K2, empty vectors through K5; ``localq_mixed``), then the
+                first 32 queries of a text-only batch ("c{k}x r{i}") through
+                the device-resident query pipeline, split. Then the bench's
+                fine-tune of the same encoder (600 steps of 256 pairs
+                "c{k}x" -> content), the corpus re-embedded, the index
+                reloaded and the whole batch of 448 served again, split
+                (``localq_trained``). A sample of each batch DTO-identical to
+                the exact float64 scan of every row fed the bits the
+                engine's forward materialized. The forward's time a batch,
+                the corpus encode rate, and for both weights certified QPS,
+                the batch's time, the resolved share at the prepass and in
+                all, escalations, host scans.
+4f. ``train``   the encoder's training: a small config's first 5 steps on the
+                card against the port's CPU path (losses within the CPU
+                tests' tolerances), a repeat of its 20-step fine-tune
+                (bitwise or not, printed), then ``POST /api/documents/train``
+                on an app with the local encoder and the headline engine
+                over 2^15 uploaded chunks (documents of 32): step ms (CUDA
+                events), losses, peak memory, train and reindex seconds,
+                recall@10 of the known cluster before and after (64
+                searches), 8 searches after DTO-identical to the float64
+                scan of the stored vectors.
+4g. ``chat_local`` Ai:Provider=Local (the seed-0 decoder) with the local
+                encoder: 8 concurrent ``POST /api/chat`` through the
+                continuous batcher (4 slots, 16-token chunks); every stream
+                bit for bit the card's ``generate`` for its prompt; prefill
+                ms at the buckets 128 / 256 / 512, the decode chunk's ms a
+                step and tokens/s at 4 live slots.
+4h. ``probe_localq`` ``omni_recall_tpu_torch.tools.probe_localq`` at the
+                bench's default (2^16 rows, its small encoder fine-tuned):
+                warm-ups, three split batches of 1536 with the host helpers'
+                timers, six pipelined.
 4e. ``bench_ingest`` the append pipeline at 100k chunks
                 (``omni_recall_tpu_torch.tools.bench_ingest``): append and
                 upload for f32 and int8 storage, chunks/s; no kernel.
@@ -1353,7 +1377,7 @@ def _server_checks(config) -> dict:
             raise AssertionError(f"GET {path}: HTTP {resp.status} {resp.headers}")
         pages[path] = len(resp.body)
     doc = client.get("/swagger/v1/swagger.json").json()
-    if not {"/api/chat", "/api/recall/search"} <= set(doc["paths"]):
+    if not {"/api/chat", "/api/recall/search", "/api/documents/train"} <= set(doc["paths"]):
         raise AssertionError(f"the OpenAPI document lacks routes: {sorted(doc['paths'])}")
     # snapshot persistence: POST /api/snapshot, then a second app on the
     # same Storage:SnapshotDir restores by the slab route
@@ -1529,6 +1553,16 @@ PATH_KERNELS = {
     "compact": ("coarse_scan",),
     "localq": ("coarse_scan", "dd_rows"),
     "localq_mixed": ("coarse_scan", "dd_rows", "kw_scan"),
+    "localq_trained": ("coarse_scan", "dd_rows"),
+    "probe_localq": ("coarse_scan",),
+    # the train route itself searches nothing: its kernels are the
+    # searches'. A tuple is "one of": whether a search starts with K1 or
+    # goes straight to K4 depends on the coarse gate, which the untrained
+    # encoder's misses may close
+    "train_searches_before": (("coarse_scan", "fused_scan"),),
+    "train": (),
+    "train_searches_after": (("coarse_scan", "fused_scan"),),
+    "chat_local": (("coarse_scan", "fused_scan"),),
     "sweep_10m": ("coarse_scan",),
     "probe_rebuild": (),
     "bench_ingest": (),
@@ -1591,7 +1625,8 @@ def run_path(paths: dict, name: str, batches: int, fn, stats=None):
     if stats is not None:
         rec["stats"] = {k: v - s0.get(k, 0) for k, v in stats.items() if v != s0.get(k, 0)}
     paths[name] = rec
-    missing = [k for k in PATH_KERNELS[name] if launches[k] == 0]
+    missing = [k for k in PATH_KERNELS[name]
+               if not any(launches[x] for x in (k if isinstance(k, tuple) else (k,)))]
     if missing:
         raise AssertionError(f"path {name}: kernels never launched: {missing} ({rec})")
     extra = [k for k in PATH_FORBIDS.get(name, ()) if launches[k]]
@@ -2133,7 +2168,8 @@ def snapshot_phase(seed: int, paths: dict) -> dict:
 
 LOCALQ_ROWS = 1 << 20
 LOCALQ_PER_CLUSTER = 24  # rows a cluster token (bench.py build_localq_engine)
-LOCALQ_MIXED = 32        # queries of the mixed batch
+LOCALQ_MIXED = 16        # queries of the mixed batch
+LOCALQ_SEED_BATCH = 32   # text-only queries served under the seed-0 weights
 LOCALQ_SAMPLE = 8        # oracle-checked queries a batch
 LOCALQ_SLAB = 1 << 15    # corpus rows a forward
 
@@ -2151,27 +2187,25 @@ def localq_phase(seed: int, paths: dict) -> dict:
     device-resident query pipeline). First one mixed batch, while the
     coarse gate is still open: device-embedded queries and explicit host
     vectors, assembled on the card for K1 and K2, and empty vectors (K5).
-    Then one text-only batch of 448 queries naming a cluster and a row
-    ("c{k}x r{i}"), timed split (an exact host scan of 2^20 rows takes
-    ~0.4 s, and under the seed-0 weights most queries need one). A sample
-    of each batch must be DTO-identical to the exact float64 scan of every
-    row, fed the query bits the engine's own forward materialized. Prints
-    the forward's time a batch (CUDA events), the corpus encode rate,
-    certified QPS and the batch's time, the resolved share, escalation
-    rounds, host fallbacks and the launches of the path."""
+    Then the first 32 queries of a text-only batch naming a cluster and a
+    row ("c{k}x r{i}"), timed split (under the seed-0 weights most need an
+    exact host scan of 2^20 rows, ~0.36 s each). Then the bench's fine-tune
+    of this encoder (``tools/localq.py finetune``: 600 AdamW steps of 256
+    pairs "c{k}x" -> content), the corpus re-embedded and the index
+    reloaded, and the whole batch of 448 served again, split
+    (``localq_trained``). A sample of each batch must be DTO-identical to
+    the exact float64 scan of every row, fed the query bits the engine's
+    own forward materialized. Prints the forward's time a batch (CUDA
+    events), the corpus encode rate, and for each set of weights certified
+    QPS, the batch's time, the resolved share at the prepass and in all,
+    escalation rounds, host scans and the launches of the path."""
     import gc
-    from datetime import timedelta
 
     import numpy as np
     import torch
 
-    from omni_recall_tpu_torch.config import load_config
-    from omni_recall_tpu_torch.index.device_index import EPOCH
-    from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
     from omni_recall_tpu_torch.ingest.embedding import LocalEncoderEmbeddingClient
-    from omni_recall_tpu_torch.search.engine import RecallEngine
-    from omni_recall_tpu_torch.server.app import build_app
-    from omni_recall_tpu_torch.tools import median_ms
+    from omni_recall_tpu_torch.tools import localq, median_ms
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -2180,7 +2214,7 @@ def localq_phase(seed: int, paths: dict) -> dict:
     client = LocalEncoderEmbeddingClient(DIM, seed=0)  # CUDA, the default config
     cfg = client.cfg
     line = {"phase": "localq", "rows": n, "dim": DIM, "bloom_bits": BITS, "batch": BATCH,
-            "n_clusters": n_clusters, "encoder": dict(cfg.__dict__), "weights": "seed 0",
+            "n_clusters": n_clusters, "encoder": dict(cfg.__dict__),
             "config": "headline: pallas int8, refine planes, direct selection, device-exact "
                       "cosine, coarse (1024, 2); Embeddings:Provider=Local, DeviceQuery",
             "gpu": nvidia_smi()}
@@ -2188,84 +2222,33 @@ def localq_phase(seed: int, paths: dict) -> dict:
     contents = [f"topic c{assign[i]}x note r{i}" for i in range(n)]
 
     # the corpus, slab by slab (tokenize, forward on the card, read back)
-    emb = np.empty((n, DIM), dtype=np.float32)
     client.embed_rows(contents[:LOCALQ_SLAB])  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for s0 in range(0, n, LOCALQ_SLAB):
-        emb[s0:s0 + LOCALQ_SLAB] = client.embed_rows(contents[s0:s0 + LOCALQ_SLAB])
+    emb = localq.encode(client, contents, LOCALQ_SLAB)
     line["corpus_encode_s"] = time.perf_counter() - t0
     line["corpus_chunks_per_s"] = n / line["corpus_encode_s"]
     probe = contents[:BATCH]
     batch_vecs = np.asarray([r.vector for r in client.embed_batch(probe)], dtype=np.float32)
     if not bitwise(torch.from_numpy(batch_vecs), torch.from_numpy(client.embed_rows(probe))):
         raise AssertionError("embed_batch and embed_rows differ on one slab")
-    norms = np.linalg.norm(emb[:: 1 << 10], axis=1)
-    if not (np.isfinite(emb[:: 1 << 10]).all() and np.allclose(norms, 1.0, atol=1e-3)):
-        raise AssertionError("the encoder's rows are not finite unit rows")
-    sample_rows = emb[np.random.default_rng(seed).integers(0, n, 512)].astype(np.float64)
-    gram = sample_rows @ sample_rows.T
-    line["mean_offdiag_cosine"] = float((gram.sum() - np.trace(gram)) / (512 * 511))
-
-    t0 = time.perf_counter()
-    engine = RecallEngine(InMemoryIngestionStore(), options=headline_options(n))
-    records: dict = {}
-    line["resident_gib"] = load_index(engine, emb, np.arange(n), contents,
-                                      corpus_created_days(n), records)
-    line["index_build_s"] = time.perf_counter() - t0
-    del records
-    # attached as the app attaches it (Embeddings:Provider=Local)
-    config = load_config(settings_file=None, env={}, overrides={
-        "Engine:Backend": "pallas", "Engine:ScanDtype": "int8", "Engine:Refine": "true",
-        "Engine:DirectSelect": "true", "Engine:DeviceExactCos": "true",
-        "Engine:EmbeddingDim": DIM, "Engine:BloomBits": BITS,
-        "Embeddings:Provider": "Local", "Embeddings:Dim": DIM})
-    app = build_app(config, engine=engine, embedding_client=client)
-    if not (app.search_service.device_query and engine._device_embedder is client):
-        raise AssertionError("the app did not attach the local encoder to the engine")
-    # the query bits each forward materialized: the oracle is fed these
-    forwards: list = []
-    real_embed_device = client.embed_device
-
-    def recording(texts):
-        out = real_embed_device(texts)
-        forwards.append(out)
-        return out
-
-    client.embed_device = recording
-    now = EPOCH + timedelta(days=365.0)
+    line["mean_offdiag_cosine"] = _unit_rows_check(emb, seed)
 
     def make_requests(rseed: int):
         r = np.random.default_rng(rseed)
         rows = r.integers(0, n, BATCH)
         return [(f"c{assign[i]}x r{i}", None, 10) for i in rows]
 
+    served = _LocalqServer(client, emb, contents, line)
     # the forward of one batch of 448 query texts: on token ids already on
     # the card, and with the host's tokenization (embed_device)
     texts = [t for t, _, _ in make_requests(seed + 2999)]
     ids = torch.from_numpy(client._bucketed_ids(texts)).cuda()
     line["encoder_forward_ms"] = median_ms(lambda: client.encoder(ids), torch.device("cuda"),
                                            runs=5)
-    line["embed_device_ms"] = median_ms(lambda: real_embed_device(texts), torch.device("cuda"),
-                                        runs=5)
+    line["embed_device_ms"] = median_ms(lambda: served.real_embed_device(texts),
+                                        torch.device("cuda"), runs=5)
     line["encoder_shape"] = list(ids.shape)
-    checked = 0
-
-    def check(reqs, results, bits, positions):
-        """``bits``: the forward's rows of the batch's device-embedded
-        queries, in request order."""
-        nonlocal checked
-        dev_pos = [i for i, (q, e, _) in enumerate(reqs) if e is None and q.strip()]
-        rows = bits.cpu().numpy()
-        for i in positions:
-            q, e, k = reqs[i]
-            if e is None and q.strip():
-                e = rows[dev_pos.index(i)].tolist()
-            want = engine._search_full_host(q, e, k, 0, now)
-            if dto(results[i]) != dto(want):
-                raise AssertionError(f"localq query {q!r}: {dto(results[i])} != oracle "
-                                     f"{dto(want)}")
-        checked += len(positions)
 
     def mixed():
         """One batch: a quarter explicit host vectors (the client's own
@@ -2279,49 +2262,512 @@ def localq_phase(seed: int, paths: dict) -> dict:
                 reqs.append((q, [], k))
             else:
                 reqs.append((q, None, k))
-        forwards.clear()
+        served.forwards.clear()
         t = time.perf_counter()
-        res = engine.search_batch(reqs, now=now)
+        res = served.engine.search_batch(reqs, now=served.now)
         line["mixed_batch_ms"] = (time.perf_counter() - t) * 1e3
-        if len(forwards) != 1 or forwards[0].shape[0] != sum(e is None for _, e, _ in reqs):
+        if (len(served.forwards) != 1
+                or served.forwards[0].shape[0] != sum(e is None for _, e, _ in reqs)):
             raise AssertionError("the mixed batch did not embed its text-only queries in "
                                  "one forward")
-        return reqs, res, forwards[0]
+        return reqs, res, served.forwards[0]
 
-    reqs, res, b = run_path(paths, "localq_mixed", 1, mixed, engine.stats)
-    check(reqs, res, b, range(LOCALQ_SAMPLE))
+    reqs, res, b = run_path(paths, "localq_mixed", 1, mixed, served.engine.stats)
+    served.check(reqs, res, b, range(LOCALQ_SAMPLE))
+    batch = make_requests(seed + 3001)
+    line["seed_init"] = served.serve(paths, "localq", batch[:LOCALQ_SEED_BATCH])
 
-    def serve():
-        reqs = make_requests(seed + 3001)
-        forwards.clear()
-        res, seconds, split = split_batch(engine, reqs, now)
-        return reqs, res, forwards[0], seconds, split
-
-    reqs, res, b, seconds, split = run_path(paths, "localq", 1, serve, engine.stats)
-    t = time.perf_counter()
-    check(reqs, res, b, range(LOCALQ_SAMPLE))
-    line["oracle_s"] = time.perf_counter() - t
-    rec = paths["localq"]
-    stats = rec["stats"]  # the split batch bypasses search_batch's query count
+    # the bench's fine-tune of this encoder, the corpus re-embedded, the
+    # index reloaded, and the whole batch served again
+    served.close()
+    losses: list = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = localq.finetune(cfg, assign, contents, device="cuda",
+                            on_step=lambda i, loss: losses.append(loss))
+    torch.cuda.synchronize()
+    line["finetune"] = {"steps": localq.LQ_STEPS, "pairs": localq.LQ_PAIRS,
+                        "s": time.perf_counter() - t0, "loss_first": float(losses[0]),
+                        "loss_last": float(losses[-1])}
+    client.swap_params(state, tag=f"localq-{localq.LQ_STEPS}")
+    t0 = time.perf_counter()
+    emb = localq.encode(client, contents, LOCALQ_SLAB)
+    line["trained_encode_s"] = time.perf_counter() - t0
+    line["trained_mean_offdiag_cosine"] = _unit_rows_check(emb, seed)
+    served = _LocalqServer(client, emb, contents, line, prefix="trained_")
+    line["trained"] = served.serve(paths, "localq_trained", batch)
     line.update(
-        # one batch: its time is the p50
-        batches=1, certified_qps=BATCH / seconds, p50_batch_ms=seconds * 1e3, breakdown=split,
-        encoder_share_of_batch=line["embed_device_ms"] / (seconds * 1e3),
-        resolved_share=stats.get("coarse_resolved_total", 0) / BATCH,
-        dd_resolved_share=stats.get("dd_resolved_total", 0) / BATCH,
-        host_fallback_share=stats.get("host_fallbacks_total", 0) / BATCH,
-        escalation_rounds=stats.get("escalation_rounds_total", 0),
-        host_fallbacks=stats.get("host_fallbacks_total", 0), stats=stats,
-        launches={k: rec["launches"][k] for k in ("coarse_scan", "dd_rows", "refine",
-                                                  "fused_scan")},
-        reduced="1 timed batch of 448 (each text-only query needing an exact host scan "
-                "of 2^20 rows costs ~0.4 s)",
         mixed_queries=LOCALQ_MIXED, mixed_stats=paths["localq_mixed"]["stats"],
-        oracle_checked=checked, oracle_per_batch=LOCALQ_SAMPLE,
-        paths={k: paths[k] for k in ("localq", "localq_mixed")})
+        mixed_launches=paths["localq_mixed"]["launches"],
+        reduced=f"the seed-init weights serve {LOCALQ_SEED_BATCH} of the batch's 448 "
+                "queries (each needing an exact host scan of 2^20 rows costs ~0.36 s); "
+                "one timed batch each",
+        paths={k: paths[k] for k in ("localq", "localq_mixed", "localq_trained")})
     emit(line)
-    client.embed_device = real_embed_device
-    del engine, app, client, emb, contents, reqs, res, b
+    served.close()
+    del client, emb, contents
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+def _unit_rows_check(emb, seed: int) -> float:
+    """Every 1024th row finite and of unit norm; the mean off-diagonal
+    cosine of 512 sampled rows."""
+    import numpy as np
+
+    norms = np.linalg.norm(emb[:: 1 << 10], axis=1)
+    if not (np.isfinite(emb[:: 1 << 10]).all() and np.allclose(norms, 1.0, atol=1e-3)):
+        raise AssertionError("the encoder's rows are not finite unit rows")
+    rows = emb[np.random.default_rng(seed).integers(0, emb.shape[0], 512)].astype(np.float64)
+    gram = rows @ rows.T
+    return float((gram.sum() - np.trace(gram)) / (512 * 511))
+
+
+class _LocalqServer:
+    """The localq corpus in the headline index, the client attached as the
+    app attaches it, its forwards recorded so the oracle is fed the bits
+    the engine materialized."""
+
+    def __init__(self, client, emb, contents, line, prefix: str = "") -> None:
+        from datetime import timedelta
+
+        import numpy as np
+
+        from omni_recall_tpu_torch.config import load_config
+        from omni_recall_tpu_torch.index.device_index import EPOCH
+        from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
+        from omni_recall_tpu_torch.search.engine import RecallEngine
+        from omni_recall_tpu_torch.server.app import build_app
+
+        n = emb.shape[0]
+        t0 = time.perf_counter()
+        self.engine = RecallEngine(InMemoryIngestionStore(), options=headline_options(n))
+        records: dict = {}
+        line[prefix + "resident_gib"] = load_index(self.engine, emb, np.arange(n), contents,
+                                                   corpus_created_days(n), records)
+        line[prefix + "index_build_s"] = time.perf_counter() - t0
+        config = load_config(settings_file=None, env={}, overrides={
+            "Engine:Backend": "pallas", "Engine:ScanDtype": "int8", "Engine:Refine": "true",
+            "Engine:DirectSelect": "true", "Engine:DeviceExactCos": "true",
+            "Engine:EmbeddingDim": DIM, "Engine:BloomBits": BITS,
+            "Embeddings:Provider": "Local", "Embeddings:Dim": DIM})
+        self.app = build_app(config, engine=self.engine, embedding_client=client)
+        if not (self.app.search_service.device_query
+                and self.engine._device_embedder is client):
+            raise AssertionError("the app did not attach the local encoder to the engine")
+        self.client = client
+        self.forwards: list = []
+        self.real_embed_device = client.embed_device
+
+        def recording(texts):
+            out = self.real_embed_device(texts)
+            self.forwards.append(out)
+            return out
+
+        client.embed_device = recording
+        self.now = EPOCH + timedelta(days=365.0)
+        self.checked = 0
+
+    def check(self, reqs, results, bits, positions) -> None:
+        """``bits``: the forward's rows of the batch's device-embedded
+        queries, in request order."""
+        dev_pos = [i for i, (q, e, _) in enumerate(reqs) if e is None and q.strip()]
+        rows = bits.cpu().numpy()
+        for i in positions:
+            q, e, k = reqs[i]
+            if e is None and q.strip():
+                e = rows[dev_pos.index(i)].tolist()
+            want = self.engine._search_full_host(q, e, k, 0, self.now)
+            if dto(results[i]) != dto(want):
+                raise AssertionError(f"localq query {q!r}: {dto(results[i])} != oracle "
+                                     f"{dto(want)}")
+        self.checked += len(positions)
+
+    def serve(self, paths: dict, name: str, reqs) -> dict:
+        """One text-only batch, split; its figures."""
+        def go():
+            self.forwards.clear()
+            res, seconds, split = split_batch(self.engine, reqs, self.now)
+            return res, self.forwards[0], seconds, split
+
+        res, bits, seconds, split = run_path(paths, name, 1, go, self.engine.stats)
+        t = time.perf_counter()
+        self.check(reqs, res, bits, range(LOCALQ_SAMPLE))
+        stats = paths[name]["stats"]  # the split batch bypasses search_batch's count
+        b = len(reqs)
+        return {"queries": b, "certified_qps": b / seconds, "p50_batch_ms": seconds * 1e3,
+                "breakdown": split, "oracle_s": time.perf_counter() - t,
+                "oracle_checked": LOCALQ_SAMPLE,
+                "resolved_at_prepass": stats.get("coarse_resolved_total", 0) / b,
+                "dd_resolved_share": stats.get("dd_resolved_total", 0) / b,
+                "resolved_in_all": 1.0 - stats.get("host_fallbacks_total", 0) / b,
+                "host_scans": stats.get("host_fallbacks_total", 0),
+                "escalation_rounds": stats.get("escalation_rounds_total", 0),
+                "stats": stats,
+                "launches": {k: paths[name]["launches"][k]
+                             for k in ("coarse_scan", "dd_rows", "refine", "fused_scan")}}
+
+    def close(self) -> None:
+        import gc
+
+        import torch
+
+        self.client.embed_device = self.real_embed_device
+        self.app = self.engine = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def probe_localq_path(paths: dict) -> dict:
+    """``omni_recall_tpu_torch.tools.probe_localq`` at the bench's own
+    default: 2^16 rows, the bench's small encoder (``LQ_CFG``: vocab 8192,
+    d_model 128, 2 layers) fine-tuned 600 steps, batches of 1536, three
+    split and six pipelined."""
+    from omni_recall_tpu_torch.tools import localq, probe_localq
+
+    timings: dict = {}
+    lines: list = []
+
+    def go():
+        engine, make_reqs, n, client = localq.build_localq_engine(timings=timings)
+        out = probe_localq.probe(engine, make_reqs, emit=lines.append)
+        return out, n, dict(client.cfg.__dict__)
+
+    out, n, cfg = run_path(paths, "probe_localq", 9, go)
+    line = {"phase": "probe_localq", "rows": n, "encoder": cfg, "setup": timings, **out,
+            "stage_lines": len(lines), "launches": paths["probe_localq"]["launches"],
+            "gpu": nvidia_smi()}
+    emit(line)
+    return line
+
+
+# the train path: the route's corpus, its documents and its searches
+TRAIN_ROWS = 1 << 15
+TRAIN_DOC_CHUNKS = 32
+TRAIN_SEARCHES = 64
+TRAIN_SAMPLE = 8             # oracle-checked searches after the reindex
+TRAIN_SMALL = dict(vocab_size=4096, d_model=64, n_layers=2, n_heads=4, d_ff=128,
+                   max_len=32, out_dim=64)
+TRAIN_PARITY_STEPS = 5
+TRAIN_REPEAT_STEPS = 20
+
+
+def train_phase(seed: int, paths: dict) -> dict:
+    """The ``train`` path: the encoder's training on the card.
+
+    First the parity check: a small config's first 5 steps
+    (``inverse_cloze_finetune``, batches of 32) on the card and on the
+    port's CPU path in this process, with the CPU tests' tolerances: in f32
+    compute the first step's loss (the same weights) within 1e-5 relative
+    and every step's within 1e-3 (the fine-tune's: AdamW turns last-bit
+    differences of small gradients into whole steps), in bf16 every step's
+    within 2e-3 (the bf16 loss's).
+    Then the
+    repeat check: the small config fine-tuned twice from one seed on the
+    card; whether the two state dicts are bitwise equal. Then the route:
+    the app with ``Embeddings:Provider=Local`` (the default, full-width
+    encoder at its seed-0 init) and the headline engine; 2^15 chunks of the
+    localq recipe's texts uploaded through ``/api/documents/upload`` in
+    documents of 32 chunks; 64 searches "c{k}x" through
+    ``/api/recall/search``; ``POST /api/documents/train`` (300 steps of 64
+    pairs, as ``train_embedder`` builds them: each step's time by CUDA
+    events, the loss at the first and the last step, the card's peak
+    memory); the 64 searches again, 8 of them DTO-identical to the float64
+    scan of the stored vectors fed the query bits the engine's forward
+    materialized. Prints the train and reindex seconds, recall@10 of the
+    known cluster (the share of the top 10 from the query's cluster) before
+    and after, and the launches."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from omni_recall_tpu_torch.config import load_config
+    from omni_recall_tpu_torch.models import encoder, finetune
+    from omni_recall_tpu_torch.server.app import build_app
+    from omni_recall_tpu_torch.server.testing import TestClient
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    line = {"phase": "train", "gpu": nvidia_smi()}
+    rng = np.random.default_rng(seed + 5)
+    small_contents = [" ".join(f"w{x}" for x in rng.integers(0, 600, rng.integers(4, 24)))
+                      for _ in range(400)]
+    parity = {}
+    for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-3)):
+        cfg = encoder.EncoderConfig(**TRAIN_SMALL, compute_dtype=dtype)
+        runs = {}
+        for where in ("cpu", "cuda"):
+            losses: list = []
+            finetune.inverse_cloze_finetune(small_contents, cfg, steps=TRAIN_PARITY_STEPS,
+                                            seed=seed, batch=32, device=where,
+                                            on_step=lambda i, loss: losses.append(loss))
+            runs[where] = [float(x) for x in losses]
+        rel = [abs(a - b) / abs(a) for a, b in zip(runs["cpu"], runs["cuda"])]
+        steps_tol = max(tol, 1e-3)
+        parity[dtype] = {"cpu": runs["cpu"], "cuda": runs["cuda"], "first_rel": rel[0],
+                         "max_rel": max(rel), "tol_first": tol, "tol_steps": steps_tol}
+        if not (rel[0] <= tol and max(rel) <= steps_tol):
+            raise AssertionError(f"train parity ({dtype}): card {runs['cuda']} against the "
+                                 f"CPU {runs['cpu']}")
+    line["parity"] = parity
+    cfg = encoder.EncoderConfig(**TRAIN_SMALL)
+    twice = [finetune.inverse_cloze_finetune(small_contents, cfg, steps=TRAIN_REPEAT_STEPS,
+                                             seed=seed, batch=32)
+             for _ in range(2)]
+    line["repeat"] = {"steps": TRAIN_REPEAT_STEPS,
+                      "bitwise": all(bitwise(twice[0][k], twice[1][k]) for k in twice[0]),
+                      "max_abs_diff": max(float((twice[0][k] - twice[1][k]).abs().max())
+                                          for k in twice[0])}
+    del twice
+
+    # the route
+    n = TRAIN_ROWS
+    n_clusters = n // LOCALQ_PER_CLUSTER
+    assign = np.random.default_rng(7).integers(0, n_clusters, size=n)
+    texts = [f"topic c{assign[i]}x note r{i}" for i in range(n)]
+    config = load_config(settings_file=None, env={}, overrides={
+        "Engine:Backend": "pallas", "Engine:ScanDtype": "int8", "Engine:Refine": "true",
+        "Engine:DirectSelect": "true", "Engine:DeviceExactCos": "true",
+        "Engine:EmbeddingDim": DIM, "Engine:BloomBits": BITS, "Engine:RecentWindow": 0,
+        "Engine:CandidateM": 128, "Engine:CapacityBlock": 8192,
+        "Embeddings:Provider": "Local", "Embeddings:Dim": DIM,
+        "Ingestion:ChunkSizeWords": 4, "Ingestion:ChunkOverlapWords": 0})
+    app = build_app(config)
+    client = TestClient(app)
+    emb_client = app.embedding_client
+    line["encoder"] = dict(emb_client.cfg.__dict__)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for d0 in range(0, n, TRAIN_DOC_CHUNKS):
+        body = " ".join(texts[d0:d0 + TRAIN_DOC_CHUNKS]).encode()
+        resp = client.upload("/api/documents/upload", filename=f"lq{d0:06d}.txt", data=body)
+        if resp.status != 201 or resp.json()["chunkCount"] != TRAIN_DOC_CHUNKS:
+            raise AssertionError(f"upload {d0}: HTTP {resp.status} {resp.body[:200]}")
+    line["upload_s"] = time.perf_counter() - t0
+    line["documents"] = n // TRAIN_DOC_CHUNKS
+    line["chunks"] = app.engine.device_index.n_rows
+    qrng = np.random.default_rng(seed + 7)
+    clusters = qrng.integers(0, n_clusters, TRAIN_SEARCHES)
+    by_chunk = {}
+
+    def searches():
+        hits = []
+        for k in clusters:
+            resp = client.post("/api/recall/search", json_body={"query": f"c{k}x", "topK": 10})
+            if resp.status != 200:
+                raise AssertionError(f"search c{k}x: HTTP {resp.status}")
+            cites = resp.json()["citations"]
+            hits.append(np.mean([by_chunk.setdefault(
+                c["chunkId"], c["snippet"]).split()[1] == f"c{k}x" for c in cites])
+                if cites else 0.0)
+        return float(np.mean(hits))
+
+    line["recall_at_10_before"] = run_path(paths, "train_searches_before", 1, searches,
+                                           app.engine.stats)
+    real_finetune = finetune.inverse_cloze_finetune
+    marks: dict = {}
+
+    def timed_finetune(*a, **kw):
+        events, losses = [], []
+
+        def on_step(i, loss):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            events.append(ev)
+            losses.append(loss)
+
+        out = real_finetune(*a, **kw, on_step=on_step)
+        torch.cuda.synchronize()
+        steps = [events[i].elapsed_time(events[i + 1]) for i in range(len(events) - 1)]
+        marks.update(trained=time.perf_counter(), step_ms=statistics.median(steps[1:]),
+                     loss_first=float(losses[0]), loss_last=float(losses[-1]),
+                     steps=len(losses), batch=kw.get("batch", 64))
+        return out
+
+    finetune.inverse_cloze_finetune = timed_finetune
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        def train():
+            t = time.perf_counter()
+            resp = client.post("/api/documents/train", json_body={})
+            return resp, t, time.perf_counter()
+
+        resp, t_start, t_end = run_path(paths, "train", 1, train, app.engine.stats)
+    finally:
+        finetune.inverse_cloze_finetune = real_finetune
+    body = resp.json()
+    if (resp.status != 200 or body["chunkCount"] != n or body["embeddedCount"] != n
+            or body["failedCount"] != 0 or body["steps"] != config.embeddings.train_steps):
+        raise AssertionError(f"POST /api/documents/train: HTTP {resp.status} {body}")
+    line.update(train_s=marks["trained"] - t_start, reindex_s=t_end - marks["trained"],
+                route_s=t_end - t_start, step_ms=marks["step_ms"], steps=marks["steps"],
+                pairs_a_step=marks["batch"], loss_first=marks["loss_first"],
+                loss_last=marks["loss_last"],
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                model=body["model"])
+    # the 64 searches again; a sample against the float64 scan of the stored
+    # vectors, fed the bits of the engine's own forward
+    forwards: list = []
+    real_embed_device = emb_client.embed_device
+    emb_client.embed_device = lambda q: forwards.append(real_embed_device(q)) or forwards[-1]
+    try:
+        line["recall_at_10_after"] = run_path(paths, "train_searches_after", 1, searches,
+                                              app.engine.stats)
+    finally:
+        emb_client.embed_device = real_embed_device
+    if len(forwards) != TRAIN_SEARCHES:
+        raise AssertionError(f"{len(forwards)} forwards for {TRAIN_SEARCHES} searches")
+    now = datetime.datetime.now(datetime.timezone.utc)
+    checked = 0
+    for k, bits in list(zip(clusters, forwards))[:TRAIN_SAMPLE]:
+        got = app.engine.search_batch([(f"c{k}x", bits[0].cpu().tolist(), 10)], now=now)[0]
+        want = app.engine._search_full_host(f"c{k}x", bits[0].cpu().tolist(), 10, 0, now)
+        if dto(got) != dto(want):
+            raise AssertionError(f"trained search c{k}x: {dto(got)} != oracle {dto(want)}")
+        checked += 1
+    stored = app.store.get_chunks_by_document_id(app.store.list_documents(1)[0].id)
+    line.update(oracle_checked=checked,
+                stored_rows_trained=bool(np.isfinite(np.asarray(stored[0].embedding)).all()),
+                launches={p: paths[p]["launches"] for p in (
+                    "train_searches_before", "train", "train_searches_after")},
+                search_stats={p: paths[p]["stats"] for p in (
+                    "train_searches_before", "train_searches_after")},
+                reduced="2^15 chunks (the bench's localq corpus holds 2^16); the route's "
+                        "default 300 steps")
+    emit(line)
+    del app, client, emb_client
+    gc.collect()
+    torch.cuda.empty_cache()
+    return line
+
+
+CHAT_SLOTS = 4
+CHAT_CHUNK = 16
+CHAT_REQUESTS = 8
+CHAT_DOCS = {
+    "hopper.txt": "The H100 reads device memory at terabytes per second. Tensor cores "
+                  "multiply int8 tiles and shared memory holds the working set of one block.",
+    "recall.txt": "Certified exact recall ranks chunks by cosine similarity, keyword overlap "
+                  "and recency, and widens the candidates when the certificate fails.",
+    "garden.txt": "Tomatoes need sun and steady water. Basil grows beside them and "
+                  "marigolds keep pests away from the beds in early summer.",
+}
+
+
+def chat_local_phase(paths: dict) -> dict:
+    """The ``chat_local`` path: the app with ``Ai:Provider=Local`` (the
+    seed-0 decoder at its default config: d_model 256, 4 layers, max_len
+    640, bf16) and ``Embeddings:Provider=Local``; 8 concurrent ``POST
+    /api/chat`` through the continuous batcher (4 slots, 16-token chunks,
+    128 new tokens). Each stream the batcher served must be bit for bit the
+    card's own ``generate`` for its prompt at the same attend window. Then
+    prefill ms at each prompt bucket (batch 1), and the batcher's decode
+    chunk at S = 4 live slots: ms a step and tokens/s (CUDA events)."""
+    import gc
+    import threading
+
+    import numpy as np
+    import torch
+
+    from omni_recall_tpu_torch.config import load_config
+    from omni_recall_tpu_torch.models import decoder
+    from omni_recall_tpu_torch.server.app import build_app
+    from omni_recall_tpu_torch.server.testing import TestClient
+
+    config = load_config(settings_file=None, env={}, overrides={
+        "Ai:Provider": "Local", "Ai:LocalWarmup": "false", "Ai:LocalSlots": CHAT_SLOTS,
+        "Ai:LocalChunkTokens": CHAT_CHUNK,
+        "Engine:Backend": "pallas", "Engine:ScanDtype": "int8", "Engine:Refine": "true",
+        "Engine:DirectSelect": "true", "Engine:DeviceExactCos": "true",
+        "Engine:EmbeddingDim": DIM, "Engine:BloomBits": BITS,
+        "Embeddings:Provider": "Local", "Embeddings:Dim": DIM,
+        "Ingestion:ChunkSizeWords": 12, "Ingestion:ChunkOverlapWords": 2,
+        "ChatQuality:EnableRecallOnlyFallbackOnProviderFailure": "true"})
+    app = build_app(config)
+    client = TestClient(app)
+    local = app.local_chat
+    cfg, w = local.cfg, local.weights
+    for name, text in CHAT_DOCS.items():
+        if client.upload("/api/documents/upload", filename=name, data=text.encode()).status \
+                != 201:
+            raise AssertionError(f"upload {name}")
+    words = " ".join(CHAT_DOCS.values()).split()
+    prompts = [" ".join(words[6 * i: 6 * i + 12]) for i in range(CHAT_REQUESTS)]
+    batcher = local._get_batcher()
+    served: list = []
+    real_submit = batcher.submit
+
+    def recording(toks, seed, max_new):
+        req = real_submit(toks, seed, max_new)
+        served.append(req)
+        return req
+
+    batcher.submit = recording
+    answers: dict = {}
+
+    def ask(p):
+        resp = client.post("/api/chat", json_body={"prompt": p, "topK": 3})
+        answers[p] = (resp.status, resp.json())
+
+    def go():
+        threads = [threading.Thread(target=ask, args=(p,)) for p in prompts]
+        t = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        return time.perf_counter() - t
+
+    seconds = run_path(paths, "chat_local", 1, go)
+    batcher.submit = real_submit
+    if len(served) != CHAT_REQUESTS or any(s != 200 for s, _ in answers.values()):
+        raise AssertionError(f"chat_local: {len(served)} streams, "
+                             f"{[s for s, _ in answers.values()]}")
+    for req in served:
+        bucket = batcher.bucket_for(len(req.toks), req.max_new)
+        out = decoder.generate(w, decoder.pad_left_batch([req.toks], bucket), cfg,
+                               req.max_new)[0].tolist()
+        want = []
+        for t in out:
+            if t in (decoder.EOS, decoder.PAD):
+                break
+            want.append(t)
+        if req.tokens != want[: req.max_new]:
+            raise AssertionError(f"a batcher stream differs from generate(): {req.tokens[:16]} "
+                                 f"against {want[:16]}")
+    providers = sorted({a["provider"] for _, a in answers.values()})
+    line = {"phase": "chat_local", "decoder": dict(cfg.__dict__), "requests": CHAT_REQUESTS,
+            "slots": CHAT_SLOTS, "chunk": CHAT_CHUNK, "max_new": local.max_new_tokens,
+            "streams_bitwise_generate": True, "providers": providers,
+            "tokens": sum(len(r.tokens) for r in served), "chunks": batcher.chunks_run,
+            "wall_s": seconds, "launches": paths["chat_local"]["launches"],
+            "gpu": nvidia_smi()}
+    # prefill at each bucket, batch 1; the decode chunk at S = 4 live slots
+    rng = np.random.default_rng(0)
+    line["prefill_ms"] = {}
+    for bucket in (128, 256, 512):
+        ids = torch.from_numpy(rng.integers(3, 259, size=(1, bucket))).cuda()
+        line["prefill_ms"][bucket] = time_ms(lambda: decoder.prefill(w, ids, cfg))
+    state = decoder.SlotState(cfg, CHAT_SLOTS, w.device)
+    for s in range(CHAT_SLOTS):
+        ids = rng.integers(3, 259, size=(1, 512))
+        logits, cache = decoder.prefill(w, ids, cfg)
+        decoder.insert_slot(state, cache, logits, ids, s, s, cfg)
+    state.pos[:CHAT_SLOTS] = 512  # hold the positions: each timed chunk writes the same cells
+
+    def chunk():
+        state.done[:CHAT_SLOTS] = False
+        state.pos[:CHAT_SLOTS] = 512
+        decoder.decode_chunk(w, state, cfg, CHAT_CHUNK, 0.0, 640)
+
+    chunk_ms = time_ms(chunk)
+    line.update(decode_chunk_ms=chunk_ms, decode_ms_per_token_step=chunk_ms / CHAT_CHUNK,
+                tokens_per_s_at_s4=CHAT_SLOTS * CHAT_CHUNK / chunk_ms * 1e3)
+    emit(line)
+    local.shutdown()
+    del app, client, local, state
     gc.collect()
     torch.cuda.empty_cache()
     return line
@@ -2773,18 +3219,23 @@ def main() -> int:
         t = time.perf_counter()
         out = fn(*a)
         clock.append((name, time.perf_counter() - t))
+        print(json.dumps({"phase_seconds": dict([clock[-1]])}), flush=True)
         return out
 
     profile = timed("profile", profile_path, paths)
     stages = timed("probe_serve", probe_serve_path, paths)
     timed("server", run_path, paths, "server", len(QUERIES) + 2, server_phase)
-    # the localq path's exact host scans (~0.36 s a query at 2^20 rows) grew
-    # the run past 450 s: the refine-select and the bf16 / f32 /
-    # reference-default paths serve 2 timed batches here, not 3, and the
-    # compact path 2 (COMPACT_BATCHES), each batch still with its oracle sample
-    timed("serve", serve_phase, args.seed, paths, 4, 2, 8, 2)
+    # the localq path's exact host scans (~0.36 s a query at 2^20 rows) and
+    # the local models' paths grew the run past 450 s: the embedding path
+    # serves 3 timed batches here, not 4, the refine-select and the bf16 /
+    # f32 / reference-default paths 2, not 3, and the compact path 2
+    # (COMPACT_BATCHES), each batch still with its oracle sample
+    timed("serve", serve_phase, args.seed, paths, 3, 2, 8, 2)
     timed("snapshot", snapshot_phase, args.seed, paths)
     timed("localq", localq_phase, args.seed, paths)
+    timed("train", train_phase, args.seed, paths)
+    timed("chat_local", chat_local_phase, paths)
+    timed("probe_localq", probe_localq_path, paths)
     timed("bench_ingest", bench_ingest_path, paths)
     compact = timed("compact", compact_phase, args.seed, paths)
     emit({"phase": "clock", "seconds": dict(clock),

@@ -13,7 +13,9 @@ Behavioral mirror of the reference's DocumentIngestionService
   (:309-363),
 - chunk ids ``{docId}:{index:04d}``, doc ids ``doc_{uuid hex}`` (:103, :127),
 - reindex re-embeds all chunks in chunk-index order with per-status counters,
-  keeping the old vector unless the new embed fully succeeded (:220-291).
+  keeping the old vector unless the new embed fully succeeded (:220-291),
+- ``train_embedder`` (new scope): fine-tunes the local encoder on the
+  corpus, swaps it in and reindexes every document.
 
 TPU deviation (documented): created_at_utc is stamped under the index append
 lock rather than before embedding, so device index row order is exactly
@@ -37,6 +39,7 @@ from omni_recall_tpu_torch.contracts import (
     DocumentDetails,
     DocumentListItem,
     ReindexDocumentResponse,
+    TrainEncoderResponse,
     UploadDocumentResponse,
 )
 from omni_recall_tpu_torch.device import is_device_error
@@ -258,7 +261,53 @@ class DocumentIngestionService:
             document_id, len(updated), embedded, rate_limited, empty, failed, reindexed_at
         )
 
-    # -- train (new TPU scope: corpus-trained local encoder) --
+    # -- train (new scope: the corpus-trained local encoder) --
+
+    def train_embedder(self, steps: int = 300, seed: int = 0) -> TrainEncoderResponse | None:
+        """Fine-tune the LOCAL encoder on the ingested corpus and re-embed
+        everything with it (JAX ingest/service.py ``train_embedder``).
+
+        Gather every chunk's content from the store, fine-tune from the
+        seed init with the inverse-cloze objective (models/finetune.py) on
+        the client's device, hot-swap the client's weights, then reindex
+        every document so the stored vectors agree with the new encoder
+        (the reference's reindex re-embed + swap,
+        DocumentIngestionService.cs:220-291). A document deleted while the
+        encoder trains is skipped. Searches racing the reindex may mix
+        old-encoder rows with new-encoder queries: a quality blip only, the
+        engine's certificate is relative to the stored vectors.
+
+        Returns None when the embedding provider is not trainable (the
+        route maps that to 409); raises IngestionError on an empty corpus.
+        """
+        client = self.embedding_client
+        if not hasattr(client, "swap_params") or not hasattr(client, "cfg"):
+            return None
+        documents = self.store.list_documents(2**31 - 1)
+        contents = [c.content for d in documents
+                    for c in self.store.get_chunks_by_document_id(d.id)]
+        if not contents:
+            raise IngestionError("No ingested content to train on.")
+        from omni_recall_tpu_torch.models.finetune import inverse_cloze_finetune
+
+        steps = max(1, int(steps))
+        logger.info("training local encoder: %d chunks, %d steps", len(contents), steps)
+        params = inverse_cloze_finetune(contents, client.cfg, steps=steps, seed=seed,
+                                        device=client.device)
+        client.swap_params(params, tag=f"trained-{steps}")
+        doc_count = chunk_count = embedded = failed = 0
+        for d in documents:
+            result = self.reindex_document(d.id)
+            if result is None:  # deleted mid-train
+                continue
+            doc_count += 1
+            chunk_count += result.chunk_count
+            embedded += result.embedded_count
+            failed += result.failed_count
+        logger.info("local encoder trained + corpus re-embedded: %d documents, %d chunks, "
+                    "%d embedded", doc_count, chunk_count, embedded)
+        return TrainEncoderResponse(doc_count, chunk_count, embedded, failed, steps,
+                                    client.model, datetime.now(timezone.utc))
 
     # -- internals --
 

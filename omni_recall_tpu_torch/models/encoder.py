@@ -18,9 +18,13 @@ both ways. ``init_params(seed)`` reproduces ``init_params(PRNGKey(seed))``
 of the JAX package from numpy: threefry2x32 over a 64-bit iota
 (``split``, bit for bit), the uniform bits of ``jax.random.uniform`` and
 XLA's f32 inverse error function (``normal``, within a few f32 ulps of
-JAX's weights). The
-training functions (``info_nce_loss``, the train steps) and the sharding
-specs wait for the training slice (ROADMAP.md, "Local models").
+JAX's weights).
+
+Training is plain autograd through the same graph (``encode``):
+``info_nce_loss``, ``make_train_step`` with ``AdamW`` (``optax.adamw``
+written in torch) and ``sgd_train_step``; ``trainable`` makes the f32
+master copies and ``tree_from_state`` turns a state dict back into the JAX
+pytree. The sharding specs wait for ROADMAP.md 1.5.
 """
 
 from __future__ import annotations
@@ -247,19 +251,88 @@ class _Layer(nn.Module):
         self.w2, self.b2 = _param(f, d), _param(d)
 
 
+class _Rsqrt(torch.autograd.Function):
+    """``lax.rsqrt`` with JAX's derivative, g * (-0.5 * (ans / x)), each
+    operation rounded in the operand's dtype (PyTorch's own rsqrt backward
+    forms ans^3, which rounds otherwise in bf16)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ans = torch.rsqrt(x)
+        ctx.save_for_backward(x, ans)
+        return ans
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ans = ctx.saved_tensors
+        return g * (-0.5 * (ans / x))
+
+
 def _layer_norm(x, scale, bias, eps=1e-6):
     """jnp.mean / jnp.var of a bf16 array compute in f32 and round their
-    result back; the population variance (``correction=0``)."""
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True).to(x.dtype)
-    var = xf.var(dim=-1, keepdim=True, correction=0).to(x.dtype)
-    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
+    result back; the population variance (``correction=0``). Each takes its
+    own f32 copy of x, as each jnp call converts it, so their gradients
+    round to bf16 apart, as JAX's transposes round them."""
+    mean = x.float().mean(dim=-1, keepdim=True).to(x.dtype)
+    var = x.float().var(dim=-1, keepdim=True, correction=0).to(x.dtype)
+    return (x - mean) * _Rsqrt.apply(var + eps) * scale + bias
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a @ w with compute-dtype operands summed in f32: the operands' f32
     upcast is exact, and the f32 product runs with TF32 off."""
     return torch.matmul(a.float(), w.float())
+
+
+# the leaves of one layer, under their names in the state dict
+LAYER_KEYS = ("ln1.scale", "ln1.bias", "ln2.scale", "ln2.bias", "wq", "wk", "wv", "wo",
+              "w1", "b1", "w2", "b2")
+
+
+def _attention(x, layer, mask, cfg: EncoderConfig):
+    b, l, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim
+    dtype = x.dtype
+    q, k, v = (_mm(x, layer[w]).reshape(b, l, h, hd) for w in ("wq", "wk", "wv"))
+    logits = torch.einsum("blhe,bmhe->bhlm", q, k) / np.float32(np.sqrt(hd))
+    logits = torch.where(mask[:, None, None, :], logits,
+                         torch.tensor(-1e30, dtype=torch.float32, device=x.device))
+    weights = torch.softmax(logits, dim=-1).to(dtype).float()
+    out = torch.einsum("bhlm,bmhe->blhe", weights, v)
+    return _mm(out.reshape(b, l, h * hd).to(dtype), layer["wo"])
+
+
+def encode(params, token_ids: torch.Tensor, cfg: EncoderConfig) -> torch.Tensor:
+    """The JAX package's ``forward(params, ids, cfg)`` on the state dict's
+    tensors (``params``: a mapping of its keys), differentiable: the casts
+    sit where the JAX graph puts them, so autograd rounds the gradients at
+    the same places as JAX's transposes. The token gather is
+    ``F.embedding``, whose backward on the card sums by sorted index (no
+    atomics)."""
+    from omni_recall_tpu_torch.ops.scorer import _no_tf32
+
+    dtype = getattr(torch, cfg.compute_dtype)
+    token_ids = token_ids.to(params["tok_embed"].device).long()
+    mask = token_ids > 0
+    with _no_tf32():
+        x = (torch.nn.functional.embedding(token_ids, params["tok_embed"])
+             + params["pos_embed"][None, : token_ids.shape[1]])
+        x = x.to(dtype)
+        for i in range(cfg.n_layers):
+            layer = {name: params[f"layers.{i}.{name}"].to(dtype) for name in LAYER_KEYS}
+            h = _layer_norm(x, layer["ln1.scale"], layer["ln1.bias"])
+            x = x + _attention(h, layer, mask, cfg).to(dtype)
+            h = _layer_norm(x, layer["ln2.scale"], layer["ln2.bias"])
+            ff = _mm(h, layer["w1"]) + layer["b1"]
+            ff = torch.nn.functional.gelu(ff, approximate="tanh").to(dtype)
+            ff = _mm(ff, layer["w2"]) + layer["b2"]
+            x = x + ff.to(dtype)
+        x = _layer_norm(x.float(), params["final_ln.scale"], params["final_ln.bias"])
+        maskf = mask.to(torch.float32)
+        denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
+        pooled = (x * maskf[:, :, None]).sum(dim=1) / denom  # mean over real tokens
+        z = pooled @ params["out_proj"]
+        return z / torch.clamp(torch.linalg.norm(z, dim=-1, keepdim=True), min=1e-6)
 
 
 class Encoder(nn.Module):
@@ -283,46 +356,9 @@ class Encoder(nn.Module):
         model.load_state_dict({k: torch.as_tensor(v, dtype=torch.float32) for k, v in state.items()})
         return model.to(resolve_device(device)).eval()
 
-    def _attention(self, x, layer, mask):
-        cfg = self.cfg
-        b, l, _ = x.shape
-        h, hd = cfg.n_heads, cfg.head_dim
-        dtype = x.dtype
-        q, k, v = (_mm(x, w).reshape(b, l, h, hd)
-                   for w in (layer["wq"], layer["wk"], layer["wv"]))
-        logits = torch.einsum("blhe,bmhe->bhlm", q, k) / np.float32(np.sqrt(hd))
-        logits = torch.where(mask[:, None, None, :], logits,
-                             torch.tensor(-1e30, dtype=torch.float32, device=x.device))
-        weights = torch.softmax(logits, dim=-1).to(dtype).float()
-        out = torch.einsum("bhlm,bmhe->blhe", weights, v)
-        return _mm(out.reshape(b, l, h * hd).to(dtype), layer["wo"])
-
     @torch.no_grad()
     def forward(self, token_ids: torch.Tensor) -> torch.Tensor:
-        from omni_recall_tpu_torch.ops.scorer import _no_tf32
-
-        cfg = self.cfg
-        dtype = getattr(torch, cfg.compute_dtype)
-        token_ids = token_ids.to(self.tok_embed.device).long()
-        mask = token_ids > 0
-        with _no_tf32():
-            x = self.tok_embed[token_ids] + self.pos_embed[None, : token_ids.shape[1]]
-            x = x.to(dtype)
-            for mod in self.layers:
-                layer = {name: p.to(dtype) for name, p in mod.named_parameters()}
-                h = _layer_norm(x, layer["ln1.scale"], layer["ln1.bias"])
-                x = x + self._attention(h, layer, mask).to(dtype)
-                h = _layer_norm(x, layer["ln2.scale"], layer["ln2.bias"])
-                ff = _mm(h, layer["w1"]) + layer["b1"]
-                ff = torch.nn.functional.gelu(ff, approximate="tanh").to(dtype)
-                ff = _mm(ff, layer["w2"]) + layer["b2"]
-                x = x + ff.to(dtype)
-            x = _layer_norm(x.float(), self.final_ln.scale, self.final_ln.bias)
-            maskf = mask.to(torch.float32)
-            denom = torch.clamp(mask.sum(dim=1, keepdim=True), min=1)
-            pooled = (x * maskf[:, :, None]).sum(dim=1) / denom  # mean over real tokens
-            z = pooled @ self.out_proj
-            return z / torch.clamp(torch.linalg.norm(z, dim=-1, keepdim=True), min=1e-6)
+        return encode(dict(self.named_parameters()), token_ids, self.cfg)
 
 
 def forward(params: dict[str, torch.Tensor], token_ids, cfg: EncoderConfig,
@@ -330,6 +366,152 @@ def forward(params: dict[str, torch.Tensor], token_ids, cfg: EncoderConfig,
     """Functional form of the JAX package's ``forward(params, ids, cfg)``,
     on ``device``."""
     return Encoder.from_state(params, cfg, device)(torch.as_tensor(np.asarray(token_ids)))
+
+
+# -- training -----------------------------------------------------------------
+
+
+def info_nce_loss(params, query_ids, chunk_ids, cfg: EncoderConfig,
+                  temperature: float = 0.05) -> torch.Tensor:
+    """Symmetric in-batch-negatives contrastive loss (JAX ``info_nce_loss``)."""
+    from omni_recall_tpu_torch.ops.scorer import _no_tf32
+
+    zq = encode(params, query_ids, cfg)
+    zc = encode(params, chunk_ids, cfg)
+    with _no_tf32():
+        logits = (zq @ zc.T) / temperature
+    loss_qc = -torch.log_softmax(logits, dim=1).diagonal().mean()
+    loss_cq = -torch.log_softmax(logits, dim=0).diagonal().mean()
+    return 0.5 * (loss_qc + loss_cq)
+
+
+def trainable(params, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """f32 master copies of a state dict on ``device``, with ``requires_grad``."""
+    from omni_recall_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(v, dtype=torch.float32).detach().to(dev).clone()
+            .requires_grad_(True) for k, v in params.items()}
+
+
+def value_and_grad(loss_fn, params: dict[str, torch.Tensor], *args):
+    """(loss, {key: grad}) of ``loss_fn(params, *args)`` (``jax.value_and_grad``);
+    the backward runs with TF32 off, as the forward does."""
+    from omni_recall_tpu_torch.ops.scorer import _no_tf32
+
+    keys = list(params)
+    loss = loss_fn(params, *args)
+    with _no_tf32():
+        grads = torch.autograd.grad(loss, [params[k] for k in keys])
+    return loss.detach(), dict(zip(keys, grads))
+
+
+class AdamW:
+    """``optax.adamw`` written in torch, its defaults: b1 0.9, b2 0.999, eps
+    1e-8 outside the square root, weight decay 1e-4 on every leaf, the
+    bias corrections of f32 ``1 - b ** count``, and optax's order of
+    operations (the moments as ``(1 - b) * g + b * m``, the decay added to
+    the scaled update, then the step scaled by -lr). PyTorch's own
+    ``AdamW`` applies the decay first and defaults to 1e-2."""
+
+    def __init__(self, learning_rate: float = 1e-3, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8, weight_decay: float = 1e-4) -> None:
+        self.learning_rate, self.b1, self.b2 = learning_rate, b1, b2
+        self.eps, self.weight_decay = eps, weight_decay
+
+    def init(self, params: dict[str, torch.Tensor]) -> dict:
+        zeros = {k: torch.zeros_like(v, dtype=torch.float32).detach() for k, v in params.items()}
+        return {"count": 0, "mu": zeros, "nu": {k: v.clone() for k, v in zeros.items()}}
+
+    @torch.no_grad()
+    def update(self, grads: dict, state: dict, params: dict) -> tuple[dict, dict]:
+        """(updates, new state), as ``optimizer.update(grads, state, params)``.
+        Each operation runs over every leaf at once (``torch._foreach_*``:
+        a few launches a step on the card, not a dozen a leaf); each element
+        is rounded as the per-leaf expression would round it."""
+        keys = list(grads)
+        g = [grads[k] for k in keys]
+        b1, b2 = np.float32(self.b1), np.float32(self.b2)
+        count = state["count"] + 1
+        c1 = float(np.float32(1.0) - b1 ** np.float32(count))
+        c2 = float(np.float32(1.0) - b2 ** np.float32(count))
+        fe = torch
+        mu = fe._foreach_add(fe._foreach_mul(g, 1.0 - self.b1),
+                             fe._foreach_mul([state["mu"][k] for k in keys], self.b1))
+        nu = fe._foreach_add(fe._foreach_mul(fe._foreach_mul(g, g), 1.0 - self.b2),
+                             fe._foreach_mul([state["nu"][k] for k in keys], self.b2))
+        denom = fe._foreach_add(fe._foreach_sqrt(fe._foreach_div(nu, c2)), self.eps)
+        u = fe._foreach_div(fe._foreach_div(mu, c1), denom)
+        u = fe._foreach_add(u, fe._foreach_mul([params[k].detach() for k in keys],
+                                               self.weight_decay))
+        updates = fe._foreach_mul(u, -self.learning_rate)
+        return dict(zip(keys, updates)), {"count": count, "mu": dict(zip(keys, mu)),
+                                          "nu": dict(zip(keys, nu))}
+
+
+@torch.no_grad()
+def apply_updates(params: dict[str, torch.Tensor], updates: dict) -> dict[str, torch.Tensor]:
+    """``optax.apply_updates``, in place on the master copies."""
+    keys = list(updates)
+    torch._foreach_add_([params[k] for k in keys], [updates[k] for k in keys])
+    return params
+
+
+def sgd_train_step(params, query_ids, chunk_ids, cfg: EncoderConfig, lr: float = 1e-3):
+    """One plain SGD step (JAX ``sgd_train_step``): (params, loss)."""
+    loss, grads = value_and_grad(info_nce_loss, params, query_ids, chunk_ids, cfg)
+    with torch.no_grad():
+        for k, g in grads.items():
+            params[k].sub_(lr * g)
+    return params, loss
+
+
+def make_train_step(cfg: EncoderConfig, optimizer: AdamW | None = None):
+    """(optimizer, train_step) with ``train_step(params, opt_state,
+    query_ids, chunk_ids) -> (params, opt_state, loss)`` (JAX
+    ``make_train_step``; AdamW(1e-3) by default). ``params`` are the
+    master copies of ``trainable``, updated in place."""
+    optimizer = optimizer or AdamW(1e-3)
+
+    def train_step(params, opt_state, query_ids, chunk_ids):
+        loss, grads = value_and_grad(info_nce_loss, params, query_ids, chunk_ids, cfg)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return apply_updates(params, updates), opt_state, loss
+
+    return optimizer, train_step
+
+
+def bucket_ids(ids: np.ndarray, floor: int = 16) -> np.ndarray:
+    """Token ids [B, max_len] cut to the next power of two >= the longest
+    row (at least ``floor``, at most max_len): the padding positions are
+    masked out of attention and pooling, so the loss and its gradients do
+    not depend on the cut."""
+    n_tok = int((ids > 0).sum(axis=1).max()) if ids.size else 0
+    width = floor
+    while width < min(max(n_tok, 1), ids.shape[1]):
+        width *= 2
+    return ids[:, : min(width, ids.shape[1])]
+
+
+def tree_from_state(state: dict) -> dict:
+    """A state dict as the JAX package's parameter pytree (nested dicts and a
+    ``layers`` list of numpy f32 leaves): the layout ``jax.tree`` functions
+    and the JAX ``forward`` take."""
+    tree: dict = {}
+    for key, v in state.items():
+        parts = key.split(".")
+        node = tree
+        for part, nxt in zip(parts[:-1], parts[1:]):
+            default = [] if nxt.isdigit() else {}
+            if part.isdigit():
+                while len(node) <= int(part):
+                    node.append(default)
+                node = node[int(part)]
+            else:
+                node = node.setdefault(part, default)
+        leaf = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        node[parts[-1]] = np.array(leaf, dtype=np.float32)
+    return tree
 
 
 # -- checkpointing ------------------------------------------------------------

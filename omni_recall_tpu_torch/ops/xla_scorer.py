@@ -52,6 +52,8 @@ CERT_EPS = 1e-4  # certificate float-divergence margin (scores round to 4dp
 # rows scored per slab by score_topm (bounds its [B, slab] and [slab, 8W]
 # temporaries)
 SLAB_ROWS = 1 << 16
+# the products' row granule: slabs start at its multiples (_rows_product)
+ROW_ATOM = 128
 
 _LOW32 = 0xFFFFFFFF
 
@@ -104,6 +106,22 @@ def _topk_rows(scores: torch.Tensor, k: int):
     return _decode(torch.topk(_keys(scores), k, dim=1).values)
 
 
+def _rows_product(a: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """a @ rows.T [B, n], each value independent of n: the rows are padded
+    with zero rows to a multiple of ROW_ATOM, so the product is one GEMM of
+    [B, d] x [d, n'] whose column count never leaves a remainder. A GEMM
+    picks its kernel and its summation order by shape (PyTorch's CPU GEMM
+    gives other f32 bits for a 202-row slab than for the same rows among
+    4096), and a slab's values would otherwise depend on how the index is
+    cut into slabs. Slabs that start at multiples of ROW_ATOM give every
+    row the same values, whatever the slab size."""
+    n = rows.shape[0]
+    pad = -n % ROW_ATOM
+    if pad:
+        rows = torch.nn.functional.pad(rows, (0, 0, 0, pad))
+    return (a @ rows.T)[:, :n]
+
+
 def ub_scores(
     emb: torch.Tensor,         # f32[n, d] L2-normalized (zero rows = no embedding)
     bloom: torch.Tensor,       # u8[n, W]
@@ -119,8 +137,8 @@ def ub_scores(
     """Masked upper-bound scores [B, n] (-inf outside window/invalid)."""
     check_tf32_off()
     n = emb.shape[0]
-    cos = q @ emb.T  # [B, n]
-    kw = kw_weights @ unpack_bloom_bits(bloom).T
+    cos = _rows_product(q, emb)  # [B, n]
+    kw = _rows_product(kw_weights, unpack_bloom_bits(bloom))
     kw = torch.clamp_max(kw + kw_bias[:, None], 1.0)
     rec = torch.exp(torch.clamp_max(created - now_days, 0.0) * (1.0 / RECENCY_HALF_LIFE_DAYS))
     ub = COSINE_WEIGHT * cos + KEYWORD_WEIGHT * kw + RECENCY_WEIGHT * rec[None, :] + CERT_EPS
@@ -134,9 +152,11 @@ def score_topm(emb, bloom, created, valid, q, kw_weights, kw_bias, now_days,
     """Returns (ub_values[B, k], row_indices i32[B, k]) with k = min(m+1, n);
     entry m (when n > m) is the certificate boundary (max upper bound over
     excluded rows). Rows are scored ``slab_rows`` at a time with a running
-    top-k; the result is the one-shot top-k of ``ub_scores``."""
+    top-k; the result is the one-shot top-k of ``ub_scores``, bit for bit
+    (``slab_rows`` is rounded up to a multiple of ROW_ATOM)."""
     n = emb.shape[0]
     k = min(m + 1, n)
+    slab_rows = -(-max(1, slab_rows) // ROW_ATOM) * ROW_ATOM
     best = None
     for lo in range(0, n, slab_rows):
         hi = min(lo + slab_rows, n)

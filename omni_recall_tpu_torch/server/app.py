@@ -11,12 +11,12 @@ both, index/snapshot.py), chat (``POST /api/chat`` over the remote provider
 chain, ChatEndpoints.cs), the OpenAPI document, the API docs page and the
 UI page. ``Embeddings:Provider=Local`` embeds on the card with the local
 encoder, and its queries take the device-resident pipeline
-(``RecallEngine.attach_device_embedder``). Training the encoder
-(``POST /api/documents/train``) waits for a later slice: its route is
-registered with the reference's method and path and answers a 501 problem
-that names its ROADMAP.md item, and ``Ai:Provider=Local`` (the on-device
-chat decoder) raises at construction. The engine and the local encoder run
-on CUDA unless ``device="cpu"`` is passed.
+(``RecallEngine.attach_device_embedder``); ``POST /api/documents/train``
+fine-tunes that encoder on the corpus and re-embeds it.
+``Ai:Provider=Local`` answers chat with the on-card decoder
+(chat/local.py) through the continuous batcher, the remote chain as its
+fallback. The engine, the local encoder and the decoder run on CUDA unless
+``device="cpu"`` is passed.
 
 ``build_app`` accepts overrides for every dependency so tests can boot the
 whole app in-process with fakes — the reference's WebApplicationFactory
@@ -53,20 +53,6 @@ from omni_recall_tpu_torch.server.openapi import build_openapi_document
 
 ALLOWED_EXTENSIONS = {".pdf", ".txt", ".md", ".markdown"}  # DocumentEndpoints.cs:8-14
 
-# routes of the reference app (omni_recall_tpu/server/app.py:254-268) that
-# the port does not serve yet: (method, path, what, its ROADMAP.md item)
-NOT_PORTED_ROUTES = (
-    ("POST", "/api/documents/train", "Embedder training",
-     '(ROADMAP.md, "Local models")'),
-)
-
-
-def _not_ported(what: str, item: str):
-    def handler(request: Request) -> Response:
-        return Response.problem("Not implemented", f"{what} is not ported yet {item}.", 501)
-    return handler
-
-
 def _parse_top_k(value) -> int | None:
     """Validate user-supplied topK: accept ints (and integral floats/strings,
     matching ASP.NET model binding's leniency); None on anything else so the
@@ -100,11 +86,6 @@ class OmniRecallApp(WsgiApp):
         device: str = "cuda",
     ) -> None:
         self.config = config
-        if (config.ai.provider or "").strip().lower() == "local":
-            raise NotImplementedError(
-                "Ai:Provider=Local (the on-device chat decoder) is not ported yet "
-                '(ROADMAP.md, "Local models"); leave it unset'
-            )
         self.store = store if store is not None else InMemoryIngestionStore()
 
         if raw_store is not None:
@@ -196,6 +177,32 @@ class OmniRecallApp(WsgiApp):
         )
         if chat_router is not None:
             self.chat_router = chat_router
+        elif (config.ai.provider or "").strip().lower() == "local":
+            from omni_recall_tpu_torch.chat.local import LocalDecoderChatClient
+
+            # the on-card decoder is primary; the whole remote chain (Gemini
+            # -> GitHub Models) stays as its fallback, nested as a router
+            # (routers satisfy the IAiChatClient contract). Without API keys
+            # the nested router fails -> the recall-only fallback.
+            self.local_chat = LocalDecoderChatClient(
+                checkpoint=config.ai.local_checkpoint,
+                max_new_tokens=config.ai.local_max_new_tokens,
+                temperature=config.ai.local_temperature,
+                scheduler=config.ai.local_scheduler,
+                slots=config.ai.local_slots,
+                chunk_tokens=config.ai.local_chunk_tokens,
+                prefill_chunk=config.ai.local_prefill_chunk,
+                prefill_budget=config.ai.local_prefill_budget,
+                device=device,
+            )
+            if config.ai.local_warmup:
+                self.local_chat.warmup_async()  # overlaps server startup
+            remote_chain = AiChatRouter(
+                GeminiChatClient(config.gemini),
+                GitHubModelsChatClient(config.github_models),
+                config.ai_routing,
+            )
+            self.chat_router = AiChatRouter(self.local_chat, remote_chain, config.ai_routing)
         else:
             self.chat_router = AiChatRouter(
                 GeminiChatClient(config.gemini),
@@ -222,10 +229,9 @@ class OmniRecallApp(WsgiApp):
 
         router = Router()
         router.add("POST", "/api/documents/upload", self._upload_document)
-        for method, path, what, item in NOT_PORTED_ROUTES:
-            # before the {document_id} routes: POST /api/documents/train
-            # would otherwise match POST /api/documents/{document_id} (405)
-            router.add(method, path, _not_ported(what, item))
+        # before the {document_id} routes: POST /api/documents/train would
+        # otherwise match POST /api/documents/{document_id} (405)
+        router.add("POST", "/api/documents/train", self._train_embedder)
         router.add("GET", "/api/documents", self._list_documents)
         router.add("GET", "/api/documents/{document_id}", self._get_document)
         router.add("GET", "/api/documents/{document_id}/chunks", self._get_document_chunks)
@@ -377,6 +383,36 @@ class OmniRecallApp(WsgiApp):
             return Response.error("Document not found.", 404)
         return Response.json(result)
 
+    def _train_embedder(self, request: Request) -> Response:
+        """POST /api/documents/train: fine-tune the local encoder on the
+        ingested corpus and re-embed everything (ingest/service.py
+        ``train_embedder``). Admin route, synchronous: the fine-tune takes
+        seconds to minutes depending on steps x corpus size."""
+        try:
+            payload = request.json() or {}
+        except ValueError:
+            return Response.error("Invalid JSON body.")
+        if not isinstance(payload, dict):
+            return Response.error("Request body must be a JSON object.")
+        steps = payload.get("steps", self.config.embeddings.train_steps)
+        seed = payload.get("seed", 0)
+        if not isinstance(steps, int) or isinstance(steps, bool) or steps <= 0:
+            return Response.error("steps must be a positive integer.")
+        if not isinstance(seed, int) or isinstance(seed, bool):
+            return Response.error("seed must be an integer.")
+        try:
+            result = self.ingestion_service.train_embedder(steps=steps, seed=seed)
+        except IngestionError as exc:
+            return Response.error(str(exc))
+        if result is None:
+            return Response.problem(
+                "Embedding provider is not trainable.",
+                "POST /api/documents/train requires Embeddings:Provider=Local "
+                "(the on-device encoder).",
+                409,
+            )
+        return Response.json(result)
+
     # -- recall (RecallEndpoints.cs:20-30) --
 
     def _search_recall(self, request: Request) -> Response:
@@ -478,8 +514,8 @@ def build_app(
     overrides: dict | None = None,
     **dependencies,
 ) -> OmniRecallApp:
-    """The app; ``device`` (default "cuda") goes to the engine and the
-    local encoder."""
+    """The app; ``device`` (default "cuda") goes to the engine, the local
+    encoder and the local decoder."""
     if config is None:
         config = load_config(overrides=overrides)
     return OmniRecallApp(config, **dependencies)

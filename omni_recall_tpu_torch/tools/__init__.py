@@ -21,6 +21,13 @@ Host-only tools (no kernel of their own), each beside the module it drives:
 - ``sweep_10m``: K1 over the compact 10M store at several batches and
   layouts.
 - ``bench_ingest``: the index append pipeline in chunks/s.
+
+The local models' tools (the fine-tuned encoder and the chat decoder):
+
+- ``localq``: the bench's localq corpus, its fine-tuned encoder and engine
+  (``build_localq_engine``); ``probe_localq``: where its batches go.
+- ``train_embedder_demo``, ``train_chat_demo``: train the encoder and the
+  decoder and show the gain; ``bench_decode``: prefill and decode rates.
 """
 
 from __future__ import annotations

@@ -794,3 +794,70 @@ def test_device_query_batch_on_cuda_is_certified(dev):
         assert [(h.chunk.id, round(h.score, 4)) for h in hits] == [
             (h.chunk.id, round(h.score, 4)) for h in want], q
     assert np.isfinite(rows).all()
+
+
+def test_encoder_train_step_on_cuda_matches_cpu(dev):
+    """Three AdamW steps of the encoder (small config, f32 and bf16 compute)
+    on the card against the port's CPU steps on the same batches: the first
+    loss (the same weights) within 1e-5 (f32) and 2e-3 (bf16) relative,
+    every step's within 1e-3 in f32 (the CPU fine-tune test's tolerance:
+    AdamW turns last-bit differences of small gradients into whole steps)
+    and 2e-3 in bf16 (the bf16 loss's)."""
+    import dataclasses
+
+    from omni_recall_tpu_torch.models import encoder, finetune
+
+    base = encoder.EncoderConfig(vocab_size=4096, d_model=64, n_layers=2, n_heads=4,
+                                 d_ff=128, max_len=32, out_dim=64)
+    contents = [f"topic c{k % 40}x note r{k} " * (1 + k % 3) for k in range(200)]
+    for dtype, tol in (("float32", 1e-5), ("bfloat16", 2e-3)):
+        cfg = dataclasses.replace(base, compute_dtype=dtype)
+        runs = {}
+        for where in ("cpu", dev):
+            losses = []
+            finetune.inverse_cloze_finetune(contents, cfg, steps=3, seed=1, batch=32,
+                                            device=where,
+                                            on_step=lambda i, loss: losses.append(float(loss)))
+            runs[str(where)] = losses
+        rel = [abs(a - b) / abs(a) for a, b in zip(runs["cpu"], runs[str(dev)])]
+        assert rel[0] <= tol and max(rel) <= max(tol, 1e-3), (dtype, runs)
+
+
+def test_batcher_on_cuda_streams_equal_generate(dev):
+    """The continuous batcher on the card (4 slots, 8-token chunks, a
+    request joining mid-generation): each greedy stream bit for bit the
+    card's own ``generate`` for its prompt at the same attend window."""
+    import threading
+
+    from omni_recall_tpu_torch.chat.serving import ContinuousBatcher
+    from omni_recall_tpu_torch.models import decoder
+
+    cfg = decoder.DecoderConfig(d_model=64, n_layers=2, n_heads=4, d_ff=128, max_len=256)
+    w = decoder.serving_weights(decoder.init_params(3, cfg), cfg, dev)
+    batcher = ContinuousBatcher(decoder, w, cfg, slots=4, chunk=8, prompt_buckets=(64,))
+    prompts = [decoder.encode_text(f"prompt {i} " * (1 + i)) for i in range(6)]
+    results = [None] * len(prompts)
+
+    def run(i):
+        results[i] = batcher.generate_sync(prompts[i], 0, 40)
+
+    try:
+        threads = [threading.Thread(target=run, args=(i,)) for i in range(5)]
+        for t in threads:
+            t.start()
+        while batcher.chunks_run < 2:
+            threading.Event().wait(0.001)
+        late = threading.Thread(target=run, args=(5,))
+        late.start()
+        for t in threads + [late]:
+            t.join(timeout=300)
+    finally:
+        batcher.shutdown()
+    for toks, got in zip(prompts, results):
+        out = decoder.generate(w, decoder.pad_left_batch([toks], 64), cfg, 40)[0].tolist()
+        want = []
+        for t in out:
+            if t in (decoder.EOS, decoder.PAD):
+                break
+            want.append(t)
+        assert got == want

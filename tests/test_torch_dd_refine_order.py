@@ -173,7 +173,7 @@ def _warp_norm(x: torch.Tensor) -> torch.Tensor:
         total = total + red[:, j]
     for e in range(32 * nb, d):
         total = total + sq[:, e]
-    return torch.sqrt(total)
+    return scorer.sqrt32(total)  # sqrtf: correctly rounded
 
 
 def _warp_plane(x: torch.Tensor, absmax: torch.Tensor):
@@ -212,7 +212,7 @@ def test_k3_warp_quantization_is_the_plain_one(d):
     assert torch.equal(m1, p1) and torch.equal(m2, p2)
     assert _same(mt1, pt1[:, 0]) and _same(mt2, pt2[:, 0]) and _same(meq2, peq2[:, 0])
     assert _same(mqn, scorer.row_norm(tq) * (1.0 + 1e-6))
-    assert _same(_warp_norm(tq), torch.sqrt(scorer.row_sum(tq * tq)))
+    assert _same(_warp_norm(tq), scorer.sqrt32(scorer.row_sum(tq * tq)))
     assert float(mt1[2]) == 0.0 and float(meq2[2]) == np.float32(3e-7)
     # and through them the JAX package's, under jit as its refine graphs run
     j = [np.asarray(v) for v in jax.jit(jref.quantize_queries_int8_residual)(jnp.asarray(q))]

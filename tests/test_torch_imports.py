@@ -49,6 +49,15 @@ def test_engine_and_server_import_without_jax():
         "import omni_recall_tpu_torch.tools.probe_rebuild\n"
         "import omni_recall_tpu_torch.tools.sweep_10m\n"
         "import omni_recall_tpu_torch.tools.bench_ingest\n"
+        "import omni_recall_tpu_torch.models.finetune\n"
+        "import omni_recall_tpu_torch.models.decoder\n"
+        "import omni_recall_tpu_torch.chat.serving\n"
+        "import omni_recall_tpu_torch.chat.local\n"
+        "import omni_recall_tpu_torch.tools.localq\n"
+        "import omni_recall_tpu_torch.tools.probe_localq\n"
+        "import omni_recall_tpu_torch.tools.train_embedder_demo\n"
+        "import omni_recall_tpu_torch.tools.train_chat_demo\n"
+        "import omni_recall_tpu_torch.tools.bench_decode\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'omni_recall_tpu.'))"
         " or m == 'omni_recall_tpu']\n"
         "assert not bad, bad\n"
@@ -77,6 +86,21 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         RecallEngine(InMemoryIngestionStore(), options=EngineOptions(embedding_dim=32))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_app(load_config(settings_file=None, env={}))
+    from omni_recall_tpu_torch.chat.local import LocalDecoderChatClient
+    from omni_recall_tpu_torch.models import decoder, encoder, finetune
+
+    small = encoder.EncoderConfig(vocab_size=64, d_model=8, n_layers=1, n_heads=2, d_ff=8,
+                                  max_len=8, out_dim=8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        finetune.inverse_cloze_finetune(["a b c"], small, steps=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        encoder.trainable(encoder.init_params(0, small))
+    tiny = decoder.DecoderConfig(d_model=8, n_layers=1, n_heads=2, d_ff=8, max_len=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LocalDecoderChatClient(cfg=tiny, params=decoder.init_params(0, tiny))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_app(load_config(settings_file=None, env={}, overrides={
+            "Ai:Provider": "Local", "Ai:LocalWarmup": "false", "Engine:Backend": "oracle"}))
     # asked for explicitly, the CPU works
     assert DeviceIndex(32, device="cpu").device.type == "cpu"
     eng = RecallEngine(InMemoryIngestionStore(),

@@ -236,17 +236,19 @@ def test_bf16_scan_storage_serves():
     ("POST", "/api/documents/train", "Local models"),
 ])
 def test_unported_routes_answer_501_naming_their_roadmap_item(method, path, title):
-    """The reference's route the port does not serve yet is registered with
-    its method and path: it answers a 501 problem naming its ROADMAP.md
-    item, never 404 or 405 (POST /api/documents/train must not fall through
-    to /api/documents/{document_id})."""
-    client = TClient(tbuild(tload(settings_file=None, env={}, overrides=OVERRIDES),
-                            device="cpu"))
-    call = client.post if method == "POST" else client.get
-    resp = call(path, json_body={}) if method == "POST" else call(path)
-    assert resp.status == 501
-    body = resp.json()
-    assert body["status"] == 501 and f'(ROADMAP.md, "{title}")' in body["detail"]
+    """The route that once answered 501 (naming ROADMAP.md's "Local models")
+    is served now: with a provider that cannot be trained both apps answer
+    the same 409 problem, never 404, 405 or 501 (POST /api/documents/train
+    must not fall through to /api/documents/{document_id})."""
+    tclient = TClient(tbuild(tload(settings_file=None, env={}, overrides=OVERRIDES),
+                             device="cpu"))
+    jclient = JClient(jbuild(jload(settings_file=None, env={}, overrides=OVERRIDES)))
+    tresp, jresp = (c.post(path, json_body={}) for c in (tclient, jclient))
+    assert tresp.status == jresp.status == 409
+    assert tresp.json() == jresp.json()
+    assert title not in tresp.json()["detail"]
+    bad = [(c.post(path, json_body={"steps": 0}).status) for c in (tclient, jclient)]
+    assert bad == [400, 400]
 
 
 class _ScriptedChat:
@@ -340,11 +342,17 @@ def test_remote_embedding_provider_is_built():
 
 
 def test_local_chat_provider_not_ported_raises():
-    """Ai:Provider=Local has no decoder or chat route behind it: the app
-    refuses it at construction instead of reporting ai-local healthy."""
-    config = tload(settings_file=None, env={}, overrides={**OVERRIDES, "Ai:Provider": "Local"})
-    with pytest.raises(NotImplementedError, match="Local models"):
-        tbuild(config, device="cpu")
+    """Ai:Provider=Local, once refused at construction, is served now: the
+    app builds the on-card decoder as the primary chat client with the
+    remote router nested as its fallback, as the JAX app does."""
+    overrides = {**OVERRIDES, "Ai:Provider": "Local", "Ai:LocalWarmup": "false",
+                 "Ai:LocalMaxNewTokens": "4"}
+    tapp = tbuild(tload(settings_file=None, env={}, overrides=overrides), device="cpu")
+    japp = jbuild(jload(settings_file=None, env={}, overrides=overrides))
+    for app in (tapp, japp):
+        assert app.chat_router._primary.provider_name == "local"
+        assert type(app.chat_router._fallback).__name__ == "AiChatRouter"
+    assert tapp.chat_router._primary.max_new_tokens == japp.chat_router._primary.max_new_tokens
     remote = tload(settings_file=None, env={}, overrides={**OVERRIDES, "Ai:Provider": "Remote"})
     assert tbuild(remote, device="cpu").config.ai.provider == "Remote"
 
