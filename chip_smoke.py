@@ -18,7 +18,9 @@ Phases, one JSON line each:
                 f32 argument <= 0 and the term against PyTorch's over every
                 row of three 2^20-row indexes; K6 at sub 512,
                 t 4, the engine's layout at m = 128): the kernel against its
-                plain PyTorch version on the same inputs on the card —
+                plain PyTorch version on the same inputs on the card (K2
+                also through its gathered entry, ``dd_rows(q_raw, c)``,
+                bitwise to the by-index entry on the same rows) —
                 bitwise, K2's sabs within SABS_REL, K6 and T1 (tensor-core
                 sums in the hardware's order) under the parity rule of
                 ops/scorer.py fp_order_bound: bitwise on exactly-summable
@@ -107,12 +109,29 @@ Phases, one JSON line each:
                 wait / finalize split). Last, the same corpus in an
                 index without the residual planes (refine=False, the capacity
                 configuration) serves a keyword-led batch: its rescue runs
-                without K3. Then the same corpus in three more indexes, each
+                without K3. Before that, the ``sharded`` path (4i). Then
+                the same corpus in three more indexes, each
                 freed before the next, served in batches of 448 with an
                 oracle sample: bf16 storage under the pallas backend (the
                 bench's bf16 mode: K6), f32 storage (K6), and EngineOptions()
                 with only the corpus keys set (the reference's defaults:
                 backend xla over f32 storage, no kernel of the repository).
+4i. ``sharded`` the same corpus in a second headline engine whose index is
+                row-sharded over 4 shards of the card (``shards_mesh(devices=
+                [cuda:0] * 4)``, parallel/): warm-up, 3 timed embedding
+                batches (each shard's K1, then refine_select_dd: K3 and K2's
+                gathered entry on every shard), a keyword-led batch (the
+                shards' K4 rescue) and an empty-vector batch (K5); every DTO
+                equal to the single-device engine's and an oracle sample of
+                each batch; p50 and certified QPS beside the single-device
+                engine's. Then ``tools.sharded_check``'s op parity over the
+                headline planes on a one-shard mesh (bitwise) and the 4-shard
+                mesh at the same (sub, t) (top-m values and boundary bitwise,
+                a sound boundary, refine_select_dd bitwise); the two 10M-row
+                tests of tests/test_sharded.py on 8 shards of the card; a
+                one-rank NCCL group's collectives against the in-process
+                ones (bitwise); and the ``probe_sharded_timing`` path (the
+                tool at 2^20 rows on the 4-shard mesh: K7a alone).
 4b. ``snapshot`` (paths ``snapshot`` and ``rebuild``) a 2^17-row headline
                 index (the serve corpus's recipe, refine planes, device-exact
                 cosine, rows going round eight documents of a store): saved
@@ -135,7 +154,7 @@ Phases, one JSON line each:
                 headline index; the app attaches it to the engine. A mixed
                 batch (device-embedded and explicit vectors through K1 and
                 K2, empty vectors through K5; ``localq_mixed``), then the
-                first 32 queries of a text-only batch ("c{k}x r{i}") through
+                first 16 queries of a text-only batch ("c{k}x r{i}") through
                 the device-resident query pipeline, split. Then the bench's
                 fine-tune of the same encoder (600 steps of 256 pairs
                 "c{k}x" -> content), the corpus re-embedded, the index
@@ -151,7 +170,7 @@ Phases, one JSON line each:
                 tests' tolerances), a repeat of its 20-step fine-tune
                 (bitwise or not, printed), then ``POST /api/documents/train``
                 on an app with the local encoder and the headline engine
-                over 2^15 uploaded chunks (documents of 32): step ms (CUDA
+                over 2^14 uploaded chunks (documents of 32): step ms (CUDA
                 events), losses, peak memory, train and reindex seconds,
                 recall@10 of the known cluster before and after (64
                 searches), 8 searches after DTO-identical to the float64
@@ -166,7 +185,7 @@ Phases, one JSON line each:
                 bench's default (2^16 rows, its small encoder fine-tuned):
                 warm-ups, three split batches of 1536 with the host helpers'
                 timers, six pipelined.
-4e. ``bench_ingest`` the append pipeline at 100k chunks
+4e. ``bench_ingest`` the append pipeline at 50k chunks
                 (``omni_recall_tpu_torch.tools.bench_ingest``): append and
                 upload for f32 and int8 storage, chunks/s; no kernel.
 4c. ``compact`` the compact 10M store of the repository bench (10 x 2^20 x
@@ -536,9 +555,48 @@ def kernel_phase(seed: int, parent=None) -> dict:
     if not ab.get("parent_bitwise", True):
         raise AssertionError("dd_rows: kernel disagrees with the parent's build")
     results["dd"] = line
+    results["dd_gathered"] = dd_gathered_line(raw, rows, q_raw, (kh, kl, ks))
     del raw, q_raw
     torch.cuda.empty_cache()
     return results
+
+
+def dd_gathered_line(raw, rows, q_raw, by_index) -> dict:
+    """K2's second entry, ``exact_cos.dd_rows(q_raw, c)`` over rows already
+    gathered (the row-sharded path's owner gather), on the K2 line's rows:
+    hi and lo bitwise its plain version (sabs within SABS_REL), and all
+    three outputs bitwise the by-index entry's."""
+    import torch
+
+    from omni_recall_tpu_torch.ops import exact_cos
+
+    b, t = rows.shape
+    d = raw.shape[1]
+    c = raw.index_select(0, torch.where(rows < 0, 0, rows).reshape(-1).long()).reshape(b, t, d)
+    kern = lambda: exact_cos.dd_rows(q_raw, c)  # noqa: E731
+    plain = lambda: exact_cos.dd_sum_products(q_raw[:, None, :], c)  # noqa: E731
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    ok = dd_same(got, want)
+    same_as_index = all(bitwise(x, y) for x, y in zip(got, by_index))
+    p2 = 1 << (d - 1).bit_length()
+    pairs = b * t
+    bms, by = bound_ms(pairs * d * 4 + b * d * 4 + 3 * pairs * 4,
+                       pairs * (2 * d + 14 * (p2 - 1)), F32_OPS_PER_S)
+    line = dict(name="dd_rows[gathered]", replaces="omni_recall_tpu/ops/exact_cos.py:171",
+                entry="omni_dd_rows_gathered", shape=[b, t, d], parity=bitwise_parity(ok),
+                by_index_bitwise=same_as_index,
+                sabs_rel_err=float(((got[2] - want[2]).abs()
+                                    / want[2].abs().clamp_min(1e-30)).max()),
+                max_abs_err=max(float((x - y).abs().max()) for x, y in zip(got, want)),
+                ms=time_ms(kern, device_only=True), plain_ms=time_ms(plain),
+                bound_ms=bms, bound_by=by, library_ms=None)
+    emit({"phase": "kernel", **line})
+    if not ok:
+        raise AssertionError("dd_rows[gathered]: kernel disagrees with its plain version")
+    if not same_as_index:
+        raise AssertionError("dd_rows[gathered]: disagrees with the by-index entry")
+    return line
 
 
 REFINE_SHAPES = {"select": (BATCH, 64), "rescue": (64, 2048)}
@@ -1566,6 +1624,10 @@ PATH_KERNELS = {
     "sweep_10m": ("coarse_scan",),
     "probe_rebuild": (),
     "bench_ingest": (),
+    # the 4-shard engine: K1, K3 and K2's gathered entry on every shard each
+    # batch, K4 in the keyword-led batch's rescue, K5 for empty vectors
+    "sharded": ("coarse_scan", "refine", "dd_rows", "fused_scan", "kw_scan"),
+    "probe_sharded_timing": ("coarse_pair",),
 }
 # the int8 kernels: an f32/bf16 index must not reach them
 INT8_KERNELS = ("coarse_scan", "coarse_pair", "dd_rows", "refine", "fused_scan")
@@ -1581,6 +1643,7 @@ _SERVING_FORBIDS = {
     "compact": ("refine", "dd_rows", "coarse_pair", "fp_scan"),
     "bf16_batches": INT8_KERNELS,
     "f32_batches": INT8_KERNELS,
+    "sharded": ("coarse_pair", "fp_scan"),
     # backend xla: the plain-torch scorer, no kernel of the repository
     "reference_default_batches": SERVING_KERNELS,
 }
@@ -1595,6 +1658,9 @@ _OWN_FORBIDS = {
     "sweep_10m": tuple(k for k in SERVING_KERNELS if k != "coarse_scan") + PROBE_KERNELS,
     "probe_serve": ("coarse_pair", "fused_scan", "kw_scan", "fp_scan")
     + tuple(k for k in PROBE_KERNELS if k != "probe_serve"),
+    # the timing probe's coarse scans run at t = 1: K7a alone
+    "probe_sharded_timing": tuple(k for k in SERVING_KERNELS if k != "coarse_pair")
+    + PROBE_KERNELS,
 }
 PATH_FORBIDS = {
     name: _OWN_FORBIDS.get(name, _SERVING_FORBIDS.get(name, ()) + PROBE_KERNELS)
@@ -1906,6 +1972,10 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
     direct_gate = {"select_direct_last": engine._last_select_direct,
                    "query_count": engine._direct_query_count,
                    "skip_until": engine._direct_skip_until}
+    # the row-sharded engine over the same corpus, held to this one
+    t0 = time.perf_counter()
+    sharded_line = sharded_phase(engine, make_requests, check, now, seed, paths, timing)
+    sharded_s = time.perf_counter() - t0
     del engine
     torch.cuda.empty_cache()
 
@@ -1991,11 +2061,312 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
             k: paths[k]["stats"].get("host_fallbacks_total", 0)
             for k in ("keyword_led_refine_batch", "keyword_led_batch")},
         "direct_gate": direct_gate, "fp_paths": fp_timing,
+        "sharded": {k: sharded_line[k] for k in ("shards", "p50_batch_ms", "certified_qps")},
+        "sharded_s": sharded_s,
         "oracle_checked": checked, "oracle_per_batch": sample,
         "oracle_per_fp_batch": fp_sample,
         "paths": {k: v for k, v in paths.items() if k != "server"},
     }
     emit(line)
+    return line
+
+
+# ---------------------------------------------------------------- phase 4i
+
+SHARDS = 4           # shards of the row-sharded engine, all on the one card
+SHARDED_BATCHES = 3  # timed embedding batches of the sharded path
+
+
+def sharded_phase(engine, make_requests, check, now, seed: int, paths: dict,
+                  single_timing: dict) -> dict:
+    """The ``sharded`` path: the headline engine's corpus in a second engine
+    row-sharded over ``SHARDS`` shards of the card (``shards_mesh(devices=
+    [cuda:0] * 4)``, ~4.6 GiB beside the first engine's), built by the slab
+    route of a snapshot restore (``load_slabs``: the first engine's host
+    mirrors and its quantized planes, read back; the host quantizer's pass
+    over 2^20 x 768 rows would take most of the path), serving embedding
+    batches (K1, then refine_select_dd: K3 and
+    K2's gathered entry on every shard), a keyword-led batch (its misses
+    rescued by the shards' K4) and an empty-vector batch (K5). Every served
+    DTO must equal the single-device engine's on the same requests, and each
+    batch's oracle sample must pass. Then, outside the path's counts: the op
+    parity of ``tools.sharded_check`` on a one-shard and the 4-shard mesh
+    over the single-device engine's own planes, the two 10M-row shapes of
+    tests/test_sharded.py, a one-rank NCCL group against the in-process
+    collectives, and the ``probe_sharded_timing`` path."""
+    import torch
+
+    from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
+    from omni_recall_tpu_torch.parallel.mesh import shards_mesh
+    from omni_recall_tpu_torch.search.engine import RecallEngine
+
+    one = engine.device_index
+    n = one.n_rows
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = shards_mesh(devices=[card] * SHARDS)
+    t0 = time.perf_counter()
+    sh = RecallEngine(InMemoryIngestionStore(), options=headline_options(n), mesh=mesh)
+    planes = one.device_arrays()
+    sh.device_index.load_slabs(
+        one.meta[:n], emb_norm=one.emb[:n], raw_emb=one.raw_emb[:n],
+        raw_norm_sq=one.raw_norm_sq[:n], bloom=one.bloom[:n], created=one.created[:n],
+        created_us=one.created_us[:n], created_ts=one.created_ts[:n], seqs=one.seqs[:n],
+        lower_arena=bytes(one._arena), lower_off=one.content_off[:n + 1],
+        converted={k: getattr(planes, k)[:n].cpu().numpy()
+                   for k in ("emb", "scale", "err", "emb2", "scale2", "err2")})
+    dev_s = sh.device_index.device_arrays()
+    torch.cuda.synchronize()
+    resident = {k: round(getattr(dev_s, k).numel() * getattr(dev_s, k).element_size()
+                         / 2**30, 3) for k in ("emb", "emb2", "raw", "bloom")}
+    build_s = time.perf_counter() - t0
+
+    every = KEYWORD_LED_EVERY
+    emb_reqs = [make_requests(seed + 1100 + i) for i in range(SHARDED_BATCHES)]
+    led_reqs = make_requests(seed + 1200, keyword_led=every)
+    empty_reqs = make_requests(seed + 1300, empty=True)
+    # the single-device engine's answers, before the path's counts start
+    want = [engine.search_batch(r, now=now) for r in (*emb_reqs, led_reqs, empty_reqs)]
+    led = list(range(0, BATCH, every))
+    out: dict = {}
+
+    def serve():
+        sh.search_batch(make_requests(seed + 1000), now=now)  # warm-up
+        lat, got = [], []
+        for reqs in emb_reqs:
+            t = time.perf_counter()
+            got.append(sh.search_batch(reqs, now=now))
+            lat.append(time.perf_counter() - t)
+        for key, reqs in (("keyword_led_batch_ms", led_reqs),
+                          ("empty_vector_batch_ms", empty_reqs)):
+            t = time.perf_counter()
+            got.append(sh.search_batch(reqs, now=now))
+            out[key] = (time.perf_counter() - t) * 1e3
+        for reqs, res, res_1 in zip((*emb_reqs, led_reqs, empty_reqs), got, want):
+            if [dto(h) for h in res] != [dto(h) for h in res_1]:
+                raise AssertionError("sharded: served DTOs differ from the single-device engine")
+        for reqs, res in zip(emb_reqs, got):
+            check(sh, reqs, res)
+        check(sh, led_reqs, got[-2], led[:8] + [i + 1 for i in led[:8]])
+        check(sh, empty_reqs, got[-1])
+        out.update(certified_qps=len(lat) * BATCH / sum(lat),
+                   p50_batch_ms=statistics.median(lat) * 1e3, batch_ms=[x * 1e3 for x in lat])
+
+    run_path(paths, "sharded", 1 + SHARDED_BATCHES + 2, serve, sh.stats)
+    launches = paths["sharded"]["launches"]
+    batches = paths["sharded"]["batches"]
+    # each shard runs its own K1, K3 and K2 in every embedding batch
+    for kernel in ("coarse_scan", "refine", "dd_rows"):
+        if launches[kernel] < SHARDS * (1 + SHARDED_BATCHES):
+            raise AssertionError(f"sharded: {kernel} launched {launches[kernel]} times, "
+                                 f"fewer than {SHARDS} a batch")
+    del sh
+    torch.cuda.empty_cache()
+
+    dev = engine.device_index.device_arrays()
+    parity = sharded_op_parity(dev, seed)
+    big = sharded_10m_lines(seed)
+    nccl = nccl_line(dev, seed)
+    probe = run_path(paths, "probe_sharded_timing", 1 + 8 + 8, probe_sharded_timing_once)
+    line = {
+        "phase": "sharded", "shards": SHARDS, "devices": [str(d) for d in mesh.devices],
+        "rows": n, "dim": one.dim, "batch": BATCH,
+        "config": "headline_options (refine, device-exact cosine, coarse (1024, 2), "
+                  "candidate_m 128); the sharded engine takes the refine selection",
+        "build": "load_slabs (the single-device engine's mirrors and planes)",
+        "build_s": build_s, "resident_gib": resident, **out,
+        "single_device": {
+            "embedding_batches_p50_ms": statistics.median(single_timing["lat"]) * 1e3,
+            "embedding_batches_qps": len(single_timing["lat"]) * BATCH
+            / sum(single_timing["lat"]),
+            "refine_select_p50_ms": single_timing["refine_select"]["p50_batch_ms"],
+            "refine_select_qps": single_timing["refine_select"]["certified_qps"]},
+        "launches": launches,
+        "launches_per_embedding_batch": {k: v / batches for k, v in launches.items() if v},
+        "stats": paths["sharded"]["stats"], "dto_identical": True,
+        "op_parity": parity, "rows_10m": big, "nccl": nccl, "probe_sharded_timing": probe,
+        "gpu": nvidia_smi(),
+    }
+    emit(line)
+    return line
+
+
+def sharded_op_parity(dev, seed: int) -> dict:
+    """``tools.sharded_check.op_parity`` over the headline engine's own
+    planes (2^20 rows) at the fused scan's engine layout (sub 512, t 4), on
+    a one-shard mesh (every output bitwise) and the 4-shard mesh (top-m
+    values and boundary bitwise, rows up to ties, a sound boundary,
+    refine_select_dd bitwise)."""
+    import torch
+
+    from omni_recall_tpu_torch.parallel.mesh import shards_mesh
+    from omni_recall_tpu_torch.tools import sharded_check
+
+    card = dev.emb.device
+    b, d, bits = BATCH, dev.emb.shape[1], 8 * dev.bloom.shape[1]
+    g = torch.Generator(device=card).manual_seed(seed + 17)
+    q = torch.randn((b, d), generator=g, device=card)
+    q /= q.norm(dim=1, keepdim=True)
+    kw = torch.where(torch.rand((b, bits), generator=g, device=card) < 0.02, 0.05, 0.0)
+    inp = {"q": q, "kw": kw, "kw_b": torch.zeros(b, device=card), "q_raw": q * 1.7}
+    out = {}
+    for shards in (1, SHARDS):
+        mesh = shards_mesh(devices=[card] * shards)
+        rec = sharded_check.op_parity(mesh, dev, inp, m=128, t=4, sub=512, t_out=32, r=64)
+        out[f"shards_{shards}"] = rec
+        if not rec["ok"]:
+            raise AssertionError(f"sharded op parity on {shards} shard(s): {rec}")
+    return out
+
+
+def sharded_10m_lines(seed: int) -> dict:
+    """The two 10M-row tests of tests/test_sharded.py on the card, on 8
+    shards of it: the xla scan's merge with the window starting in the
+    middle of shard 4 (d 8, as the test) against the single-device xla
+    scorer, and refine_select_dd with the DD over candidates spread across
+    every shard (d 16: K3 reads rows of 16-byte multiples) bitwise the
+    single-device ops."""
+    import torch
+
+    from omni_recall_tpu_torch.index.device_index import DeviceArrays, device_quantize
+    from omni_recall_tpu_torch.ops import exact_cos, refine, xla_scorer
+    from omni_recall_tpu_torch.parallel.mesh import row_sharding, shards_mesh
+    from omni_recall_tpu_torch.parallel.sharded import ShardedScorer
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    mesh = shards_mesh(devices=[card] * 8)
+    n, bits, b, m = 10 * (1 << 20), 64, 2, 16
+    g = torch.Generator(device=card).manual_seed(seed + 23)
+    out = {"rows": n, "shards": 8}
+
+    t0 = time.perf_counter()
+    d = 8
+    emb = torch.randn((n, d), generator=g, device=card)
+    emb /= emb.norm(dim=1, keepdim=True)
+    bloom = torch.randint(0, 256, (n, bits // 8), generator=g, device=card).to(torch.uint8)
+    created = torch.linspace(0.0, 365.0, n, device=card)
+    valid = torch.ones(n, dtype=torch.bool, device=card)
+    valid[torch.randint(0, n, (1000,), generator=g, device=card)] = False
+    q = torch.randn((b, d), generator=g, device=card)
+    q /= q.norm(dim=1, keepdim=True)
+    kw_w = torch.zeros((b, bits), device=card)
+    kw_w[:, torch.randint(0, bits, (6,), generator=g, device=card)] = 0.17
+    kw_b = torch.zeros(b, device=card)
+    r0 = n // 2 + 12345  # the window starts in the middle of shard 4
+    planes = [row_sharding(mesh, x) for x in (emb, bloom, created, valid)]
+    gv, gi = ShardedScorer(mesh).score_topm(*planes, q, kw_w, kw_b, 365.0, r0, m=m, mode="xla")
+    wv, wi = xla_scorer.score_topm(emb, bloom, created, valid, q, kw_w, kw_b, 365.0, r0, m=m)
+    merge_ok = (bitwise(gv[:, :m].contiguous(), wv[:, :m].contiguous())
+                and bitwise(gv[:, m].contiguous(), wv[:, m].contiguous())
+                and bool((gi[:, :m] >= r0).all()) and bool(valid[gi[:, :m].long()].all())
+                and all(set(gi[i, :m].tolist()) == set(wi[i, :m].tolist())
+                        or torch.unique(gv[i, :m]).numel() < m for i in range(b)))
+    out["merge"] = {"dim": d, "window_start": r0, "ok": merge_ok,
+                    "seconds": time.perf_counter() - t0}
+    del emb, planes
+    if not merge_ok:
+        raise AssertionError(f"sharded 10M merge: {out}")
+
+    t0 = time.perf_counter()
+    d, t_out, r = 16, 8, 16
+    raw = torch.randn((n, d), generator=g, device=card)
+    raw /= raw.norm(dim=1, keepdim=True)
+    conv = device_quantize(raw, refine=True)
+    dev = DeviceArrays(emb=conv["emb"], scale=conv["scale"], err=conv["err"],
+                       emb2=conv["emb2"], scale2=conv["scale2"], err2=conv["err2"],
+                       bloom=bloom, created=created, valid=torch.ones_like(valid), raw=raw)
+    sdev = DeviceArrays(**{k: row_sharding(mesh, getattr(dev, k)) for k in (
+        "emb", "bloom", "created", "valid", "scale", "err", "emb2", "scale2", "err2", "raw")})
+    q = torch.randn((b, d), generator=g, device=card)
+    q /= q.norm(dim=1, keepdim=True)
+    q_raw = q * 1.7
+    kw_w = torch.zeros((b, bits), device=card)
+    kw_w[:, torch.randint(0, bits, (4,), generator=g, device=card)] = 0.25
+    idxs = torch.stack([torch.randperm(n, generator=g, device=card)[:m] for _ in range(b)])
+    idxs[0, :8] = torch.arange(8, device=card) * (n // 8) + 4321  # a row in every shard
+    vals = torch.sort(torch.rand((b, m), generator=g, device=card) * 0.6 + 0.3,
+                      dim=1, descending=True).values
+    vals_full = torch.cat([vals, torch.full((b, 1), 0.25, device=card)], 1)
+    idxs_full = torch.cat([idxs.to(torch.int32),
+                           torch.full((b, 1), -1, dtype=torch.int32, device=card)], 1)
+    rs, us, bs, hi, lo, sabs = ShardedScorer(mesh).refine_select_dd(
+        sdev, q, kw_w, kw_b, 365.0, vals_full, idxs_full, t_out=t_out, r=r, q_raw=q_raw)
+    r1, u1, b1 = refine.refine_select_from_scan(
+        dev.emb, dev.scale, dev.emb2, dev.scale2, dev.err2, dev.bloom, dev.created, dev.valid,
+        q, kw_w, kw_b, 365.0, vals_full, idxs_full, t_out=t_out, r=r)
+    h1, l1, s1 = exact_cos.exact_cos_rows(dev.raw, r1, q_raw)
+    live = (rs >= 0) & (us > float("-inf"))
+    dd_ok = (bool(torch.equal(rs, r1)) and bitwise(us, u1) and bitwise(bs, b1)
+             and all(bitwise(x[live], y[live]) for x, y in ((hi, h1), (lo, l1), (sabs, s1))))
+    out["refine_select_dd"] = {"dim": d, "ok": dd_ok, "live_slots": int(live.sum()),
+                               "seconds": time.perf_counter() - t0}
+    del raw, conv, dev, sdev, bloom, created, valid
+    torch.cuda.empty_cache()
+    if not dd_ok:
+        raise AssertionError(f"sharded 10M refine_select_dd: {out}")
+    return out
+
+
+def nccl_line(dev, seed: int) -> dict:
+    """The collectives' ``torch.distributed`` form on a one-rank NCCL group
+    (``initialize_multihost`` from a ``file://`` store in a temporary
+    directory, so no port is needed) against their in-process form: the
+    4-shard coarse scan's merge and refine_select_dd over the headline
+    planes, bitwise."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from omni_recall_tpu_torch.parallel.distributed import default_group, initialize_multihost
+    from omni_recall_tpu_torch.parallel.mesh import shards_mesh
+    from omni_recall_tpu_torch.parallel.sharded import ShardedScorer
+    from omni_recall_tpu_torch.tools.sharded_check import sharded_planes
+
+    card = dev.emb.device
+    b, d, bits = BATCH, dev.emb.shape[1], 8 * dev.bloom.shape[1]
+    g = torch.Generator(device=card).manual_seed(seed + 29)
+    q = torch.randn((b, d), generator=g, device=card)
+    q /= q.norm(dim=1, keepdim=True)
+    kw = torch.where(torch.rand((b, bits), generator=g, device=card) < 0.02, 0.05, 0.0)
+    kw_b = torch.zeros(b, device=card)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        if not initialize_multihost(f"file://{tmp}/store", num_processes=1, process_id=0,
+                                    backend="nccl"):
+            raise AssertionError("initialize_multihost did not start the group")
+        try:
+            outs = []
+            for group in (default_group(), None):
+                mesh = shards_mesh(devices=[card] * SHARDS, group=group)
+                ss, sdev = ShardedScorer(mesh), sharded_planes(mesh, dev)
+                vals, idxs = ss.score_topm(sdev.emb, sdev.bloom, sdev.created, sdev.valid, q,
+                                           kw, kw_b, 365.0, 0, m=128, mode="pallas_int8_coarse",
+                                           t=2, sub=1024, scale=sdev.scale, err=sdev.err)
+                sel = ss.refine_select_dd(sdev, q, kw, kw_b, 365.0, vals, idxs, t_out=32,
+                                          r=64, q_raw=q * 1.7)
+                outs.append((vals, idxs, *sel))
+            torch.cuda.synchronize()
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    ok = all(bitwise(x, y) for x, y in zip(*outs))
+    line = {"backend": backend, "world": 1, "shards": SHARDS, "bitwise": ok,
+            "seconds": time.perf_counter() - t0}
+    if not ok:
+        raise AssertionError(f"one-rank NCCL collectives differ from the in-process ones: {line}")
+    return line
+
+
+def probe_sharded_timing_once() -> dict:
+    """``tools.probe_sharded_timing`` at its shape on the 4-shard mesh."""
+    import torch
+
+    from omni_recall_tpu_torch.parallel.mesh import shards_mesh
+    from omni_recall_tpu_torch.tools import probe_sharded_timing
+
+    card = torch.device("cuda", torch.cuda.current_device())
+    line = probe_sharded_timing.probe(shards_mesh(devices=[card] * SHARDS))
+    torch.cuda.empty_cache()
     return line
 
 
@@ -2169,7 +2540,7 @@ def snapshot_phase(seed: int, paths: dict) -> dict:
 LOCALQ_ROWS = 1 << 20
 LOCALQ_PER_CLUSTER = 24  # rows a cluster token (bench.py build_localq_engine)
 LOCALQ_MIXED = 16        # queries of the mixed batch
-LOCALQ_SEED_BATCH = 32   # text-only queries served under the seed-0 weights
+LOCALQ_SEED_BATCH = 16   # text-only queries served under the seed-0 weights
 LOCALQ_SAMPLE = 8        # oracle-checked queries a batch
 LOCALQ_SLAB = 1 << 15    # corpus rows a forward
 
@@ -2187,7 +2558,7 @@ def localq_phase(seed: int, paths: dict) -> dict:
     device-resident query pipeline). First one mixed batch, while the
     coarse gate is still open: device-embedded queries and explicit host
     vectors, assembled on the card for K1 and K2, and empty vectors (K5).
-    Then the first 32 queries of a text-only batch naming a cluster and a
+    Then the first 16 queries of a text-only batch naming a cluster and a
     row ("c{k}x r{i}"), timed split (under the seed-0 weights most need an
     exact host scan of 2^20 rows, ~0.36 s each). Then the bench's fine-tune
     of this encoder (``tools/localq.py finetune``: 600 AdamW steps of 256
@@ -2443,7 +2814,7 @@ def probe_localq_path(paths: dict) -> dict:
 
 
 # the train path: the route's corpus, its documents and its searches
-TRAIN_ROWS = 1 << 15
+TRAIN_ROWS = 1 << 14
 TRAIN_DOC_CHUNKS = 32
 TRAIN_SEARCHES = 64
 TRAIN_SAMPLE = 8             # oracle-checked searches after the reindex
@@ -2467,7 +2838,7 @@ def train_phase(seed: int, paths: dict) -> dict:
     repeat check: the small config fine-tuned twice from one seed on the
     card; whether the two state dicts are bitwise equal. Then the route:
     the app with ``Embeddings:Provider=Local`` (the default, full-width
-    encoder at its seed-0 init) and the headline engine; 2^15 chunks of the
+    encoder at its seed-0 init) and the headline engine; 2^14 chunks of the
     localq recipe's texts uploaded through ``/api/documents/upload`` in
     documents of 32 chunks; 64 searches "c{k}x" through
     ``/api/recall/search``; ``POST /api/documents/train`` (300 steps of 64
@@ -2634,7 +3005,7 @@ def train_phase(seed: int, paths: dict) -> dict:
                     "train_searches_before", "train", "train_searches_after")},
                 search_stats={p: paths[p]["stats"] for p in (
                     "train_searches_before", "train_searches_after")},
-                reduced="2^15 chunks (the bench's localq corpus holds 2^16); the route's "
+                reduced="2^14 chunks (the bench's localq corpus holds 2^16); the route's "
                         "default 300 steps")
     emit(line)
     del app, client, emb_client
@@ -2773,13 +3144,17 @@ def chat_local_phase(paths: dict) -> dict:
     return line
 
 
+INGEST_CHUNKS = 50_000
+
+
 def bench_ingest_path(paths: dict) -> dict:
     """The ingest pipeline (omni_recall_tpu_torch/tools/bench_ingest.py) at
-    its default of 100k chunks: append and upload, f32 and int8 storage."""
+    50k chunks (its default is 100k): append and upload, f32 and int8
+    storage."""
     from omni_recall_tpu_torch.tools import bench_ingest
 
     def go():
-        return bench_ingest.measure(bench_ingest.chunks_of(100_000, DIM), DIM,
+        return bench_ingest.measure(bench_ingest.chunks_of(INGEST_CHUNKS, DIM), DIM,
                                     __import__("torch").device("cuda"))
 
     line = {"phase": "bench_ingest", "gpu": nvidia_smi(),
@@ -3310,8 +3685,15 @@ def main() -> int:
                    extra=compact_extra("coarse_scan")),
         int8_entry("K7a coarse_scan pair mode", "coarse_pair", k["coarse_two_reduce"]),
         entry("K2 dd_rows", "dd_rows", "omni_recall_tpu_torch/csrc/dd_rows.cu", k["dd"],
-              {key: k["dd"][key] for key in ("sabs_rel_err", "layout", "l2_rows_ms", "gather_ms",
-                                             *PARENT_KEYS) if key in k["dd"]}),
+              {**{key: k["dd"][key] for key in ("sabs_rel_err", "layout", "l2_rows_ms",
+                                                "gather_ms", *PARENT_KEYS) if key in k["dd"]},
+               "entries": ["omni_dd_rows (by index)", "omni_dd_rows_gathered"],
+               # the sharded path reaches K2 only through its gathered entry
+               "gathered_entry": {**{key: k["dd_gathered"][key] for key in (
+                   "name", "entry", "shape", "parity", "by_index_bitwise", "sabs_rel_err",
+                   "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+                   "launches": paths["sharded"]["launches"]["dd_rows"],
+                   "path": "sharded"}}),
         entry("K3 refine", "refine", "omni_recall_tpu_torch/csrc/refine.cu",
               k["refine_select"], {
                   **{key: k["refine_select"][key] for key in (

@@ -24,10 +24,9 @@ plain-torch scorer, ops/xla_scorer.py) over f32 scan storage. The bench's
 headline configuration, certified-exact search over an int8 index with the
 hand-written CUDA kernels, direct selection and the device-exact cosine,
 needs ``Engine:Backend=pallas``, ``Engine:ScanDtype=int8``,
-``Engine:DirectSelect=true`` and ``Engine:DeviceExactCos=true``. Sharding
-(``Engine:Shards`` > 0) is not ported yet and raises when the engine is
-built (search/engine.py check_options), naming its ROADMAP.md item by
-title; nothing is silently substituted.
+``Engine:DirectSelect=true`` and ``Engine:DeviceExactCos=true``.
+``Engine:Shards`` = N > 0 row-shards the index over the first N cards
+(parallel/mesh.py shards_mesh; one card gives a one-shard mesh).
 """
 
 from __future__ import annotations
@@ -204,9 +203,9 @@ class EngineOptions:
     # from the TPU package)
     backend: str = "xla"
     # >0: row-shard the device index over the first N local devices on a
-    # 1-D 'shards' mesh (parallel/mesh.py) — the multi-chip serving mode.
-    # Scan, refine, compact selection and the device-exact cosine all run
-    # inside shard_map (parallel/sharded.py); results are bit-identical to
+    # 1-D 'shards' mesh (parallel/mesh.py) — the multi-card serving mode.
+    # Scan, refine, compact selection and the device-exact cosine run on
+    # every shard (parallel/sharded.py); the served results are those of
     # single-device serving. 0 (default) = single device.
     shards: int = 0
     embedding_dim: int = 768

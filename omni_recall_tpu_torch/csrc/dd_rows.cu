@@ -34,6 +34,12 @@
 // each warp folds two slots in turn, loading the second row while it folds the first.
 // Every add is __fadd_rn / __fsub_rn and the library builds with -fmad=false: no
 // contraction, no reassociation.
+//
+// Two entries share that fold (one device function, dd_rows_body): omni_dd_rows reads
+// each row from the raw plane by index (the single-device path), omni_dd_rows_gathered
+// reads row (b, j) of rows already gathered, c f32[B, t, d] (the JAX kernel's own
+// interface, dd_rows(q_raw, c); the row-sharded path, which gathers each candidate on
+// the shard that owns it). On the same rows the two give the same hi, lo and sabs.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -82,12 +88,18 @@ struct DdArgs {
   int n, d, t, p, slots_per_block;
 };
 
-template <int R>
+// kGathered: a.raw is the gathered c f32[B, t, d] and slot (bi, j) its row
+template <bool kGathered, int R>
 __device__ __forceinline__ void load_row(const DdArgs& a, int bi, int j, int thread, int span,
                                          float (&c)[R]) {
-  int row = a.rows[(size_t)bi * a.t + j];
-  if (row < 0 || row >= a.n) row = 0;  // empty slot (and never out of bounds)
-  const float* cr = a.raw + (size_t)row * a.d;
+  const float* cr;
+  if constexpr (kGathered) {
+    cr = a.raw + ((size_t)bi * a.t + j) * a.d;
+  } else {
+    int row = a.rows[(size_t)bi * a.t + j];
+    if (row < 0 || row >= a.n) row = 0;  // empty slot (and never out of bounds)
+    cr = a.raw + (size_t)row * a.d;
+  }
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int e = thread + span * i;
@@ -96,9 +108,8 @@ __device__ __forceinline__ void load_row(const DdArgs& a, int bi, int j, int thr
 }
 
 // R registers a thread, G warps a pair; a block folds kWarps / G pairs at once
-template <int R, int G>
-__global__ void __launch_bounds__(32 * (G > kBlockWarps ? G : kBlockWarps))
-    dd_rows_kernel(DdArgs a) {
+template <int R, int G, bool kGathered>
+__device__ __forceinline__ void dd_rows_body(const DdArgs& a) {
   constexpr int kWarps = G > kBlockWarps ? G : kBlockWarps;
   constexpr int kPairs = kWarps / G;
   constexpr int kSpan = 32 * G;
@@ -115,7 +126,7 @@ __global__ void __launch_bounds__(32 * (G > kBlockWarps ? G : kBlockWarps))
 
   float c[R];
   int j = j0 + pair;
-  if (j < j1) load_row(a, bi, j, thread, kSpan, c);
+  if (j < j1) load_row<kGathered>(a, bi, j, thread, kSpan, c);
   const float* qrow = a.q + (size_t)bi * a.d;
   for (int i = tid; i < a.d; i += kWarps * 32) qs[i] = qrow[i];
   __syncthreads();
@@ -130,7 +141,7 @@ __global__ void __launch_bounds__(32 * (G > kBlockWarps ? G : kBlockWarps))
       l[i] = 0.0f;
       sabs = __fadd_rn(sabs, fabsf(h[i]));
     }
-    if (j + kPairs < j1) load_row(a, bi, j + kPairs, thread, kSpan, c);  // next row in flight
+    if (j + kPairs < j1) load_row<kGathered>(a, bi, j + kPairs, thread, kSpan, c);  // next row in flight
 
     fold_registers<R / 2>(h, l);
     for (int o = 16; o > 0; o >>= 1) sabs = __fadd_rn(sabs, __shfl_xor_sync(0xffffffffu, sabs, o));
@@ -175,17 +186,55 @@ __global__ void __launch_bounds__(32 * (G > kBlockWarps ? G : kBlockWarps))
 }
 
 template <int R, int G>
+__global__ void __launch_bounds__(32 * (G > kBlockWarps ? G : kBlockWarps))
+    dd_rows_kernel(DdArgs a) {
+  dd_rows_body<R, G, false>(a);
+}
+
+template <int R, int G>
+__global__ void __launch_bounds__(32 * (G > kBlockWarps ? G : kBlockWarps))
+    dd_rows_gathered_kernel(DdArgs a) {
+  dd_rows_body<R, G, true>(a);
+}
+
+template <int R, int G, bool kGathered>
 int launch(const DdArgs& a, int b, cudaStream_t stream) {
   constexpr int kWarps = G > kBlockWarps ? G : kBlockWarps;
+  auto kernel = kGathered ? dd_rows_gathered_kernel<R, G> : dd_rows_kernel<R, G>;
   const size_t smem = (size_t)a.d * sizeof(float);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(dd_rows_kernel<R, G>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid(b, (a.t + a.slots_per_block - 1) / a.slots_per_block);
-  dd_rows_kernel<R, G><<<grid, kWarps * 32, smem, stream>>>(a);
+  kernel<<<grid, kWarps * 32, smem, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <bool kGathered>
+int dispatch(DdArgs& a, int b, cudaStream_t s) {
+  const int p = a.p;
+  const int g = p > 1024 ? p / 1024 : 1;  // warps a pair
+  a.slots_per_block = (g >= kBlockWarps ? 1 : kBlockWarps / g) * kSlotsPerWarp;
+  switch (p) {
+    case 1: case 2: case 4: case 8: case 16: case 32: return launch<1, 1, kGathered>(a, b, s);
+    case 64: return launch<2, 1, kGathered>(a, b, s);
+    case 128: return launch<4, 1, kGathered>(a, b, s);
+    case 256: return launch<8, 1, kGathered>(a, b, s);
+    case 512: return launch<16, 1, kGathered>(a, b, s);
+    case 1024: return launch<32, 1, kGathered>(a, b, s);
+    case 2048: return launch<32, 2, kGathered>(a, b, s);
+    case 4096: return launch<32, 4, kGathered>(a, b, s);
+    case 8192: return launch<32, 8, kGathered>(a, b, s);
+    default: return launch<32, 16, kGathered>(a, b, s);
+  }
+}
+
+int pad_of(int d) {
+  int p = 1;
+  while (p < d) p *= 2;
+  return p;
 }
 
 }  // namespace
@@ -194,8 +243,7 @@ int launch(const DdArgs& a, int b, cudaStream_t stream) {
 extern "C" int omni_dd_rows(const void* raw, const void* rows, const void* q, void* hi,
                             void* lo, void* sabs, int n, int d, int b, int t, void* stream) {
   if (n <= 0 || d <= 0 || b <= 0 || t <= 0) return -1;
-  int p = 1;
-  while (p < d) p *= 2;
+  const int p = pad_of(d);
   if (p > kMaxPad) return -1;
   DdArgs a;
   a.raw = static_cast<const float*>(raw);
@@ -205,21 +253,24 @@ extern "C" int omni_dd_rows(const void* raw, const void* rows, const void* q, vo
   a.lo = static_cast<float*>(lo);
   a.sabs = static_cast<float*>(sabs);
   a.n = n; a.d = d; a.t = t; a.p = p;
-  const int g = p > 1024 ? p / 1024 : 1;  // warps a pair
-  a.slots_per_block = (g >= kBlockWarps ? 1 : kBlockWarps / g) * kSlotsPerWarp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (p) {
-    case 1: case 2: case 4: case 8: case 16: case 32: return launch<1, 1>(a, b, s);
-    case 64: return launch<2, 1>(a, b, s);
-    case 128: return launch<4, 1>(a, b, s);
-    case 256: return launch<8, 1>(a, b, s);
-    case 512: return launch<16, 1>(a, b, s);
-    case 1024: return launch<32, 1>(a, b, s);
-    case 2048: return launch<32, 2>(a, b, s);
-    case 4096: return launch<32, 4>(a, b, s);
-    case 8192: return launch<32, 8>(a, b, s);
-    default: return launch<32, 16>(a, b, s);
-  }
+  return dispatch<false>(a, b, static_cast<cudaStream_t>(stream));
+}
+
+// c f32[b, t, d] (gathered rows), q f32[b, d] -> hi, lo, sabs f32[b, t]
+extern "C" int omni_dd_rows_gathered(const void* c, const void* q, void* hi, void* lo,
+                                     void* sabs, int d, int b, int t, void* stream) {
+  if (d <= 0 || b <= 0 || t <= 0) return -1;
+  const int p = pad_of(d);
+  if (p > kMaxPad) return -1;
+  DdArgs a;
+  a.raw = static_cast<const float*>(c);
+  a.rows = nullptr;
+  a.q = static_cast<const float*>(q);
+  a.hi = static_cast<float*>(hi);
+  a.lo = static_cast<float*>(lo);
+  a.sabs = static_cast<float*>(sabs);
+  a.n = b * t; a.d = d; a.t = t; a.p = p;
+  return dispatch<true>(a, b, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* omni_cuda_error_string(int code) {

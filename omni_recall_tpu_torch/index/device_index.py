@@ -40,7 +40,12 @@ persisted arrays, the pre-quantized planes staged for the first upload), by
 ``append_from_index`` (the compaction of ``RecallEngine.rebuild_index``:
 derived columns reused, the device planes gathered on the device) and by
 ``bulk_load_compact`` (the compact store, index/compact.py: serving-only).
-Not in this port yet: the sharded mesh.
+
+With a ``mesh`` (parallel/mesh.py) the device planes are row-sharded: each
+is a ``RowSharded`` whose shard l holds its n_local rows on the shard's
+device, and the capacity is a multiple of the shard count. A sharded index
+quantizes on the host (the device quantizer is single-device), rebuilds by
+upload (no device-side compaction), and cannot take a compact bulk load.
 
 The entry point runs on CUDA unless the caller passes ``device="cpu"``.
 """
@@ -231,18 +236,27 @@ class DeviceIndex:
         refine: bool = False,
         exact_cos: bool = False,
         device: str | torch.device = "cuda",
+        mesh=None,
     ) -> None:
         if bloom_bits % 8 != 0:
             raise ValueError("bloom_bits must be a multiple of 8")
         if scan_dtype not in SCAN_DTYPES:
             raise ValueError(f"unsupported scan_dtype: {scan_dtype}")
-        self.device = resolve_device(device)
+        # a sharded index's replicated operands and merged results live on
+        # its first shard's device
+        self.mesh = mesh
+        self.device = mesh.devices[0] if mesh is not None else resolve_device(device)
         self.dim = dim
         self.scan_dtype = scan_dtype
         # keep the residual int8 plane (K3): int8 storage only
         self.refine = bool(refine) and scan_dtype == "int8"
         self.exact_cos = bool(exact_cos)
-        self.capacity_block = max(128, capacity_block)
+        capacity_block = max(128, capacity_block)
+        if mesh is not None:
+            # even row sharding: the capacity must divide by the shard count
+            s = mesh.n_shards
+            capacity_block = ((capacity_block + s - 1) // s) * s
+        self.capacity_block = capacity_block
         self.bloom_bits = bloom_bits
         self.ngram = ngram
         self.bloom_hashes = bloom_hashes
@@ -608,7 +622,8 @@ class DeviceIndex:
             # device-side plane compaction: every row reuses an old row and
             # old's planes are current. Old's tensors stay untouched
             # (searches in flight on the old index keep their data).
-            if (self.refine == old.refine and self.exact_cos == old.exact_cos
+            if (self.mesh is None and old.mesh is None
+                    and self.refine == old.refine and self.exact_cos == old.exact_cos
                     and self.device == old.device and miss_dst.size == 0):
                 with old._lock:
                     odev = old._device
@@ -762,10 +777,33 @@ class DeviceIndex:
                 raise ValueError("load_slabs arrays must have matching rows")
             if bloom.shape[1] != self.bloom_bits // 8 or emb_norm.shape[1] != self.dim:
                 raise ValueError("slab geometry mismatch")
+            cap = n
+            if self.mesh is not None:
+                # row-sharded planes need a shard-divisible capacity: pad the
+                # adopted arrays with rows that are not valid. This copies
+                # memmaps; only the sharded layout pays it.
+                s = self.mesh.n_shards
+                cap = ((n + s - 1) // s) * s
+            if cap != n:
+                def padr(a):
+                    a = np.asarray(a)
+                    out = np.zeros((cap,) + a.shape[1:], dtype=a.dtype)
+                    out[:n] = a
+                    return out
+
+                emb_norm, raw_emb, bloom = map(padr, (emb_norm, raw_emb, bloom))
+                created, created_us, created_ts, raw_norm_sq, seqs = map(
+                    padr, (created, created_us, created_ts, raw_norm_sq, seqs))
+                lower_off = np.concatenate([
+                    np.asarray(lower_off, dtype=np.int64),
+                    np.full(cap - n, int(lower_off[-1]), dtype=np.int64)])
+                if converted is not None:
+                    converted = {k: padr(v) for k, v in converted.items()}
             self.emb = emb_norm
             self.bloom = bloom
             self.created = np.asarray(created, dtype=np.float32)
-            self.valid = np.ones(n, dtype=bool)
+            self.valid = np.zeros(cap, dtype=bool)
+            self.valid[:n] = True
             self.raw_emb = raw_emb
             self._raw_aliased = False
             self.raw_norm_sq = np.asarray(raw_norm_sq, dtype=np.float64)
@@ -778,13 +816,13 @@ class DeviceIndex:
             self._row_by_chunk_id.update(zip((c.id for c in meta), range(n)))
             for row, c in enumerate(meta):
                 self._rows_by_doc.setdefault(c.document_id, []).append(row)
-            self._cap = n
+            self._cap = cap
             self._device = None
             self._device_cap = -1
             self._dirty_blocks.clear()
             self._n = n
             self._n_valid = n
-            nb = (n + VALID_BLOCK - 1) // VALID_BLOCK
+            nb = (cap + VALID_BLOCK - 1) // VALID_BLOCK
             self._block_valid = np.zeros(max(nb, 1), dtype=np.int64)
             self._count_valid_added(0, n)
             if converted is not None:
@@ -821,6 +859,9 @@ class DeviceIndex:
         from omni_recall_tpu_torch.index.compact import CompactMeta
 
         n = int(emb8.shape[0])
+        if self.mesh is not None:
+            raise ValueError("bulk_load_compact is single-device (shard the corpus "
+                             "before building per-shard indexes)")
         with self._lock:
             if self._n != 0:
                 raise ValueError("bulk_load_compact requires an empty index")
@@ -1035,8 +1076,14 @@ class DeviceIndex:
 
     # ---- device sync ----
 
-    def _put(self, host) -> torch.Tensor:
-        return upload_slabbed(host, self.device)
+    def _put(self, host):
+        """A host plane on the device, or row-sharded over the mesh (each
+        shard's rows on its device; RowSharded)."""
+        if self.mesh is None:
+            return upload_slabbed(host, self.device)
+        from omni_recall_tpu_torch.parallel.mesh import row_sharding
+
+        return row_sharding(self.mesh, host, upload=upload_slabbed)
 
     # full uploads at/above this row count quantize (or round to bf16) ON
     # DEVICE; below it the host quantizer (ops/quantize.py) keeps small
@@ -1085,14 +1132,14 @@ class DeviceIndex:
             converted = {k: self._put(v) for k, v in pre.items()}
             if self.exact_cos:
                 raw_dev = self._put(self.raw_emb)
-        elif large and self.scan_dtype == "int8":
+        elif large and self.scan_dtype == "int8" and self.mesh is None:
             up = self._put(self.emb)
             converted = device_quantize(up, refine=self.refine)
             if self.exact_cos:
                 raw_dev = up if self._raw_aliased else self._put(self.raw_emb)
             del up
         else:
-            if large and self.scan_dtype == "bf16":
+            if large and self.scan_dtype == "bf16" and self.mesh is None:
                 converted = {"emb": self._device_bf16()}
             else:
                 converted = {k: self._put(v) for k, v in self._convert_host(self.emb).items()}
@@ -1115,10 +1162,26 @@ class DeviceIndex:
                 continue
             hi = min(lo + block, self._cap)
             for name, plane in self._convert_host(self.emb[lo:hi]).items():
-                getattr(dev, name)[lo:hi].copy_(_host_tensor(plane))
-            dev.bloom[lo:hi].copy_(torch.from_numpy(self.bloom[lo:hi]))
-            dev.created[lo:hi].copy_(torch.from_numpy(self.created[lo:hi]))
-            dev.valid[lo:hi].copy_(torch.from_numpy(self.valid[lo:hi]))
+                _write_rows(getattr(dev, name), lo, _host_tensor(plane))
+            _write_rows(dev.bloom, lo, torch.from_numpy(self.bloom[lo:hi]))
+            _write_rows(dev.created, lo, torch.from_numpy(self.created[lo:hi]))
+            _write_rows(dev.valid, lo, torch.from_numpy(self.valid[lo:hi]))
             if dev.raw is not None:
-                dev.raw[lo:hi].copy_(torch.from_numpy(self.raw_emb[lo:hi]))
+                _write_rows(dev.raw, lo, torch.from_numpy(self.raw_emb[lo:hi]))
         self._dirty_blocks.clear()
+
+
+def _write_rows(plane, lo: int, rows: torch.Tensor) -> None:
+    """Copy host ``rows`` into device rows [lo, lo + len): into the plane
+    itself, or into each local shard of a row-sharded plane that holds some
+    of them."""
+    hi = lo + rows.shape[0]
+    shards = getattr(plane, "shards", None)
+    if shards is None:
+        plane[lo:hi].copy_(rows)
+        return
+    n_local = plane.n_local
+    for shard, r0 in zip(shards, plane.row0):
+        a, b = max(lo, r0), min(hi, r0 + n_local)
+        if a < b:
+            shard[a - r0:b - r0].copy_(rows[a - lo:b - lo])

@@ -261,8 +261,10 @@ def _gather_slabs(dix, chunks: list[ChunkRecord]) -> dict | None:
         dev = None
         if pre is None:
             dev = dix._device
+            # a row-sharded index's snapshot quantizes its mirrors on the
+            # host, the quantizer of its own uploads
             if (
-                dev is None or dix._device_cap != dix._cap
+                dev is None or dix.mesh is not None or dix._device_cap != dix._cap
                 or dix._dirty_blocks or dev.scale is None
                 or (dix.refine and dev.emb2 is None)
             ):

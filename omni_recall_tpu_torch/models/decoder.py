@@ -130,6 +130,17 @@ def init_params(seed: int, cfg: DecoderConfig) -> dict[str, torch.Tensor]:
     return _enc.params_from_numpy(init_tree(seed, cfg))
 
 
+def param_specs(cfg: DecoderConfig) -> dict[str, tuple]:
+    """The decoder's partition specs (decoder.py:122; the encoder's recipe,
+    ``encoder.param_specs``): the state dict's keys with the mesh-axis names
+    of each JAX ``PartitionSpec``, the vocabulary head split on ``model``."""
+    specs = {"tok_embed": ("model", None), "pos_embed": (), "lm_head": (None, "model"),
+             "final_ln.scale": (), "final_ln.bias": ()}
+    for i in range(cfg.n_layers):
+        specs.update({f"layers.{i}.{k}": v for k, v in _enc.LAYER_SPECS.items()})
+    return specs
+
+
 _MATRICES = ("wq", "wk", "wv", "wo", "w1", "w2")
 
 

@@ -214,6 +214,30 @@ def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
+# one layer's mesh-axis names over a ('data', 'model') mesh (encoder.py
+# param_specs): tensor parallel on the heads and the FFN
+LAYER_SPECS = {
+    "ln1.scale": (), "ln1.bias": (), "ln2.scale": (), "ln2.bias": (),
+    "wq": (None, "model"), "wk": (None, "model"), "wv": (None, "model"),
+    "wo": ("model", None), "w1": (None, "model"), "b1": ("model",),
+    "w2": ("model", None), "b2": (),
+}
+
+
+def param_specs(cfg: EncoderConfig) -> dict[str, tuple]:
+    """The encoder's partition specs (encoder.py:96): the state dict's keys,
+    each with the mesh-axis names of the JAX ``PartitionSpec`` it mirrors,
+    one entry a dimension (``("model", None)`` for ``P("model", None)``,
+    ``()`` for the replicated ``P()``), over a ('data', 'model') mesh with
+    tensor parallelism on the heads, the FFN and the vocabulary. Nothing in
+    the port shards the models yet; this records the layout."""
+    specs = {"tok_embed": ("model", None), "pos_embed": (), "out_proj": (None, "model"),
+             "final_ln.scale": (), "final_ln.bias": ()}
+    for i in range(cfg.n_layers):
+        specs.update({f"layers.{i}.{k}": v for k, v in LAYER_SPECS.items()})
+    return specs
+
+
 def params_from_numpy(tree) -> dict[str, torch.Tensor]:
     """The JAX package's parameter pytree (numpy leaves, or the flat dict of
     its checkpoint) as the port's state: an ``Encoder`` state dict of f32

@@ -194,11 +194,18 @@ _ARGTYPES = {
         ],
         "omni_fp_scan_query_tile": [_I, _I, _I, _I],  # variant rows d w
     },
-    "dd_rows": {"omni_dd_rows": [
-        _P, _P, _P, _P, _P, _P,               # raw rows q hi lo sabs
-        _I, _I, _I, _I,                       # n d b t
-        _P,                                   # stream
-    ]},
+    "dd_rows": {
+        "omni_dd_rows": [
+            _P, _P, _P, _P, _P, _P,               # raw rows q hi lo sabs
+            _I, _I, _I, _I,                       # n d b t
+            _P,                                   # stream
+        ],
+        "omni_dd_rows_gathered": [
+            _P, _P, _P, _P, _P,                   # c q hi lo sabs
+            _I, _I, _I,                           # d b t
+            _P,                                   # stream
+        ],
+    },
     "refine": {
         "omni_refine": [
             _P, _P, _P, _P, _P, _P, _P, _P,       # emb1 emb2 bloom scale1 scale2 err2 valid created

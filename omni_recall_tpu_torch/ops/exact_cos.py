@@ -3,7 +3,11 @@
 Port of omni_recall_tpu/ops/exact_cos.py. The DD dot over gathered rows is
 the hand-written CUDA kernel csrc/dd_rows.cu (K2, replacing the TPU kernel
 _dd_rows_kernel); ``dd_sum_products`` is its plain PyTorch version, written
-from the JAX graph, and serves CPU tensors. The host finish
+from the JAX graph, and serves CPU tensors. K2 has two entries over one
+fold: ``exact_cos_rows(raw, rows, q_raw)`` reads the candidates from the
+raw plane by index (the single-device path), ``dd_rows(q_raw, c)`` takes
+rows already gathered (the JAX kernel's interface; the row-sharded path,
+parallel/sharded.py, gathers each row on its owner). The host finish
 (``finish_cosines``, ``round4_certified``) is a numpy copy.
 
 The certified-exact serving path's remaining host cost is the float64
@@ -185,6 +189,42 @@ def _dd_rows_cuda(raw: torch.Tensor, rows: torch.Tensor, q_raw: torch.Tensor):
     cuda.check(lib, rc, "dd_rows")
     cuda.count_launch("dd_rows")
     return hi, lo, sabs
+
+
+def _dd_rows_gathered_cuda(q_raw: torch.Tensor, c: torch.Tensor):
+    """Launch K2's gathered entry (csrc/dd_rows.cu omni_dd_rows_gathered)."""
+    b, t, d = c.shape
+    dev = c.device
+    for name, x, shape in (("q_raw", q_raw, (b, d)), ("c", c, (b, t, d))):
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {x.dtype}{tuple(x.shape)} on {x.device}, expected "
+                             f"torch.float32{shape} on {dev}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if dd_rows_layout(d)[0] > DD_MAX_PAD:
+        raise ValueError(f"d={d}: the CUDA kernel folds at most {DD_MAX_PAD} products")
+    hi, lo, sabs = (torch.empty((b, t), dtype=torch.float32, device=dev) for _ in range(3))
+    lib = cuda.library("dd_rows")
+    rc = lib.omni_dd_rows_gathered(c.data_ptr(), q_raw.data_ptr(), hi.data_ptr(),
+                                   lo.data_ptr(), sabs.data_ptr(), d, b, t,
+                                   cuda.stream_ptr(dev))
+    cuda.check(lib, rc, "dd_rows")
+    cuda.count_launch("dd_rows")
+    return hi, lo, sabs
+
+
+def dd_rows(q_raw: torch.Tensor, c: torch.Tensor):
+    """(hi, lo, sabs) f32[B, t] of the raw query rows q_raw f32[B, d]
+    against gathered candidate rows c f32[B, t, d] (exact_cos.py dd_rows,
+    the interface of the JAX kernel). CUDA tensors launch K2's gathered
+    entry, which runs the same fold as ``exact_cos_rows``'s by-index entry,
+    so on the same rows both give the same bits; CPU tensors take the plain
+    version, ``dd_sum_products``."""
+    if c.is_cuda:
+        return _dd_rows_gathered_cuda(q_raw, c)
+    if c.device.type != "cpu":
+        raise ValueError(f"no kernel for device {c.device}")
+    return dd_sum_products(q_raw[:, None, :], c)
 
 
 def exact_cos_rows(raw: torch.Tensor, rows: torch.Tensor, q_raw: torch.Tensor):

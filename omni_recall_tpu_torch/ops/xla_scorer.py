@@ -148,12 +148,14 @@ def ub_scores(
 
 
 def score_topm(emb, bloom, created, valid, q, kw_weights, kw_bias, now_days,
-               window_start, m: int, slab_rows: int = SLAB_ROWS):
+               window_start, m: int, slab_rows: int = SLAB_ROWS, row_offset: int = 0):
     """Returns (ub_values[B, k], row_indices i32[B, k]) with k = min(m+1, n);
     entry m (when n > m) is the certificate boundary (max upper bound over
     excluded rows). Rows are scored ``slab_rows`` at a time with a running
     top-k; the result is the one-shot top-k of ``ub_scores``, bit for bit
-    (``slab_rows`` is rounded up to a multiple of ROW_ATOM)."""
+    (``slab_rows`` is rounded up to a multiple of ROW_ATOM). ``row_offset``
+    is the global row of local row 0 (a shard of a row-sharded index): the
+    window mask compares global rows, the returned indices are local."""
     n = emb.shape[0]
     k = min(m + 1, n)
     slab_rows = -(-max(1, slab_rows) // ROW_ATOM) * ROW_ATOM
@@ -161,7 +163,7 @@ def score_topm(emb, bloom, created, valid, q, kw_weights, kw_bias, now_days,
     for lo in range(0, n, slab_rows):
         hi = min(lo + slab_rows, n)
         ub = ub_scores(emb[lo:hi], bloom[lo:hi], created[lo:hi], valid[lo:hi], q,
-                       kw_weights, kw_bias, now_days, window_start, lo)
+                       kw_weights, kw_bias, now_days, window_start, row_offset + lo)
         keys = _keys(ub, lo) if best is None else torch.cat([best, _keys(ub, lo)], dim=1)
         best = torch.topk(keys, min(k, keys.shape[1]), dim=1).values
     return _decode(best)

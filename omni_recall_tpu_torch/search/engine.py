@@ -1,5 +1,5 @@
 """Certified-exact hybrid search engine (PyTorch port of
-omni_recall_tpu/search/engine.py, single-device path).
+omni_recall_tpu/search/engine.py).
 
 The device computes a *sound upper bound* per chunk — with the int8 scans
 (ops/scorer.py: K1 coarse, K4 fused, K5 keyword-only), the f32/bf16 scan
@@ -37,12 +37,18 @@ Backends: ``pallas`` (the hand-written-kernel backend; the name is kept so
 configurations carry over) over int8, f32 or bf16 scan storage, ``xla``
 (the reference's default: the plain-torch scorer over f32 storage, which
 also serves pallas f32 scans beyond K6's extraction budget) and ``oracle``
-(host float64 only). The sharded index waits for a later slice and raises
-at construction, naming its ROADMAP.md item.
+(host float64 only).
+
+With a ``mesh`` (Engine:Shards > 0, parallel/mesh.py) the index rows are
+row-sharded and every scan, the refine selection and the device-exact
+cosine run per shard through parallel/sharded.py ShardedScorer, merged by
+its all-gather and exact-zero combine. The sharded engine serves the same
+results as the single-device one; it normalizes queries on the host (f64,
+rounded to f32), never takes the direct selection or the device embedder,
+and its rescue scans run without K3 (search/engine.py:486-497, 530-533).
 
 Invariants this port preserves, word for word from the repository's working
-notes ("Invariants to preserve"; the sharded path they name is not in
-this port):
+notes ("Invariants to preserve"):
 
 - Exactness = runtime certificate (`exact kth > max excluded upper bound`);
   any device-side approximation MUST keep scores sound UPPER bounds (see
@@ -86,7 +92,8 @@ this port):
 - Reference behavior mirrors carry `file:line` citations in docstrings —
   keep them accurate when changing semantics.
 
-(In this port the DD dispatcher is ``exact_cos.exact_cos_rows``.)
+(In this port the DD dispatchers are ``exact_cos.exact_cos_rows``, K2 by
+index, and ``exact_cos.dd_rows``, K2 over gathered rows, one fold.)
 """
 
 from __future__ import annotations
@@ -256,18 +263,6 @@ def _sort_key(hit: SearchHit):
     return (-hit.score, -ts.timestamp(), -hit.chunk.seq)
 
 
-def check_options(options: EngineOptions) -> None:
-    """Raise for configurations this port cannot serve yet: no silent
-    substitution of another backend or layout. The message names its
-    ROADMAP.md item by title."""
-    if options.shards > 0:
-        raise NotImplementedError(
-            "Engine:Shards > 0 (the row-sharded multi-card index) is not "
-            'ported yet (ROADMAP.md, "Row sharding over GPUs (parallel/)"); '
-            "use Shards=0"
-        )
-
-
 class RecallEngine:
     def __init__(
         self,
@@ -276,12 +271,15 @@ class RecallEngine:
         options: EngineOptions | None = None,
         *,
         device: str | torch.device = "cuda",
+        mesh=None,
     ) -> None:
         self.store = store
         self.options = options or EngineOptions()
-        check_options(self.options)
         if device_index is not None:
             self.device = device_index.device
+            mesh = mesh if mesh is not None else device_index.mesh
+        elif mesh is not None:
+            self.device = mesh.devices[0]
         else:
             self.device = resolve_device(device)
         if device_index is None and self.options.backend != "oracle":
@@ -301,8 +299,16 @@ class RecallEngine:
                 exact_cos=(self.options.device_exact_cos and self.options.refine
                            and pallas and self.options.scan_dtype == "int8"),
                 device=self.device,
+                mesh=mesh,
             )
         self.device_index = device_index
+        # the row-sharded serving mode (search/engine.py:330-341)
+        self.mesh = mesh
+        self._sharded_scorer = None
+        if mesh is not None:
+            from omni_recall_tpu_torch.parallel.sharded import ShardedScorer
+
+            self._sharded_scorer = ShardedScorer(mesh)
         if self.device_index is not None:
             if self.device_index.scan_dtype == "f32":
                 # the xla scorer may serve f32 storage: fail here, not at the
@@ -359,13 +365,16 @@ class RecallEngine:
         queries. The exactness contract is unchanged: every certificate is
         taken against the materialized bits of the forward (the canonical
         query embedding), and escalations read those bits back losslessly.
-        ``None`` detaches. Requires a device backend whose index has the
-        embedder's dim."""
+        ``None`` detaches. Requires a single-device engine whose device
+        backend's index has the embedder's dim."""
         if embedder is None:
             self._device_embedder = None
             return
         if self.options.backend == "oracle" or self.device_index is None:
             raise ValueError("device embedder requires a device backend")
+        if self._sharded_scorer is not None:
+            # the sharded path uploads host-built operands (search/engine.py:418-427)
+            raise ValueError("device embedder is single-device only")
         dim = getattr(embedder, "dim", None)
         if dim != self.device_index.dim:
             raise ValueError(f"embedder dim {dim} != index dim {self.device_index.dim}")
@@ -417,6 +426,7 @@ class RecallEngine:
                 refine=old.refine,
                 exact_cos=old.exact_cos,
                 device=old.device,
+                mesh=old.mesh,
             )
             chunks: list[ChunkRecord] = []
             for doc in self.store.list_documents(2**31 - 1):
@@ -436,8 +446,9 @@ class RecallEngine:
     def _refine_call(self, dev, q_dev, w_dev, bias_dev, now_dev, vals_d, idxs_d, m):
         """The [B, m] refined bounds of the scan's candidate rows (K3,
         ops/refine.py refine_ub_from_scan), queued on the same stream, or
-        None without residual planes or above the refine ceiling."""
-        if dev.emb2 is None or m > self._REFINE_MAX_M:
+        None without residual planes, on a sharded index (the reference's
+        sharded rescue runs without it) or above the refine ceiling."""
+        if dev.emb2 is None or self._sharded_scorer is not None or m > self._REFINE_MAX_M:
             return None
         return refine.refine_ub_from_scan(
             dev.emb, dev.scale, dev.emb2, dev.scale2, dev.err2, dev.bloom,
@@ -445,14 +456,19 @@ class RecallEngine:
         )
 
     def _refine_select_call(self, dev, q_dev, w_dev, bias_dev, now_dev,
-                            vals_d, idxs_d, m: int, max_k: int):
-        """The compact (rows, ubs, bound) device triple: the direct
-        selection straight from the scan bounds when Engine:DirectSelect is
-        on and its gate is open (or refine is impossible), else the refine
-        selection (K3 + ops/refine.py compact_select); None when neither
-        applies (the certificate then runs at the full scan width on the
-        host). Records which selection it took in ``_last_select_direct``
-        (None without Engine:DirectSelect)."""
+                            vals_d, idxs_d, m: int, max_k: int, q_raw_dev=None):
+        """``(sel, dd)``: ``sel`` the compact (rows, ubs, bound) device
+        triple — the direct selection straight from the scan bounds when
+        Engine:DirectSelect is on and its gate is open (or refine is
+        impossible), else the refine selection (K3 + ops/refine.py
+        compact_select), or on a sharded index ShardedScorer.
+        refine_select_dd — or None when neither applies (the certificate
+        then runs at the full scan width on the host). ``dd`` is the
+        device-exact cosine triple when the sharded stage computed it
+        (``q_raw_dev`` given, raw plane present), else None: single-device
+        callers chain K2 themselves. Records which selection it took in
+        ``_last_select_direct`` (None without Engine:DirectSelect; a
+        sharded engine never takes the direct one)."""
         # t_out covers the largest requested k with phase-2 headroom, a
         # power of two
         t_base = self.options.select_t_out
@@ -461,7 +477,7 @@ class RecallEngine:
         else:
             t_out = max(32, self.options.rescore_phase1_refined + 4, max_k + 8)
         t_out = 1 << (t_out - 1).bit_length()
-        direct_opt = self.options.direct_select
+        direct_opt = self.options.direct_select and self._sharded_scorer is None
         use_direct = direct_opt and (
             dev.emb2 is None or m > self._REFINE_MAX_M or self._direct_gate_open()
         )
@@ -470,9 +486,9 @@ class RecallEngine:
             rows, ubs, bound = refine.direct_select_from_scan(
                 vals_d, idxs_d, min(t_out, max(1, m - 1))
             )
-            return rows.contiguous(), ubs, bound
+            return (rows.contiguous(), ubs, bound), None
         if dev.emb2 is None or m > self._REFINE_MAX_M:
-            return None
+            return None, None
         # refine width: only the top-r scan candidates are refined; the
         # (r+1)-th scan bound joins the certificate bound. The rounding to
         # a multiple of 8 (the TPU kernel's shape rule) is kept: r decides
@@ -480,11 +496,19 @@ class RecallEngine:
         r = self.options.refine_width or m
         r = max(t_out, min(r, m))
         r = ((r + 7) // 8) * 8
+        if self._sharded_scorer is not None:
+            want_dd = (q_raw_dev is not None and dev.raw is not None
+                       and self.options.device_exact_cos)
+            out = self._sharded_scorer.refine_select_dd(
+                dev, q_dev, w_dev, bias_dev, now_dev, vals_d, idxs_d,
+                t_out=t_out, r=min(r, m), q_raw=q_raw_dev if want_dd else None,
+            )
+            return (tuple(out[:3]), tuple(out[3:])) if want_dd else (tuple(out), None)
         return refine.refine_select_from_scan(
             dev.emb, dev.scale, dev.emb2, dev.scale2, dev.err2, dev.bloom,
             dev.created, dev.valid, q_dev, w_dev, bias_dev, now_dev, vals_d, idxs_d,
             t_out=t_out, r=min(r, m),
-        )
+        ), None
 
     # -- search --
 
@@ -557,8 +581,11 @@ class RecallEngine:
         so it never guarantees full coverage (False). Otherwise the xla
         scorer, whose top-(m+1) covers every row once m reaches the window
         (True), on f32 storage; on int8/bf16 storage nothing can feed it,
-        so (None, True): the exact host scan finishes."""
+        so (None, True): the exact host scan finishes. A sharded engine
+        takes ``_select_sharded_scorer``."""
         scan_dtype = self.device_index.scan_dtype
+        if self._sharded_scorer is not None:
+            return self._select_sharded_scorer(m, n_rows_padded, scan_dtype)
         if self.options.backend == "pallas":
             itemsize = {"int8": 1, "bf16": 2}.get(scan_dtype, 4)
             c = scorer._pick_block(n_rows_padded, itemsize)
@@ -592,6 +619,30 @@ class RecallEngine:
                 now_days, r0, m=m,
             )
         return xla, True
+
+    def _select_sharded_scorer(self, m: int, n_rows_padded: int, scan_dtype: str):
+        """The sharded ``_select_scorer`` (search/engine.py:660-686): the
+        shards' fused scan (K4 on int8, K6 on f32/bf16) at sub 512 while
+        ``pallas_budget`` covers m, else the xla pass on f32 storage, which
+        covers every local row once m reaches the window."""
+        ss = self._sharded_scorer
+        mode, t, sub = "xla", 8, 512
+        if self.options.backend == "pallas":
+            slices = ss.pallas_budget(n_rows_padded)
+            if slices > 0:
+                t_try = min(scorer.PALLAS_BLOCK_T, sub - 1, max(1, math.ceil(2 * m / slices)))
+                if m <= slices * t_try:
+                    mode = "pallas_int8" if scan_dtype == "int8" else "pallas"
+                    t = t_try
+        if mode == "xla" and scan_dtype != "f32":
+            return None, True  # quantized storage cannot feed the xla pass
+
+        def sharded(dev, q, w, bias, now_days, r0, m):
+            return ss.score_topm(
+                dev.emb, dev.bloom, dev.created, dev.valid, q, w, bias, now_days, r0,
+                m=m, mode=mode, t=t, sub=sub, scale=dev.scale, err=dev.err,
+            )
+        return sharded, mode == "xla"
 
     def _coarse_gate_open(self) -> bool:
         with self._coarse_gate_lock:
@@ -658,17 +709,29 @@ class RecallEngine:
             and self.device_index.scan_dtype == "int8"
         ):
             return None
-        c = scorer._pick_block_coarse(n_rows_padded)
+        ss = self._sharded_scorer
+        # a sharded index lays out the scan of its local rows
+        # (search/engine.py:815-837)
+        n_rows = n_rows_padded if ss is None else ss.local_rows(n_rows_padded)
+        c = scorer._pick_block_coarse(n_rows)
         if c == 0:
             return None
         layout = scorer._coarse_layout(
-            n_rows_padded, m, c,
+            n_rows, m, c,
             self.options.coarse_sub, self.options.coarse_t,
             prefer_shallow=True,
         )
         if layout is None:
             return None
         sub, t = layout
+        if ss is not None:
+            def sharded_coarse(dev, q, w, bias, now_days, r0, m):
+                return ss.score_topm(
+                    dev.emb, dev.bloom, dev.created, dev.valid, q, w, bias, now_days, r0,
+                    m=m, mode="pallas_int8_coarse", t=t, sub=sub,
+                    scale=dev.scale, err=dev.err,
+                )
+            return sharded_coarse
 
         def coarse(dev, q, w, bias, now_days, r0, m):
             return scorer.score_topm_int8_coarse(
@@ -687,13 +750,22 @@ class RecallEngine:
             and self.device_index is not None
         ):
             return None
-        c = scorer._pick_block(n_rows_padded, 1)
+        ss = self._sharded_scorer
+        n_rows = n_rows_padded if ss is None else ss.local_rows(n_rows_padded)
+        c = scorer._pick_block(n_rows, 1)
         if c == 0:
             return None
-        layout = scorer._coarse_layout(n_rows_padded, m, c)
+        layout = scorer._coarse_layout(n_rows, m, c)
         if layout is None:
             return None
         sub, t = layout
+        if ss is not None:
+            def sharded_kw(dev, w, bias, now_days, r0, m):
+                return ss.score_topm(
+                    None, dev.bloom, dev.created, dev.valid, None, w, bias, now_days, r0,
+                    m=m, mode="pallas_kw_only", t=t, sub=sub,
+                )
+            return sharded_kw
 
         def kw_only(dev, w, bias, now_days, r0, m):
             return scorer.score_topm_kw_only(
@@ -1194,6 +1266,16 @@ class RecallEngine:
             # slack of the scan and refine bounds; zero rows normalize to 0
             inv_dev = torch.where(qhi > 0.0, 1.0 / torch.sqrt(qhi), torch.zeros_like(qhi))
             q_dev = q_raw_dev * inv_dev[:, None]
+        elif self._sharded_scorer is not None:
+            # the sharded path normalizes on the host, as the reference's
+            # sharded upload does (search/engine.py:1505-1518): f32 products
+            # accumulated in f64, an f64 divide, rounded to f32
+            q_host = np.zeros((b, dix.dim), dtype=np.float32)
+            if ok.any():
+                q_host[ok] = (q_raw[ok].astype(np.float64)
+                              / np.sqrt(q_norms[ok])[:, None]).astype(np.float32)
+            q_raw_dev = _upload(q_raw, device)
+            q_dev = _upload(q_host, device)
         else:
             # ONE raw [B, d] f32 upload + f32 inverse norms, normalized on
             # device: q_raw * f32(1/sqrt(qn)) is within ~2 ulps of the host's
@@ -1252,7 +1334,7 @@ class RecallEngine:
             kw_scorer = self._select_kw_scorer(m, int(dev.emb.shape[0]))
             if kw_scorer is not None:
                 k_vals, k_idxs = kw_scorer(dev, w_dev, bias_dev, now_dev, r0, m)
-                sel = self._refine_select_call(
+                sel, _ = self._refine_select_call(
                     dev, q_dev, w_dev, bias_dev, now_dev, k_vals, k_idxs, m, max(ks),
                 )
                 # which selection the direct gate chose: the keyword batch's
@@ -1281,14 +1363,17 @@ class RecallEngine:
             coarse = self._select_coarse_scorer(m, int(dev.emb.shape[0]))
             if coarse is not None:
                 c_vals, c_idxs = coarse(dev, q_dev, w_dev, bias_dev, now_dev, r0, m)
-                sel = self._refine_select_call(
+                sel, dd_inline = self._refine_select_call(
                     dev, q_dev, w_dev, bias_dev, now_dev, c_vals, c_idxs, m, max(ks),
+                    q_raw_dev=q_raw_dev,
                 )
                 # which selection the direct gate chose for THIS batch (the
                 # finalize attributes the compact outcomes to the gate)
                 ctx["select_direct"] = self._last_select_direct
                 if sel is not None:
-                    ctx["coarse_dd"] = chain_dd(sel)
+                    # sharded: the DD rode the selection's dispatch
+                    ctx["coarse_dd"] = (_HostCopy(dd_inline) if dd_inline is not None
+                                        else chain_dd(sel))
                     ctx["coarse_scan"] = ("compact", prepass, _HostCopy(sel))
                     ctx["coarse_full"] = (c_vals, c_idxs)  # wide rescue
                 else:

@@ -15,8 +15,11 @@ encoder, and its queries take the device-resident pipeline
 fine-tunes that encoder on the corpus and re-embeds it.
 ``Ai:Provider=Local`` answers chat with the on-card decoder
 (chat/local.py) through the continuous batcher, the remote chain as its
-fallback. The engine, the local encoder and the decoder run on CUDA unless
-``device="cpu"`` is passed.
+fallback. ``Engine:Shards`` = N > 0 row-shards the index over the first N
+cards (parallel/mesh.py), joined across processes when a
+``torch.distributed`` group is initialized (parallel/distributed.py). The
+engine, the local encoder and the decoder run on CUDA unless
+``device="cpu"`` is passed (then N shards on the CPU).
 
 ``build_app`` accepts overrides for every dependency so tests can boot the
 whole app in-process with fakes — the reference's WebApplicationFactory
@@ -118,7 +121,24 @@ class OmniRecallApp(WsgiApp):
         if engine is not None:
             self.engine = engine
         else:
-            self.engine = RecallEngine(self.store, options=config.engine, device=device)
+            mesh = None
+            if config.engine.shards > 0:
+                # row-shard the index over a 1-D shards mesh (app.py:110-121)
+                import torch
+
+                from omni_recall_tpu_torch.parallel.distributed import default_group
+                from omni_recall_tpu_torch.parallel.mesh import shards_mesh
+
+                if torch.device(device).type == "cpu":
+                    mesh = shards_mesh(devices=["cpu"] * config.engine.shards)
+                else:
+                    mesh = shards_mesh(config.engine.shards, group=default_group())
+                logging.getLogger(__name__).info(
+                    "Engine:Shards=%d: the index is row-sharded over %d shards (%s)",
+                    config.engine.shards, mesh.n_shards,
+                    ", ".join(str(d) for d in mesh.devices))
+            self.engine = RecallEngine(self.store, options=config.engine, device=device,
+                                       mesh=mesh)
         if config.embeddings.dim != config.engine.embedding_dim:
             # handled soundly (zero device rows + host full-scan routing for
             # mismatched queries) but it disables the fast path: say so
@@ -158,6 +178,7 @@ class OmniRecallApp(WsgiApp):
             and (config.embeddings.provider or "").strip().lower() == "local"
             and config.engine.backend != "oracle"
             and self.engine.device_index is not None
+            and self.engine._sharded_scorer is None
             and getattr(self.embedding_client, "dim", None) == self.engine.device_index.dim
         ):
             try:

@@ -22,6 +22,13 @@ Host-only tools (no kernel of their own), each beside the module it drives:
   layouts.
 - ``bench_ingest``: the index append pipeline in chunks/s.
 
+The tools of row sharding (parallel/):
+
+- ``sharded_check``: the sharded scorer's scans and refine_select_dd
+  against the single-device ops, on a mesh of one or more shards.
+- ``probe_sharded_timing``: a sharded coarse scan per call on the host
+  clock, as device time, and beside the unsharded K1.
+
 The local models' tools (the fine-tuned encoder and the chat decoder):
 
 - ``localq``: the bench's localq corpus, its fine-tuned encoder and engine

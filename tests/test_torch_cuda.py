@@ -460,6 +460,41 @@ def test_dd_rows_kernel(dev, d):
     assert bool((h[1] == 0).all()) and bool((h[rows < 0] == 0).all())
 
 
+@pytest.mark.parametrize("d", [1, 100, 768, 2048, 3072])
+def test_dd_rows_gathered_entry(dev, d):
+    """K2's gathered entry (``dd_rows(q_raw, c)``, the sharded path's)
+    against its plain version, and bitwise the by-index entry on the same
+    rows: one fold, two entries."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    raw = torch.randn((3000, d), generator=g, device=dev)
+    q = torch.randn((29, d), generator=g, device=dev)
+    rows = torch.randint(-1, 3000, (29, 33), generator=g, device=dev).to(torch.int32)
+    raw[0] = 0.0
+    q[2] = 0.0
+    c = raw[torch.where(rows < 0, 0, rows).long()]
+    h, lo, s = exact_cos.dd_rows(q, c)
+    ph, plo, ps = exact_cos.dd_sum_products(q[:, None, :], c)
+    assert _same(h, ph) and _same(lo, plo)
+    nonzero = ps != 0
+    assert float(((s - ps).abs()[nonzero] / ps[nonzero]).max()) <= exact_cos.SABS_REL
+    for x, y in zip((h, lo, s), exact_cos.exact_cos_rows(raw, rows, q)):
+        assert _same(x, y)
+
+
+def test_sharded_scorer_on_the_card(dev):
+    """tools.sharded_check on the card: one shard bitwise the unsharded
+    kernels, four shards of the card with top-m values, boundary and
+    refine_select_dd bitwise."""
+    from omni_recall_tpu_torch.parallel.mesh import shards_mesh
+    from omni_recall_tpu_torch.tools import sharded_check
+
+    inp = sharded_check.make_inputs(1 << 16, 256, 512, 64, dev)
+    for shards in (1, 4):
+        line = sharded_check.op_parity(shards_mesh(devices=[dev] * shards), inp["dev"], inp,
+                                       m=64, t=8, sub=512)
+        assert line["ok"], line
+
+
 def _refine_inputs(dev, n, d, b, m, w, seed):
     """Index planes + candidates at the chip shapes, with sentinel slots,
     invalid rows and -inf scan bounds."""

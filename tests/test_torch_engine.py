@@ -210,18 +210,29 @@ def test_pipelined_batches_and_mixed_requests(clustered):
 
 
 def test_options_the_port_cannot_serve_raise():
-    """Only sharding still raises, naming its ROADMAP.md item by a title that
-    ROADMAP.md has; backend xla and f32/bf16 scan storage serve, and refine
-    serves on the int8 pallas index."""
+    """No engine option raises any more: sharding serves on the CPU for the
+    xla and int8 options this test listed when it raised (an 8-shard mesh
+    and the two shards of Engine:Shards=2 on the CPU), DTO-identical to the
+    single-device engine; backend xla and f32/bf16 scan storage serve, and
+    refine serves on the int8 pallas index."""
+    from omni_recall_tpu_torch.parallel.mesh import shards_mesh
+
+    rows, centers, words, _ = _corpus(5, 512)
+    reqs = _requests(centers, words, 6, 5)
+    for good in (dict(backend="xla"), dict(backend="pallas", scan_dtype="int8")):
+        opts = dataclasses.replace(TOptions(embedding_dim=DIM), shards=2, recent_window=0,
+                                   capacity_block=512, **good)
+        _, (store, chunks) = _stores(rows)
+        sharded = TEngine(store, None, opts, mesh=shards_mesh(devices=["cpu"] * 2))
+        single = TEngine(store, None, dataclasses.replace(opts, shards=0), device="cpu")
+        for eng in (sharded, single):
+            eng.on_chunks_upserted(chunks, new=True)
+        assert sharded.device_index.mesh.n_shards == 2
+        got = sharded.search_batch(reqs, now=NOW)
+        want = single.search_batch(reqs, now=NOW)
+        assert [_dto(h) for h in got] == [_dto(h) for h in want]
+        assert all(got)
     store = TStore()
-    titles = _roadmap_titles()
-    for bad in (dict(shards=2), dict(shards=2, backend="pallas", scan_dtype="int8")):
-        opts = dataclasses.replace(TOptions(embedding_dim=DIM), **bad)
-        with pytest.raises(NotImplementedError, match="ROADMAP") as err:
-            TEngine(store, None, opts, device="cpu")
-        named = re.findall(r'ROADMAP\.md, "([^"]+)"', str(err.value))
-        assert named == ["Row sharding over GPUs (parallel/)"], str(err.value)
-        assert all(t in titles for t in named), (str(err.value), named)
     for good, dtype in ((dict(backend="xla"), "f32"),
                         (dict(backend="pallas", scan_dtype="bf16"), "bf16"),
                         (dict(backend="pallas", scan_dtype="f32"), "f32"),
@@ -253,10 +264,8 @@ def test_every_not_ported_message_names_a_roadmap_title():
         src = path.read_text()
         # a title may open the next line of an implicitly joined string
         named += re.findall(r'ROADMAP\.md, "?\s*\'?"([^"]+)"', src)
-    # Engine:Shards names its item (the "Local models" messages went with
-    # the slice that ported them)
-    assert len(named) >= 1
-    assert {"Row sharding over GPUs (parallel/)"} <= set(named)
+    # none may be left: Engine:Shards, the last, went with the slice that
+    # ported row sharding
     missing = [t for t in named if t not in titles]
     assert not missing, missing
 

@@ -56,6 +56,31 @@ def test_exact_cos_rows_matches_jax_including_empty_slots(d):
                                   torch.from_numpy(q))[0][:, 0].numpy())
 
 
+@pytest.mark.parametrize("d", [768, 100])
+def test_dd_rows_over_gathered_rows_matches_jax_and_the_by_index_entry(d):
+    """``dd_rows(q_raw, c)``, K2's second entry (rows already gathered, the
+    sharded path's owner gather): hi and lo bitwise the JAX ``dd_rows``,
+    sabs within SABS_REL, and on the same rows every output bitwise the
+    by-index entry's."""
+    rng = np.random.default_rng(d + 7)
+    raw = rng.standard_normal((200, d)).astype(np.float32)
+    raw[3] = 0.0                # a zero row
+    raw[4] = -raw[5]            # cancellation against row 5
+    q = rng.standard_normal((4, d)).astype(np.float32)
+    rows = rng.integers(0, 200, size=(4, 10)).astype(np.int32)
+    rows[0, :3] = (3, 4, 5)
+    c = raw[rows]               # [B, t, d]
+    jh, jl, js = jec.dd_rows(jnp.asarray(q), jnp.asarray(c))
+    th, tl, ts = tec.dd_rows(torch.from_numpy(q), torch.from_numpy(c))
+    assert th.shape == (4, 10)
+    assert _eq(jh, th.numpy()) and _eq(jl, tl.numpy())
+    assert _sabs_ok(js, ts.numpy())
+    bh, bl, bs = tec.exact_cos_rows(torch.from_numpy(raw), torch.from_numpy(rows),
+                                    torch.from_numpy(q))
+    assert _eq(bh.numpy(), th.numpy()) and _eq(bl.numpy(), tl.numpy())
+    assert _eq(bs.numpy(), ts.numpy())
+
+
 def test_self_norm_dd_matches_jax():
     rng = np.random.default_rng(3)
     q = rng.standard_normal((7, 768)).astype(np.float32)

@@ -58,6 +58,10 @@ def test_engine_and_server_import_without_jax():
         "import omni_recall_tpu_torch.tools.train_embedder_demo\n"
         "import omni_recall_tpu_torch.tools.train_chat_demo\n"
         "import omni_recall_tpu_torch.tools.bench_decode\n"
+        "import omni_recall_tpu_torch.parallel\n"
+        "import omni_recall_tpu_torch.parallel.distributed\n"
+        "import omni_recall_tpu_torch.tools.sharded_check\n"
+        "import omni_recall_tpu_torch.tools.probe_sharded_timing\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'omni_recall_tpu.'))"
         " or m == 'omni_recall_tpu']\n"
         "assert not bad, bad\n"
@@ -86,6 +90,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         RecallEngine(InMemoryIngestionStore(), options=EngineOptions(embedding_dim=32))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_app(load_config(settings_file=None, env={}))
+    from omni_recall_tpu_torch.parallel.mesh import shards_mesh
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shards_mesh(2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_app(load_config(settings_file=None, env={}, overrides={"Engine:Shards": 2}))
     from omni_recall_tpu_torch.chat.local import LocalDecoderChatClient
     from omni_recall_tpu_torch.models import decoder, encoder, finetune
 

@@ -173,6 +173,29 @@ def test_refine_configuration_responses_equal_the_jax_app(direct):
     assert tlog == jlog
 
 
+def test_sharded_app_responses_equal_shards_0_and_the_jax_app():
+    """Engine:Shards=2 (two CPU shards on the port, two virtual devices on
+    the JAX side) with the refine planes, refine selection and device-exact
+    cosine: the transcript equals the port's Shards=0 app and the JAX
+    sharded app."""
+    overrides = {**OVERRIDES, "Engine:Refine": "true", "Engine:CapacityBlock": 512,
+                 "Engine:Shards": 2}
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (jingest, jengine, tingest, tengine):
+            mp.setattr(module, "datetime", _FixedClock)
+        japp = jbuild(jload(settings_file=None, env={}, overrides=overrides))
+        tapp = tbuild(tload(settings_file=None, env={}, overrides=overrides), device="cpu")
+        single = tbuild(tload(settings_file=None, env={},
+                              overrides={**overrides, "Engine:Shards": 0}), device="cpu")
+        assert tapp.engine.device_index.mesh.n_shards == 2
+        assert single.engine.device_index.mesh is None
+        logs = [_run(client, _Renamer())
+                for client in (JClient(japp), TClient(tapp), TClient(single))]
+    assert logs[1] == logs[0]
+    assert logs[1] == logs[2]
+    assert any(k[0] == "refine_select_dd" for k in tapp.engine._sharded_scorer.calls)
+
+
 def test_ocr_provider_builds_the_extractor():
     """Ocr:Provider=DocumentIntelligence (or AzureDocumentIntelligence) builds
     the Document Intelligence extractor as the JAX app does; None and
