@@ -188,6 +188,38 @@ Phases, one JSON line each:
 4e. ``bench_ingest`` the append pipeline at 50k chunks
                 (``omni_recall_tpu_torch.tools.bench_ingest``): append and
                 upload for f32 and int8 storage, chunks/s; no kernel.
+4j. ``eval``   the eval path (omni_recall_tpu_torch/eval): the eval CLI's
+                in-process app on the card with the headline's engine
+                options (``headline_options``) and Hash embeddings at 768
+                dims and 1024 bloom bits, the real corpus's 42 documents
+                uploaded through POST /api/documents/upload, the generated
+                cases through ``EvalHarness`` and ``InProcessClient``, every
+                recall response equal to an oracle-backend app's on the
+                same store; the 200-case parity campaign of eval/corpus.py
+                at the JAX test's engine (d 64, 256 bits, m 16, capacity
+                512) and with the headline's features at d 768 / 1024 bits,
+                DTO-identical to the oracle; the real corpus's quality
+                campaign (none, hash, local-untrained, local-trained at 300
+                steps) on the card, every query also through the int8
+                engine at d 64 / 256 bits (hits equal to the oracle's), and
+                its fine-tuned provider on this machine's CPU in a process
+                beside it (the same rendering of the documents), the
+                fine-tuned recall within 0.03 of the CPU run's. The path
+                must launch K1, K2, K3, K4 and K5. Its line carries the
+                ``eval_trace`` path's result:
+                ``utils/profiling.device_trace`` around one headline batch
+                of the serve corpus (in phase 4, while the direct gate is
+                open), the trace naming K1's and K2's kernels, and its five
+                longest device operations.
+4k. ``decomp`` the six stage probes of tools/ (``main()`` of
+                omni_recall_tpu_torch/tools/{profile_int8, sweep_coarse,
+                probe_scan_decomp, profile_refine, probe_direct_serve,
+                probe_gather_sorted} at their defaults: 2^20 x 768, B 1536
+                where the tool says so): each stage's CUDA-event device
+                time beside its host clock and its bound; each tool holds
+                its stages bitwise against the whole path they split, and
+                the sorted gather un-permuted against the random one. The
+                path launches K1, K7a, K4, K3 and K2 and no probe kernel.
 4c. ``compact`` the compact 10M store of the repository bench (10 x 2^20 x
                 768 rows, 512 bloom bits, batches of 896, kw_frac 0.75,
                 ``bench.py st_10m``), built by ``build_compact_engine`` after
@@ -204,9 +236,10 @@ Phases, one JSON line each:
                 these planes): K1 and the coarse entry at B in {448, 896,
                 1536} and (sub, t) in {512, 1024} x {2, 4}.
 5. ``kernels``  per kernel: its parity and times, and its launches on each
-                path (the profiling path, the server of phase 3 and each path
-                of phase 4; the counts are zeroed just before a path and read
-                just after it, and each path must launch its kernels); T1, T2,
+                path (the profiling path, the server of phase 3, each path
+                of phase 4, ``eval``, ``eval_trace`` and ``decomp``; the
+                counts are zeroed just before a path and read just after
+                it, and each path must launch its kernels); T1, T2,
                 T4 and T5 with one sub-entry per variant, layout or emit; T3
                 with its select-shape line and the stage times; K1, K4 and
                 K5 each with its line at the compact shape.
@@ -254,27 +287,15 @@ def nvidia_smi() -> str:
 
 
 def time_ms(fn, runs: int = 5, device_only: bool = False) -> float:
-    """Median of ``runs`` CUDA-event timings of fn() after one warm-up.
-    ``device_only``: a 10 ms device sleep is queued first, so fn's launches
-    are all queued before its events start and the time is the device's
-    alone; without it a launch that takes less time on the device than on
-    the host is timed at its host launch overhead."""
-    import torch
+    """Median of ``runs`` CUDA-event timings of fn() after one warm-up
+    (``utils/profiling.cuda_median_ms``). ``device_only``: a 10 ms device
+    sleep is queued first, so fn's launches are all queued before its events
+    start and the time is the device's alone; without it a launch that takes
+    less time on the device than on the host is timed at its host launch
+    overhead."""
+    from omni_recall_tpu_torch.utils.profiling import cuda_median_ms
 
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        if device_only:
-            torch.cuda._sleep(20_000_000)  # ~10 ms of clock cycles
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return cuda_median_ms(fn, runs, device_only)
 
 
 def bitwise(a, b) -> bool:
@@ -1628,6 +1649,17 @@ PATH_KERNELS = {
     # batch, K4 in the keyword-led batch's rescue, K5 for empty vectors
     "sharded": ("coarse_scan", "refine", "dd_rows", "fused_scan", "kw_scan"),
     "probe_sharded_timing": ("coarse_pair",),
+    # the eval path: the headline-option app (K4 + K3 at its m = 128), the
+    # parity campaigns (K1, K3; K2 with the headline's features) and the
+    # real corpus's device engine (K5 for the keyword-only provider, K4 and
+    # K3 in its rescue)
+    "eval": ("coarse_scan", "dd_rows", "refine", "fused_scan", "kw_scan"),
+    # one headline batch under torch.profiler
+    "eval_trace": ("coarse_scan", "dd_rows"),
+    # the six stage probes: K4 (profile_int8), K1 and K7a (sweep_coarse at
+    # t = 1, probe_scan_decomp), K3 and K2 (profile_refine,
+    # probe_direct_serve)
+    "decomp": ("coarse_scan", "coarse_pair", "fused_scan", "refine", "dd_rows"),
 }
 # the int8 kernels: an f32/bf16 index must not reach them
 INT8_KERNELS = ("coarse_scan", "coarse_pair", "dd_rows", "refine", "fused_scan")
@@ -1661,6 +1693,8 @@ _OWN_FORBIDS = {
     # the timing probe's coarse scans run at t = 1: K7a alone
     "probe_sharded_timing": tuple(k for k in SERVING_KERNELS if k != "coarse_pair")
     + PROBE_KERNELS,
+    "eval": ("fp_scan",) + PROBE_KERNELS,
+    "decomp": ("kw_scan", "fp_scan") + PROBE_KERNELS,
 }
 PATH_FORBIDS = {
     name: _OWN_FORBIDS.get(name, _SERVING_FORBIDS.get(name, ()) + PROBE_KERNELS)
@@ -1807,7 +1841,8 @@ def split_batch(eng, reqs, now):
 
 
 def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
-                sample: int = 8, n_fp: int = 3, fp_sample: int = 4) -> dict:
+                sample: int = 8, n_fp: int = 3, fp_sample: int = 4,
+                trace: dict | None = None) -> dict:
     from datetime import timedelta
 
     import numpy as np
@@ -1926,6 +1961,11 @@ def serve_phase(seed: int, paths: dict, n_batches: int = 4, n_refine: int = 3,
     # the main path: warm-up + serial + pipelined + the two breakdown batches
     run_path(paths, "embedding_batches", 1 + 2 * n_batches + 2, embedding_batches,
              engine.stats)
+    if trace is not None:
+        # the eval path's device trace: one headline batch under
+        # torch.profiler, while the direct gate is open (K1, then K2)
+        trace.update(run_path(paths, "eval_trace", 1, lambda: eval_trace(
+            engine, make_requests(seed + 900), now, check)))
     run_path(paths, "refine_select_batches", n_refine + 2, refine_select_batches,
              engine.stats)
     # the main path's misses: keyword-led queries fail the coarse
@@ -3163,6 +3203,323 @@ def bench_ingest_path(paths: dict) -> dict:
     return line
 
 
+# ---------------------------------------------------------------- phase 4j
+
+# the eval corpora's engines: the headline's features (pallas, int8, refine
+# planes, direct selection, device-exact cosine) at the corpora's scale (the
+# JAX parity test's m = 16 and capacity 512); the headline's own m = 128
+# and (1024, 2) coarse layout need 2^16 rows or more, and at a few thousand
+# rows every query would take K4
+EVAL_JAX_SHAPES = dict(embedding_dim=64, bloom_bits=256, capacity_block=512, candidate_m=16)
+EVAL_TRAIN_TOLERANCE = 0.03  # tests/test_torch_eval_quality.py: local-trained vs JAX
+
+
+def eval_options(dim: int, bits: int, headline_features: bool = True):
+    from omni_recall_tpu_torch.config import EngineOptions
+
+    extra = dict(device_exact_cos=True, direct_select=True) if headline_features else {}
+    return EngineOptions(backend="pallas", scan_dtype="int8", recent_window=0, refine=True,
+                         **{**EVAL_JAX_SHAPES, "embedding_dim": dim, "bloom_bits": bits},
+                         **extra)
+
+
+class RecordingClient:
+    """The eval harness's in-process client, keeping every recall response."""
+
+    def __init__(self, app):
+        from omni_recall_tpu_torch.eval.clients import InProcessClient
+
+        self.inner = InProcessClient(app)
+        self.recalls = []
+
+    def search_recall(self, question, top_k):
+        out = self.inner.search_recall(question, top_k)
+        self.recalls.append((question, top_k, out))
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+
+def eval_app_check(docs) -> dict:
+    """The eval CLI's in-process run on the card: an app with the headline's
+    engine options (``headline_options``) and Hash embeddings at 768 dims
+    and 1024 bloom bits; the real corpus's documents uploaded through POST
+    /api/documents/upload; the generated cases run through the harness;
+    every recall response equal to an oracle-backend app's on the same
+    store."""
+    from omni_recall_tpu_torch.config import load_config
+    from omni_recall_tpu_torch.eval.harness import EvalHarness, generate_cases
+    from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
+    from omni_recall_tpu_torch.search.engine import RecallEngine
+    from omni_recall_tpu_torch.server.app import build_app
+
+    keys = {"Embeddings:Provider": "Hash", "Embeddings:Dim": DIM, "Engine:EmbeddingDim": DIM,
+            "Engine:BloomBits": BITS, "Engine:RecentWindow": 0}
+    config = load_config(settings_file=None, env={}, overrides=keys)
+    store = InMemoryIngestionStore()
+    engine = RecallEngine(store, options=headline_options(0))
+    app = build_app(config, store=store, engine=engine)
+    oracle_app = build_app(load_config(settings_file=None, env={}, overrides={
+        **keys, "Engine:Backend": "oracle"}), store=store, embedding_client=app.embedding_client)
+    client, oracle_client = RecordingClient(app), RecordingClient(oracle_app)
+    t0 = time.perf_counter()
+    for name, text in docs:
+        resp = client.inner.client.upload("/api/documents/upload", filename=name,
+                                          data=text.encode())
+        if resp.status != 201:
+            raise AssertionError(f"upload {name}: HTTP {resp.status}")
+    upload_s = time.perf_counter() - t0
+    cases = generate_cases(client)
+    reports = {}
+    for label, c in (("device", client), ("oracle", oracle_client)):
+        t0 = time.perf_counter()
+        reports[label] = EvalHarness(c, sleep=lambda s: None).run(cases)
+        reports[label]["seconds"] = time.perf_counter() - t0
+    if [r[2] for r in client.recalls] != [r[2] for r in oracle_client.recalls]:
+        diff = next(i for i, (a, b) in enumerate(zip(client.recalls, oracle_client.recalls))
+                    if a[2] != b[2])
+        raise AssertionError(f"eval app: case {diff}'s recall differs from the oracle app's")
+    strip = lambda rs: [{k: v for k, v in r.items() if k != "duration_ms"} for r in rs]  # noqa
+    if strip(reports["device"]["results"]) != strip(reports["oracle"]["results"]):
+        raise AssertionError("eval app: the harness reports differ from the oracle app's")
+    return {"documents": len(docs), "chunks": engine.device_index.n_rows,
+            "upload_s": upload_s, "cases": len(cases), "summary": reports["device"]["summary"],
+            "recall_responses_equal": len(client.recalls),
+            "citations": sum(len(r[2]["citations"]) for r in client.recalls),
+            "harness_s": {k: r["seconds"] for k, r in reports.items()}}
+
+
+def eval_parity_lines() -> dict:
+    """The 200-case parity campaign of eval/corpus.py on the card at the JAX
+    test's shapes (d 64, 256 bloom bits, its engine options) and at d 768 /
+    1024 bits with the headline's features: every case DTO-identical to
+    the float64 oracle."""
+    from omni_recall_tpu_torch.eval.corpus import parity_campaign
+
+    out = {}
+    for label, dim, bits, headline in (("d64_jax_test", 64, 256, False),
+                                       ("d768_headline_features", DIM, BITS, True)):
+        t0 = time.perf_counter()
+        before = dict(cuda_launches())
+        rep = parity_campaign(eval_options(dim, bits, headline), device="cuda", dim=dim)
+        if rep["mismatches"] or rep["hit_rate"] < 0.8:
+            raise AssertionError(f"eval parity {label}: {len(rep['mismatches'])} mismatches, "
+                                 f"hit rate {rep['hit_rate']} ({rep['mismatches'][:1]})")
+        out[label] = {"cases": rep["cases"], "hit_rate": rep["hit_rate"], "mismatches": 0,
+                      "seconds": time.perf_counter() - t0,
+                      "launches": launch_delta(before)}
+    return out
+
+
+def cuda_launches() -> dict:
+    from omni_recall_tpu_torch.ops import cuda
+
+    return cuda.LAUNCHES
+
+
+def launch_delta(before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in cuda_launches().items()
+            if v != before.get(k, 0)}
+
+
+EVAL_CLOCK = datetime.datetime(2026, 9, 1, 12, 0, tzinfo=datetime.timezone.utc)
+
+
+EVAL_CPU_THREADS = 4  # the CPU run's intra-op threads, beside the card's host thread
+
+
+def cpu_real_corpus(docs_path: str) -> None:
+    """The CPU run's process (``CpuCampaign``): the real-corpus campaign's
+    fine-tuned provider (the gate) on this machine's CPU over the documents
+    in ``docs_path``, on the fixed clock; prints one JSON line. The whole
+    campaign there, beside the card's, took 171 s: none and hash score on
+    the host in both runs (the same code), so only the fine-tune runs."""
+    import torch
+
+    from omni_recall_tpu_torch.eval import real_corpus
+    from omni_recall_tpu_torch.eval.quality import encoder_embed_fn
+
+    torch.set_num_threads(EVAL_CPU_THREADS)
+    with open(docs_path, encoding="utf-8") as fh:
+        docs = [tuple(d) for d in json.load(fh)]
+    t0 = time.perf_counter()
+    with fixed_clock():
+        params, cfg = real_corpus.finetune_encoder_real(real_corpus.training_store(docs),
+                                                        device="cpu")
+        trained = real_corpus.recall_at_10(encoder_embed_fn(params, cfg, "cpu"), docs=docs,
+                                           now=EVAL_CLOCK, device="cpu")
+    print(json.dumps({"real_corpus_cpu": {"local-trained": trained},
+                      "cpu_s": time.perf_counter() - t0}), flush=True)
+
+
+class CpuCampaign:
+    """The real-corpus campaign on the CPU in a process of its own (no CUDA
+    device visible), started before the card's campaigns and run beside
+    them; ``result`` waits for it, ``stop`` ends it and removes its files."""
+
+    def __init__(self, docs):
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="omni_eval_cpu_")
+        path = os.path.join(self.dir, "docs.json")
+        with open(path, "w", encoding="utf-8") as fh:
+            json.dump(docs, fh)
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", f"import chip_smoke; chip_smoke.cpu_real_corpus({path!r})"],
+            cwd=HERE, env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def result(self, timeout: float = 600.0) -> dict:
+        out, err = self.proc.communicate(timeout=timeout)
+        if self.proc.returncode != 0:
+            raise AssertionError(f"the CPU campaign failed ({self.proc.returncode}): "
+                                 f"{err[-3000:]}")
+        return json.loads(out.strip().splitlines()[-1])
+
+    def stop(self) -> None:
+        import shutil
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def eval_campaign_lines(docs, cpu_run: CpuCampaign) -> dict:
+    """The real corpus's quality campaign (eval/real_corpus.py: four
+    providers, 300 fine-tune steps) on the card, every query also served by
+    the int8 engine at d 64 / 256 bits with the headline's features, its
+    hits equal to the oracle's (so the keyword-only provider runs K5); and
+    the fine-tuned provider's campaign on this machine's CPU (``cpu_run``,
+    over the same rendering of the documents). Ingestion and recency run on one fixed
+    clock. The fine-tuned encoder's recall on the card must be within
+    EVAL_TRAIN_TOLERANCE of the CPU run's."""
+    from omni_recall_tpu_torch.eval import real_corpus
+
+    out = {}
+    records: dict = {}
+    before = dict(cuda_launches())
+    t0 = time.perf_counter()
+    with fixed_clock():
+        out["real_corpus_cuda"] = real_corpus.evaluate_real_corpus(
+            now=EVAL_CLOCK, device="cuda", device_options=eval_options(real_corpus.DIM, 256),
+            records=records, docs=docs)
+    out["real_corpus_cuda_s"] = time.perf_counter() - t0
+    out["real_corpus_launches"] = launch_delta(before)
+    bad = {p: r["mismatches"][:1] for p, r in records.items() if r["mismatches"]}
+    if bad:
+        raise AssertionError(f"real corpus: the int8 engine differs from the oracle: {bad}")
+    out["real_corpus_device_engine"] = {
+        p: {k: r[k] for k in ("queries", "oracle_recall", "device_recall")}
+        for p, r in records.items()}
+    t0 = time.perf_counter()
+    out.update(cpu_run.result())
+    out["cpu_wait_s"] = time.perf_counter() - t0
+    card, cpu = out["real_corpus_cuda"], out["real_corpus_cpu"]
+    out["trained_gap"] = abs(card["local-trained"] - cpu["local-trained"])
+    if out["trained_gap"] > EVAL_TRAIN_TOLERANCE:
+        raise AssertionError(f"real corpus: the fine-tuned recall on the card "
+                             f"{card['local-trained']} is {out['trained_gap']} from the CPU "
+                             f"run's {cpu['local-trained']}")
+    return out
+
+
+def eval_trace(engine, reqs, now, check) -> dict:
+    """``utils/profiling.device_trace`` around one headline batch: the trace
+    file must be written and name K1's and K2's kernels; its five longest
+    device operations (by total time)."""
+    import shutil
+    import tempfile
+
+    from omni_recall_tpu_torch.utils.profiling import device_ops, device_trace
+
+    log_dir = tempfile.mkdtemp(prefix="omni_eval_trace_")
+    try:
+        with device_trace(log_dir) as trace:
+            res = engine.search_batch(reqs, now=now)
+        check(engine, reqs, res)
+        size = os.path.getsize(trace.path)
+        ops = device_ops(trace.path)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    names = {"coarse_scan": [o["name"] for o in ops if "int8_scan_kernel" in o["name"]],
+             "dd_rows": [o["name"] for o in ops if "dd_rows_kernel" in o["name"]]}
+    line = {"trace_bytes": size, "device_ops": len(ops),
+            "device_us": sum(o["total_us"] for o in ops),
+            "kernels_named": {k: bool(v) for k, v in names.items()},
+            "kernel_names": {k: v[:2] for k, v in names.items()},
+            "longest": ops[:5]}
+    print(json.dumps({"eval_trace_longest": ops[:5]}), flush=True)
+    if not all(names.values()):
+        raise AssertionError(f"the device trace does not name K1 and K2: {line}")
+    return line
+
+
+def eval_phase(paths: dict, trace: dict) -> dict:
+    """The eval path (ROADMAP 1.6 on the card): the eval CLI's in-process
+    app, the parity campaign at two widths and the real corpus's quality
+    campaign on the card and (in a process beside it) on the CPU, with the
+    device trace taken in the serve phase (``trace``)."""
+    from omni_recall_tpu_torch.eval import real_corpus
+
+    line = {"phase": "eval", "gpu": nvidia_smi()}
+
+    def go():
+        docs = real_corpus.build_documents()
+        cpu_run = CpuCampaign(docs)
+        try:
+            before = dict(cuda_launches())
+            with fixed_clock():
+                line["app"] = eval_app_check(docs)
+            line["app"]["launches"] = launch_delta(before)
+            line["parity"] = eval_parity_lines()
+            line.update(eval_campaign_lines(docs, cpu_run))
+        finally:
+            cpu_run.stop()
+
+    run_path(paths, "eval", 0, go)
+    line["trace"] = trace
+    line["launches"] = paths["eval"]["launches"]
+    emit(line)
+    return line
+
+
+DECOMP_TOOLS = ("profile_int8", "sweep_coarse", "probe_scan_decomp", "profile_refine",
+                "probe_direct_serve", "probe_gather_sorted")
+
+
+def decomp_path(paths: dict) -> dict:
+    """The six stage probes of tools/ (omni_recall_tpu_torch/tools), each
+    ``main()`` at the tool's defaults (2^20 x 768 where the tool says so, B
+    1536 where it does), every stage timed with CUDA events beside the host
+    clock and its bound; each tool holds its stages against the whole path
+    they split (``whole_path_equal``) and raises where they differ."""
+    import importlib
+    import math
+
+    import torch
+
+    line = {"phase": "decomp", "gpu": nvidia_smi(), "tools": {}}
+
+    def go():
+        for name in DECOMP_TOOLS:
+            tool = importlib.import_module(f"omni_recall_tpu_torch.tools.{name}")
+            before = dict(cuda_launches())
+            t0 = time.perf_counter()
+            records = tool.main()
+            torch.cuda.empty_cache()
+            if not all(0 < r["ms"] < math.inf for r in records):
+                raise AssertionError(f"decomp {name}: a stage has no time")
+            line["tools"][name] = {"seconds": time.perf_counter() - t0,
+                                   "launches": launch_delta(before), "records": records}
+
+    run_path(paths, "decomp", 0, go)
+    line["launches"] = paths["decomp"]["launches"]
+    emit(line)
+    return line
+
+
 # ---------------------------------------------------------------- phase 4c
 
 COMPACT_ROWS = 10 * (1 << 20)  # the repository bench's st_10m (bench.py:2136-2197)
@@ -3605,13 +3962,16 @@ def main() -> int:
     # serves 3 timed batches here, not 4, the refine-select and the bf16 /
     # f32 / reference-default paths 2, not 3, and the compact path 2
     # (COMPACT_BATCHES), each batch still with its oracle sample
-    timed("serve", serve_phase, args.seed, paths, 3, 2, 8, 2)
+    trace: dict = {}
+    timed("serve", lambda: serve_phase(args.seed, paths, 3, 2, 8, 2, trace=trace))
     timed("snapshot", snapshot_phase, args.seed, paths)
     timed("localq", localq_phase, args.seed, paths)
     timed("train", train_phase, args.seed, paths)
     timed("chat_local", chat_local_phase, paths)
     timed("probe_localq", probe_localq_path, paths)
     timed("bench_ingest", bench_ingest_path, paths)
+    timed("eval", eval_phase, paths, trace)
+    timed("decomp", decomp_path, paths)
     compact = timed("compact", compact_phase, args.seed, paths)
     emit({"phase": "clock", "seconds": dict(clock),
           "total_s": time.perf_counter() - t_start})

@@ -24,7 +24,8 @@ Training is plain autograd through the same graph (``encode``):
 ``info_nce_loss``, ``make_train_step`` with ``AdamW`` (``optax.adamw``
 written in torch) and ``sgd_train_step``; ``trainable`` makes the f32
 master copies and ``tree_from_state`` turns a state dict back into the JAX
-pytree. The sharding specs wait for ROADMAP.md 1.5.
+pytree. ``param_specs`` records the JAX package's partition specs (its
+mesh-axis names a state-dict key); nothing in the port shards the models.
 """
 
 from __future__ import annotations

@@ -29,6 +29,21 @@ The tools of row sharding (parallel/):
 - ``probe_sharded_timing``: a sharded coarse scan per call on the host
   clock, as device time, and beside the unsharded K1.
 
+The stand-alone stage probes of the serving device stage (no kernel of
+their own; each ``main`` times its stages with CUDA events beside the host
+clock and a bound, ``stages.py``, and holds them to the whole path they
+split):
+
+- ``profile_int8``: K4 by (B, bloom bits, t, sub).
+- ``sweep_coarse``: K1 at t = 1 (K7a) and its merge by (B, block, sub).
+- ``probe_scan_decomp``: the coarse scan's wrapper, stage by stage.
+- ``profile_refine``: the coarse scan, K3, the gather and the selection.
+- ``probe_direct_serve``: the refine and the direct selection with K2.
+- ``probe_gather_sorted``: the candidates' row gather, random or sorted.
+
+``quality_real_corpus`` runs the real-corpus recall@10 campaign
+(eval/real_corpus.py).
+
 The local models' tools (the fine-tuned encoder and the chat decoder):
 
 - ``localq``: the bench's localq corpus, its fine-tuned encoder and engine
@@ -39,37 +54,9 @@ The local models' tools (the fine-tuned encoder and the chat decoder):
 
 from __future__ import annotations
 
-import statistics
-import time
-
 import torch
 
-
-def median_ms(fn, device: torch.device, runs: int = 8, device_only: bool = False) -> float:
-    """Median wall time of ``runs`` calls of fn() after one warm-up call: on
-    the card each call is timed with CUDA events (the device's time, the
-    host's launch included), on the CPU by the host clock. ``device_only``
-    queues a ~10 ms device sleep first, so that fn's launches are all queued
-    before its first event and a kernel shorter than its host launch is
-    timed on the device alone."""
-    fn()
-    times = []
-    for _ in range(runs):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            if device_only:
-                torch.cuda._sleep(20_000_000)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+from omni_recall_tpu_torch.utils.profiling import median_ms  # noqa: F401
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:

@@ -896,3 +896,76 @@ def test_batcher_on_cuda_streams_equal_generate(dev):
                 break
             want.append(t)
         assert got == want
+
+
+# ---- the eval campaigns' shapes: d 64 / 256 bloom bits (W 32) at a few
+# hundred rows, and d 768 / 1024 bits at the eval corpora's sizes ----
+
+
+@pytest.mark.parametrize("n, d, w, b", [(512, 64, 32, 1), (512, 64, 32, 45),
+                                        (8192, 64, 32, 1), (512, 768, 128, 1),
+                                        (8192, 768, 128, 3)])
+def test_scans_at_eval_shapes(dev, n, d, w, b):
+    """K1 at the layouts the engine gives a small index (sub 256 / 512 at
+    t 8, sub 1024 at t 2), K4 at its rescue layouts and K5 at its keyword
+    layouts, over the eval corpora's widths: bitwise against their plain
+    versions. One query is the search service's batch."""
+    o = _operands(dev, n, d, b, w, seed=n + d + b, kw_nonzero=12)
+    coarse = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
+    fused = [o[k] for k in ("emb8", "bloom", "q8", "kw_w8", "kw_b", "add_row", "scale_row",
+                            "q_scale", "q_bias")]
+    kw = [o[k] for k in ("bloom", "kw_w8", "kw_b", "add_row")]
+    layouts = [(scorer.block_topt_int8_coarse, scorer.block_topt_int8_coarse_plain, coarse, t,
+                sub) for sub, t in ((256, 8), (512, 8), (128, 4), (1024, 2)) if sub <= n]
+    layouts += [(scorer.block_topt_int8, scorer.block_topt_int8_plain, fused, t, sub)
+                for sub, t in ((512, 8), (256, 8), (512, 4)) if sub <= n]
+    layouts += [(scorer.block_topt_kw_only, scorer.block_topt_kw_only_plain, kw, t, sub)
+                for sub, t in ((512, 8), (256, 8), (1024, 4)) if sub <= n]
+    for kern, plain, args, t, sub in layouts:
+        kv, ki = kern(*args, t=t, sub=sub)
+        pv, pi = plain(*args, t=t, sub=sub)
+        assert _same(kv, pv) and _same(ki, pi), (kern.__name__, sub, t)
+
+
+@pytest.mark.parametrize("d, w, b, m", [(64, 32, 1, 16), (64, 32, 1, 64), (768, 128, 1, 16),
+                                        (64, 32, 7, 128)])
+def test_refine_and_dd_at_eval_shapes(dev, d, w, b, m):
+    """K3 and K2 at the eval campaigns' widths and one-query batches."""
+    args = _refine_inputs(dev, 512, d, b, m, w, seed=d + m)
+    assert _same(refine._refine_dispatch(*args), refine.refine_bounds_plain(*args))
+    raw = torch.randn((512, d), generator=torch.Generator(device=dev).manual_seed(d), device=dev)
+    q, rows = args[8], args[12][:, :32].contiguous()
+    h, lo, s = exact_cos.exact_cos_rows(raw, rows, q)
+    ph, plo, ps = exact_cos.exact_cos_rows_plain(raw, rows, q)
+    assert _same(h, ph) and _same(lo, plo)
+    nonzero = ps != 0
+    assert float(((s - ps).abs()[nonzero] / ps[nonzero]).max()) <= exact_cos.SABS_REL
+
+
+EVAL_SHAPES = {
+    # the JAX parity test's engine (tests/test_eval_parity.py)
+    "jax_d64": dict(embedding_dim=64, bloom_bits=256, capacity_block=512, candidate_m=16),
+    # the headline's options at the corpus's scale, d 768 and 1024 bits
+    "headline_d768": dict(embedding_dim=768, bloom_bits=1024, capacity_block=512,
+                          candidate_m=16, device_exact_cos=True, direct_select=True),
+}
+
+
+@pytest.mark.parametrize("shape", list(EVAL_SHAPES))
+def test_eval_parity_campaign_on_the_card(dev, shape):
+    """The 200-case recall@10 campaign of eval/corpus.py through the int8
+    engine on the card: DTO-identical to the float64 oracle, through K1 and
+    K3 (and K2 with the device-exact cosine)."""
+    from omni_recall_tpu_torch.config import EngineOptions
+    from omni_recall_tpu_torch.eval.corpus import parity_campaign
+
+    opts = EVAL_SHAPES[shape]
+    cuda.reset_launches()
+    report = parity_campaign(EngineOptions(backend="pallas", scan_dtype="int8", recent_window=0,
+                                           **opts), device="cuda", dim=opts["embedding_dim"])
+    assert report["cases"] >= 200
+    assert not report["mismatches"], report["mismatches"][:1]
+    assert report["hit_rate"] >= 0.8
+    launched = {k for k, v in cuda.LAUNCHES.items() if v}
+    want = {"coarse_scan", "refine"} | ({"dd_rows"} if opts.get("device_exact_cos") else set())
+    assert want <= launched, cuda.LAUNCHES

@@ -62,6 +62,18 @@ def test_engine_and_server_import_without_jax():
         "import omni_recall_tpu_torch.parallel.distributed\n"
         "import omni_recall_tpu_torch.tools.sharded_check\n"
         "import omni_recall_tpu_torch.tools.probe_sharded_timing\n"
+        "import omni_recall_tpu_torch.utils.profiling\n"
+        "import omni_recall_tpu_torch.eval.__main__\n"
+        "import omni_recall_tpu_torch.eval.clients\n"
+        "import omni_recall_tpu_torch.eval.quality\n"
+        "import omni_recall_tpu_torch.eval.real_corpus\n"
+        "import omni_recall_tpu_torch.tools.quality_real_corpus\n"
+        "import omni_recall_tpu_torch.tools.profile_int8\n"
+        "import omni_recall_tpu_torch.tools.sweep_coarse\n"
+        "import omni_recall_tpu_torch.tools.probe_scan_decomp\n"
+        "import omni_recall_tpu_torch.tools.profile_refine\n"
+        "import omni_recall_tpu_torch.tools.probe_direct_serve\n"
+        "import omni_recall_tpu_torch.tools.probe_gather_sorted\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'omni_recall_tpu.'))"
         " or m == 'omni_recall_tpu']\n"
         "assert not bad, bad\n"
