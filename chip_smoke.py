@@ -56,20 +56,22 @@ Phases, one JSON line each:
                 c = sub = 1024, t1 = 3, each bitwise against its plain
                 version, P3 decoded against pair's values. Given ``--parent
                 DIR`` (the root of an earlier checkout, a ``git archive`` of
-                the parent commit), that checkout's K2 (csrc/dd_rows.cu) and
-                K3 (csrc/refine.cu, given the recency term it took from
-                outside), built with this checkout's flags, on the same
-                inputs, timed before and after the kernel (parent, kernel,
-                kernel, parent), and its output held to the kernel's (K3
+                the parent commit), that checkout's K2 (csrc/dd_rows.cu), K3
+                and T3 (csrc/refine.cu ``omni_refine``, ``omni_refine_slab``),
+                built with this checkout's flags, on the same inputs, timed
+                before and after the kernel (parent, kernel, kernel,
+                parent), and its output held to the kernel's (K3 and T3
                 bitwise, K2's hi and lo bitwise and sabs within SABS_REL):
-                ``parent_ms``, ``ms_after``, ``parent_ms_after`` and
-                ``parent_bitwise`` in the K2 and K3 lines. Last, T3
-                (tools/probe_serve.py: K3's body over pre-gathered slabs,
-                the whole [qg, qg·m] tile) on K3's candidates at the tool's
-                shape (B = 1536, m = 128, qg 16) and at K3's select shape
-                (448, 64, qg 16): bitwise against its plain version, its
-                block diagonal bitwise against K3's kernel, timed beside K3
-                and the tool's gathers at the same shape.
+                ``parent_ms`` (the parent's kernel, first), ``ms_after``
+                (this kernel again, after ``ms``), ``parent_ms_after`` (the
+                parent's again, last) and ``parent_bitwise`` in the K2, K3
+                and T3 lines. Last, T3 (tools/probe_serve.py: K3's body over
+                pre-gathered slabs, the whole [qg, qg·m] tile) on K3's
+                candidates at the tool's shape (B = 1536, m = 128, qg 16),
+                at K3's select shape (448, 64, qg 16) and at (448, 512, qg
+                4): bitwise against its plain version, its block diagonal
+                bitwise against K3's kernel, timed beside K3 and the tool's
+                gathers at the same shape.
 2b. ``profile`` the profiling path: the four tools' own sweeps
                 (``omni_recall_tpu_torch.tools.profile_kernel.main("all")``,
                 ``...profile_bloomT.main()``, ``...probe_pipe.main()``,
@@ -323,13 +325,14 @@ def bound_ms(bytes_moved: float, ops: float, ops_rate: float) -> tuple[float, st
 
 
 class ParentBuild:
-    """The parent's K2 and K3, for the same-call A/B: csrc/dd_rows.cu and
-    csrc/refine.cu of an earlier checkout (the root DIR of ``--parent``),
+    """The parent's K2, K3 and T3, for the same-call A/B: csrc/dd_rows.cu and
+    csrc/refine.cu of an earlier checkout (the root DIR of ``--parent``, at
+    or after the commit that gave K3 its recency term and row strides),
     compiled with this checkout's flags into _build/parent/ and bound with
-    the parent's C interfaces: ``omni_dd_rows`` as here, ``omni_refine`` with
-    the recency term passed in and contiguous rows and scan bounds. Their
-    nvcc processes start when this is made, beside the build of this
-    checkout's kernels; ``load`` waits for them."""
+    the parent's C interfaces ``omni_dd_rows``, ``omni_refine`` and
+    ``omni_refine_slab``, the same as this checkout's. Their nvcc processes
+    start when this is made, beside the build of this checkout's kernels;
+    ``load`` waits for them."""
 
     def __init__(self, root: str):
         from omni_recall_tpu_torch.ops import cuda
@@ -347,22 +350,28 @@ class ParentBuild:
     def load(self) -> None:
         import ctypes
 
-        p, i = ctypes.c_void_p, ctypes.c_int
-        argtypes = {
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        entries = {
             # raw rows q, hi lo sabs; n d b t; stream
-            "dd_rows": ("omni_dd_rows", [p] * 6 + [i] * 4 + [p]),
-            # emb1 emb2 bloom scale1 scale2 err2 valid, q kw_w8 kw_b, rows vals rec,
-            # out; n d w b m; stream
-            "refine": ("omni_refine", [p] * 14 + [i] * 5 + [p]),
+            "dd_rows": [("omni_dd_rows", [p] * 6 + [i] * 4 + [p])],
+            "refine": [
+                # emb1 emb2 bloom scale1 scale2 err2 valid created, q kw_w8 kw_b, rows
+                # vals, out; now; n d w b m rows_stride vals_stride; stream
+                ("omni_refine", [p] * 14 + [f] + [i] * 7 + [p]),
+                # q1 q2 t1 t2 eq2 qn kwb kw_w8, c1 c2 bloom s1 s2 ec2 add, out; b d w m qg;
+                # stream
+                ("omni_refine_slab", [p] * 16 + [i] * 5 + [p]),
+            ],
         }
         for name, proc in self.procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on the parent's {name}.cu:\n{log}")
             lib = ctypes.CDLL(str(self.paths[name]))
-            fn = getattr(lib, argtypes[name][0])
-            fn.restype, fn.argtypes = ctypes.c_int, argtypes[name][1]
-            self.libs[name] = fn
+            for symbol, argtypes in entries[name]:
+                fn = getattr(lib, symbol)
+                fn.restype, fn.argtypes = ctypes.c_int, argtypes
+                self.libs[symbol] = fn
 
     def dd_rows(self, raw, rows, q):
         """The parent's K2: (hi, lo, sabs) [B, t]."""
@@ -373,27 +382,45 @@ class ParentBuild:
         (n, d), (b, t) = raw.shape, rows.shape
         hi, lo, sabs = (torch.empty((b, t), dtype=torch.float32, device=raw.device)
                         for _ in range(3))
-        rc = self.libs["dd_rows"](raw.data_ptr(), rows.data_ptr(), q.data_ptr(), hi.data_ptr(),
-                                  lo.data_ptr(), sabs.data_ptr(), n, d, b, t,
-                                  cuda.stream_ptr(raw.device))
+        rc = self.libs["omni_dd_rows"](raw.data_ptr(), rows.data_ptr(), q.data_ptr(),
+                                       hi.data_ptr(), lo.data_ptr(), sabs.data_ptr(), n, d, b,
+                                       t, cuda.stream_ptr(raw.device))
         if rc:
             raise RuntimeError(f"the parent's K2 failed to launch ({rc})")
         return hi, lo, sabs
 
-    def refine(self, emb1, scale1, emb2, scale2, err2, bloom, valid, q, kw_w8, kw_b, rows,
-               vals, rec):
-        """The parent's K3 kernel, given the recency term ``rec`` [B, m]."""
+    def refine(self, emb1, scale1, emb2, scale2, err2, bloom, created, valid, q, kw_w8,
+               kw_b, now_days, rows, vals):
+        """The parent's K3 kernel (operands as ``refine.refine_bounds_cuda``)."""
         import torch
 
         from omni_recall_tpu_torch.ops import cuda
 
         (n, d), (b, m), w = emb1.shape, rows.shape, bloom.shape[1]
         out = torch.empty((b, m), dtype=torch.float32, device=emb1.device)
-        ptrs = [x.data_ptr() for x in (emb1, emb2, bloom, scale1, scale2, err2, valid, q, kw_w8,
-                                       kw_b, rows.contiguous(), vals.contiguous(), rec, out)]
-        rc = self.libs["refine"](*ptrs, n, d, w, b, m, cuda.stream_ptr(emb1.device))
+        ptrs = [x.data_ptr() for x in (emb1, emb2, bloom, scale1, scale2, err2, valid,
+                                       created, q, kw_w8, kw_b, rows, vals, out)]
+        rc = self.libs["omni_refine"](*ptrs, float(now_days), n, d, w, b, m, rows.stride(0),
+                                      vals.stride(0), cuda.stream_ptr(emb1.device))
         if rc:
             raise RuntimeError(f"the parent's K3 failed to launch ({rc})")
+        return out
+
+    def refine_slab(self, q1, q2, t1, t2, eq2, qn, kwb, kw_w8, gc1, gc2, gbloom, s1, s2, ec2,
+                    add, qg: int):
+        """The parent's T3 kernel (operands as ``refine.refine_slab_tile``)."""
+        import torch
+
+        from omni_recall_tpu_torch.ops import cuda
+
+        (b, d), (rows, w) = q1.shape, gbloom.shape
+        m = rows // b
+        out = torch.empty((b, qg * m), dtype=torch.float32, device=q1.device)
+        ptrs = [x.data_ptr() for x in (q1, q2, t1, t2, eq2, qn, kwb, kw_w8, gc1, gc2, gbloom,
+                                       s1, s2, ec2, add, out)]
+        rc = self.libs["omni_refine_slab"](*ptrs, b, d, w, m, qg, cuda.stream_ptr(q1.device))
+        if rc:
+            raise RuntimeError(f"the parent's T3 failed to launch ({rc})")
         return out
 
 
@@ -450,7 +477,7 @@ def dd_same(a, b) -> bool:
 
 def kernel_phase(seed: int, parent=None) -> dict:
     """Each kernel against its plain version at the serving shapes;
-    ``parent`` (``ParentBuild``) times the parent's K2 and K3 beside them."""
+    ``parent`` (``ParentBuild``) times the parent's K2, K3 and T3 beside them."""
     import torch
 
     from omni_recall_tpu_torch.ops import exact_cos, scorer
@@ -630,8 +657,7 @@ def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1, seed: int, parent=None) ->
     [B, m + 1] tensor (as the engine passes them); card ms (the kernel),
     wrapper ms (``_refine_dispatch``, as the engine calls it) and plain ms.
     Given ``parent`` (``ParentBuild``), the parent's kernel on the same
-    operands (with the recency term it took from outside), timed around it
-    and held bitwise. ``gather_diagnostics`` as in K2's line. Then K3's
+    operands, timed around it and held bitwise. ``gather_diagnostics`` as in K2's line. Then K3's
     recency term and its exp alone against PyTorch's (recency_lines), and T3
     over the same planes (t3_lines)."""
     import torch
@@ -667,9 +693,7 @@ def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1, seed: int, parent=None) ->
         ok = bitwise(got, want) and bitwise(via, want) and bitwise(strided, want)
         fin = torch.isfinite(want)
         err = float((got[fin] - want[fin]).abs().max())
-        rec = refine.recency_term(created, 365.0, rows)
-        ms, ab = timed_ab(kern, parent and (lambda: parent.refine(  # noqa: B023
-            *planes, valid, q, kw_w8[:b], kw_b[:b], rows, vals, rec)), bitwise)  # noqa: B023
+        ms, ab = timed_ab(kern, parent and (lambda: parent.refine(*args)), bitwise)  # noqa: B023
         # bytes: each distinct candidate row's two int8 rows, bloom row and
         # four f32 sidecars (with created) once; per slot its row id, scan
         # bound and output; per query its f32 row, keyword weights and bias
@@ -693,7 +717,8 @@ def refine_lines(g, emb1, bloom, kw_w8, kw_b, scale1, seed: int, parent=None) ->
             raise AssertionError(f"refine[{stage}]: kernel disagrees with the parent's build")
         out[f"refine_{stage}"] = line
     out["refine_recency"] = recency_lines(created)
-    out["refine_t3"] = t3_lines(seed, emb1, scale1, emb2, scale2, err2, bloom, created, valid)
+    out["refine_t3"] = t3_lines(seed, emb1, scale1, emb2, scale2, err2, bloom, created, valid,
+                                parent)
     del emb2
     torch.cuda.empty_cache()
     return out
@@ -749,19 +774,22 @@ def recency_lines(created) -> dict:
     return line
 
 
-T3_SHAPES = {"tool": (1536, 128), "select": (BATCH, 64)}  # (B, m)
+T3_SHAPES = {"tool": (1536, 128), "select": (BATCH, 64), "qg4": (BATCH, 512)}  # (B, m)
 
 
-def t3_lines(seed: int, emb1, scale1, emb2, scale2, err2, bloom, created, valid) -> dict:
-    """T3 at the tool's shape and at K3's select shape over the 2^20-row
-    planes, on K3's candidates (sentinel slots, invalid rows, -inf scan
-    bounds) gathered as the JAX K3 wrapper gathers them: bitwise against its
-    plain version, and its block diagonal bitwise against K3's kernel on the
-    same candidates. Card ms beside the bound; beside them at the same shape
-    K3's kernel and its wrapper, and the two stages
-    the TPU's design adds before T3: the tool's four gathers (G) and the
-    query quantization (Q). Inputs from a generator of their own, so the
-    other lines' inputs stay as they were."""
+def t3_lines(seed: int, emb1, scale1, emb2, scale2, err2, bloom, created, valid,
+             parent=None) -> dict:
+    """T3 at the tool's shape, at K3's select shape and at m = 512 (qg 4)
+    over the 2^20-row planes, on K3's candidates (sentinel slots, invalid
+    rows, -inf scan bounds) gathered as the JAX K3 wrapper gathers them:
+    bitwise against its plain version, and its block diagonal bitwise
+    against K3's kernel on the same candidates. Card ms beside the bound;
+    given ``parent`` (``ParentBuild``), the parent's T3 on the same operands,
+    timed around it and held bitwise; beside them at the same shape K3's
+    kernel and its wrapper, and the two stages the TPU's design adds before
+    T3: the tool's four gathers (G) and the query quantization (Q). Inputs
+    from a generator of their own, so the other lines' inputs stay as they
+    were."""
     import torch
 
     from omni_recall_tpu_torch.ops import refine
@@ -795,12 +823,14 @@ def t3_lines(seed: int, emb1, scale1, emb2, scale2, err2, bloom, created, valid)
         diag_ok = bitwise(t3.block_diagonal(got, m, qg), k3_out)
         safe = rows.clamp_min(0)
         bms, by = bound_ms(*t3.slab_work(b, m, d, w, qg), INT8_OPS_PER_S)
+        ms, ab = timed_ab(kern, parent and (  # noqa: B023
+            lambda: parent.refine_slab(*ops, qg)), bitwise)  # noqa: B023
         line = dict(name=f"probe_serve[{shape}]", replaces="tools/probe_serve.py:210",
                     shape=[b, m, d], qg=qg, ct=qg * m, out_shape=list(got.shape),
                     parity=bitwise_parity(ok),
                     k3_diagonal_bitwise=diag_ok, max_abs_err=float((got - want).abs().max()),
-                    ms=time_ms(kern, device_only=True), plain_ms=time_ms(plain), plain_runs=5,
-                    bound_ms=bms, bound_by=by, library_ms=None,
+                    ms=ms, plain_ms=time_ms(plain), plain_runs=5,
+                    bound_ms=bms, bound_by=by, library_ms=None, **ab,
                     k3_ms=time_ms(k3, device_only=True),
                     k3_wrapper_ms=time_ms(lambda: refine._refine_dispatch(*args)),  # noqa: B023
                     gather_ms=time_ms(lambda: t3.gather_slabs(  # noqa: B023
@@ -813,6 +843,8 @@ def t3_lines(seed: int, emb1, scale1, emb2, scale2, err2, bloom, created, valid)
             raise AssertionError(f"probe_serve[{shape}]: kernel disagrees with its plain version")
         if not diag_ok:
             raise AssertionError(f"probe_serve[{shape}]: block diagonal disagrees with K3")
+        if not ab.get("parent_bitwise", True):
+            raise AssertionError(f"probe_serve[{shape}]: kernel disagrees with the parent's build")
         out[shape] = line
         del ops, got, want, k3_out
         torch.cuda.empty_cache()
@@ -3917,8 +3949,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", help="root of an earlier checkout (a git archive of the "
-                        "parent commit): its csrc/dd_rows.cu and csrc/refine.cu (K2, K3) are "
-                        "built and timed beside this checkout's, and held to them")
+                        "parent commit): its csrc/dd_rows.cu and csrc/refine.cu (K2, K3, T3) "
+                        "are built and timed beside this checkout's, and held to them")
     args = parser.parse_args()
 
     import torch
@@ -4008,18 +4040,20 @@ def main() -> int:
             **{key: lines[top][key] for key in PARENT_KEYS if key in lines[top]}})
 
     def t3_entry(lines, stages):
-        """T3's entry: its line at the tool's shape, the select shape's line,
-        and the stage decomposition's times."""
+        """T3's entry: its line at the tool's shape, the other shapes'
+        lines, and the stage decomposition's times."""
         top = lines["tool"]
         keep = ("shape", "qg", "ct", "ms", "plain_ms", "bound_ms", "bound_by", "k3_ms",
                 "k3_wrapper_ms", "gather_ms", "quantize_ms", "gather_quantize_t3_ms",
-                "max_abs_err")
+                "max_abs_err", *PARENT_KEYS)
         return entry("T3 probe_serve", "probe_serve", "omni_recall_tpu_torch/csrc/refine.cu",
                      top, {
-                         **{key: top[key] for key in keep}, "plain_runs": top["plain_runs"],
+                         **{key: top[key] for key in keep if key in top},
+                         "plain_runs": top["plain_runs"],
                          "k3_diagonal": "bitwise" if all(
                              x["k3_diagonal_bitwise"] for x in lines.values()) else "FAILED",
-                         "select_shape": {key: lines["select"][key] for key in keep},
+                         **{f"{shape}_shape": {key: line[key] for key in keep if key in line}
+                            for shape, line in lines.items() if shape != "tool"},
                          "stages_ms": {name: r["ms"] for name, r in stages["stages"].items()},
                          "sum_tool_design_ms": stages["sum_tool_design_ms"],
                          "sum_port_design_ms": stages["sum_port_design_ms"]})

@@ -60,7 +60,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // T3's block
+constexpr int kThreads = 256;  // recency_kernel's block
 constexpr int kMaxSmem = 232448;
 // the Python constants, rounded to f32 from their double values as PyTorch does
 constexpr float kCosW = (float)0.7;             // COSINE_WEIGHT
@@ -448,21 +448,48 @@ __global__ void __launch_bounds__(32 * kWarps, 4) refine_kernel(Args a) {
 // What bounds it on the H100: bytes. Each slab row is 2 * d + W bytes plus four f32
 // sidecars (1.68 kB at d = 768, W = 128) and is read once; the [B, ct] f32 output is
 // written once. At the tool's shape (B = 1536, m = 128, qg 16) that is ~347 MB, 0.104 ms
-// at 3.35 TB/s, against 2.6e10 int8 operations (0.013 ms at the int8 peak). Design: a
-// block takes one tile's qg queries (both int8 planes and the keyword weights, reordered
-// word-major as in refine_kernel: 40 KB at qg 16) into shared memory and a run of the
-// tile's slab rows; eight lanes share a slab row, each reading 16-byte chunks of it once
-// and scoring them against all qg queries with __dp4a into 5 * kSlabQg register sums,
-// which three xor shuffles reduce over the eight lanes (exact integers, so the order is
-// free). Lane g % 8 of the row's group combines and writes column j of query g. A
-// separate kernel with its own argument block, so that refine_kernel's register
-// allocation stays as it was. This is the simple version: its card time beside the
-// bound is in PERF.md, and a tensor-core version is later work.
+// at 3.35 TB/s, against 2.6e10 int8 operations (0.013 ms at the int8 peak). The 16-fold
+// overcompute goes to the tensor cores, so that only the bytes are left:
+// - The products are warp-level mma.sync.m16n8k32 s8 tiles: A is the tile's queries (its
+//   16 rows are the most queries a tile holds; rows past qg read a zero segment), B eight
+//   slab rows. Four accumulators take q1.c1, q1.c2, q2.c1 and q2.c2 over K = d (zero-padded
+//   to a multiple of 32), a fifth (two, alternating k-steps) the keyword dot over the bloom
+//   bits. The sums are exact int32, so their order is free and the result bitwise.
+// - A block takes one tile and a run of its row blocks (kSlabRows slab rows each). Its
+//   consumer warps stage the tile's keyword weights into shared memory, reordered to the
+//   kernel's K order of the bloom bits (slab_kw_pos; JAX column j of the bit matrix is bit
+//   j / W of word j % W): the four k-steps of a 16-byte bloom chunk then take their B
+//   registers from one 32-bit word a thread, as bit planes (two instructions a register).
+// - The slab rows stream through a ring of 2-3 stages (c1, c2, bloom and the four
+//   sidecars), filled by 16-byte cp.async copies of producer warps that do nothing else;
+//   the query planes go out with the first stage. A stage is handed over by named
+//   barriers, full (the producers' copies are in) and empty (the consumers are done).
+//   Row strides are 16 bytes times an odd number, so ldmatrix (planes) and the bloom's
+//   word loads meet no bank conflict. Each consumer warp takes one n8 tile of a stage.
+// - On the H100 a warp's cp.async copies are accepted only as fast as the memory system
+//   retires them, and they share the load/store pipe with the consumers' ldmatrix: with
+//   copies and products in the same warps each waited for the other, and one producer
+//   warp alone could not keep bytes in flight. Eight producer warps beside eight
+//   consumers came out fastest among the layouts timed (tools/slab_split.py, PERF.md).
+// - Rows too wide for the ring are cut into chunks of K, the accumulators carried from
+//   chunk to chunk: at d = 768, W = 128 a stage of 64 rows takes K in two chunks.
+// - The epilogue runs from the C fragments, K3's combine op for op, and stores float2
+//   pairs (four lanes write 32 contiguous bytes of a query's row); rows >= qg and slab
+//   rows >= ct are never written.
+// A separate kernel with its own argument block, so that refine_kernel's register
+// allocation stays as it was.
 
-constexpr int kSlabQg = 16;                     // most queries a tile holds (the tool's min(16, .))
-constexpr int kSlabLanes = 8;                   // lanes that share one slab row
-constexpr int kSlabGroups = kThreads / kSlabLanes;  // slab rows a block scores at once
-constexpr int kSlabRowsPerBlock = 2 * kSlabGroups;
+constexpr int kSlabQg = 16;                        // the mma's rows: most queries a tile holds
+constexpr int kSlabWarps = 8;                      // consumer warps: an n8 tile of a stage each
+constexpr int kSlabProducers = 8;                  // producer warps: the ring's copies
+constexpr int kSlabConsumerThreads = 32 * kSlabWarps;
+constexpr int kSlabThreads = 32 * (kSlabWarps + kSlabProducers);
+constexpr int kSlabRows = 8 * kSlabWarps;          // slab rows a stage holds
+constexpr int kSlabMaxStages = 3;
+// named barriers (0 is __syncthreads'): the consumers' own, then each stage's full and empty
+constexpr int kBarConsumers = 1, kBarFull = 2, kBarEmpty = kBarFull + kSlabMaxStages;
+constexpr int kSlabSides = 4;                      // s1, s2, ec2, add
+constexpr int kSlabTermBytes = 5 * kSlabQg * 4;    // t1, t2, eq2, qn, kwb of each query
 
 struct SlabArgs {
   const int8_t* q1;
@@ -482,124 +509,317 @@ struct SlabArgs {
   const float* add;
   float* out;
   int d, w, qg, ct;
+  int kp;           // plane k-steps (32 bytes of c1 and of c2) a chunk
+  int kb;           // 16-byte bloom words (four keyword k-steps) a chunk
+  int chunks;       // chunks a row block
+  int stages;       // the ring's stages: 2 or 3
+  int rb_per_block; // row blocks (kSlabRows slab rows) a block takes
 };
 
-__global__ void __launch_bounds__(kThreads) refine_slab_kernel(SlabArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* sq1 = reinterpret_cast<int8_t*>(smem);   // [qg][d]
-  int8_t* sq2 = sq1 + a.qg * a.d;                  // [qg][d]
-  int8_t* skw = sq2 + a.qg * a.d;                  // [qg][W][8]
-  __shared__ float sterm[5][kSlabQg];              // t1, t2, eq2, qn, kwb of each query
+// T3's dynamic shared memory (byte offsets): the queries' terms, a 16-byte zero segment,
+// A's planes [qg][32 * sd + 16] and keyword weights [qg][128 * nw + 16], then the ring,
+// each stage c1 and c2 [kSlabRows][32 * kp + 16], bloom [kSlabRows][16 * (kb | 1)] and
+// the sidecars [4][kSlabRows] f32
+struct SlabLayout {
+  int sd;         // plane k-steps: ceil(d / 32)
+  int nw;         // bloom words: ceil(W / 16)
+  int a_stride, kw_stride, c_stride, b_stride;
+  int zero, a1, a2, akw, ring;
+  int stage;      // bytes a stage
+  int c2, bl, side;  // offsets within a stage
+};
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.y * a.qg;
-  const int kk = 8 * a.w;
-  {
-    const int4* g1 = reinterpret_cast<const int4*>(a.q1 + (size_t)q0 * a.d);
-    const int4* g2 = reinterpret_cast<const int4*>(a.q2 + (size_t)q0 * a.d);
-    int4* d1 = reinterpret_cast<int4*>(sq1);
-    int4* d2 = reinterpret_cast<int4*>(sq2);
-    for (int i = tid; i < a.qg * a.d / 16; i += kThreads) {
-      d1[i] = g1[i];
-      d2[i] = g2[i];
+__host__ __device__ inline SlabLayout slab_layout(int d, int w, int qg, int kp, int kb) {
+  SlabLayout l;
+  l.sd = (d + 31) / 32;
+  l.nw = (w + 15) / 16;
+  l.a_stride = 32 * l.sd + 16;
+  l.kw_stride = 128 * l.nw + 16;
+  l.c_stride = 32 * kp + 16;
+  l.b_stride = 16 * (kb | 1);
+  l.zero = kSlabTermBytes;
+  l.a1 = l.zero + 16;
+  l.a2 = l.a1 + qg * l.a_stride;
+  l.akw = l.a2 + qg * l.a_stride;
+  l.ring = l.akw + qg * l.kw_stride;
+  l.c2 = kSlabRows * l.c_stride;
+  l.bl = 2 * kSlabRows * l.c_stride;
+  l.side = l.bl + kSlabRows * l.b_stride;
+  l.stage = l.side + 4 * kSlabSides * kSlabRows;
+  return l;
+}
+
+// the position of bloom byte x's bit b in a query's row of the keyword A operand: the four
+// k-steps 4 * (x / 16) + b / 2 take the bytes of every slab row's 16-byte chunk x / 16,
+// a thread (lane % 4 = t) its 32-bit word t, bytes 4t .. 4t + 3; in k-step 4 * (x / 16) + r
+// its B registers are bit planes 2r and 2r + 1 of that word (B's k 4t + i and 16 + 4t + i
+// are bits 2r and 2r + 1 of its byte i)
+__device__ __forceinline__ int slab_kw_pos(int x, int b) {
+  return 32 * (4 * (x >> 4) + (b >> 1)) + 16 * (b & 1) + 4 * ((x >> 2) & 3) + (x & 3);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// c += a . b: one m16n8k32 s8 tile, exact int32 sums
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// the copies of ring iteration `it` (row block it / chunks, chunk it % chunks) into its
+// stage, by the producer warps (pw, lane); row blocks past the block's last issue nothing
+__device__ __forceinline__ void slab_issue(const SlabArgs& a, const SlabLayout& l,
+                                           unsigned char* smem, int it, int rb_end, int pw,
+                                           int lane) {
+  const int rb = it / a.chunks, c = it - rb * a.chunks;
+  if (rb >= rb_end) return;
+  unsigned char* st = smem + l.ring + (size_t)(it % a.stages) * l.stage;
+  const int j0 = (blockIdx.x * a.rb_per_block + rb) * kSlabRows;
+  const size_t base = (size_t)blockIdx.y * a.ct;  // the tile's first slab row
+  const int lo = 32 * a.kp * c;                    // the chunk's first byte of a plane row
+  const int pieces = (min(32 * a.kp, a.d - lo) + 15) / 16;
+  const int wlo = a.kb * c;                        // the chunk's first bloom word
+  const int words = min(a.kb, l.nw - wlo);
+  const bool vec_bloom = (a.w & 15) == 0;
+  for (int r = pw; r < kSlabRows; r += kSlabProducers) {
+    const int j = j0 + r;
+    if (j >= a.ct) break;
+    const size_t row = base + j;
+    const int8_t* g1 = a.c1 + row * a.d + lo;
+    const int8_t* g2 = a.c2 + row * a.d + lo;
+    unsigned char* s1 = st + r * l.c_stride;
+    for (int x = lane; x < pieces; x += 32) {
+      cp_async16(s1 + 16 * x, g1 + 16 * x);
+      cp_async16(s1 + l.c2 + 16 * x, g2 + 16 * x);
     }
-    // JAX column j of the bit matrix is bit j / W of word j % W: word wd's eight
-    // weights (columns b * W + wd) go to skw[wd * 8 + b] in one 8-byte store
-    const int8_t* kw = a.kw_w8 + (size_t)q0 * kk;
-    for (int i = tid; i < a.qg * a.w; i += kThreads) {
-      const int g = i / a.w, wd = i - g * a.w;
-      const uint8_t* col = reinterpret_cast<const uint8_t*>(kw + (size_t)g * kk + wd);
-      uint32_t lo = 0, hi = 0;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        lo |= (uint32_t)col[b * a.w] << (8 * b);
-        hi |= (uint32_t)col[(b + 4) * a.w] << (8 * b);
-      }
-      reinterpret_cast<uint2*>(skw + g * kk)[wd] = make_uint2(lo, hi);
-    }
-    if (tid < a.qg) {
-      sterm[0][tid] = a.t1[q0 + tid];
-      sterm[1][tid] = a.t2[q0 + tid];
-      sterm[2][tid] = a.eq2[q0 + tid];
-      sterm[3][tid] = a.qn[q0 + tid];
-      sterm[4][tid] = a.kwb[q0 + tid];
+    const uint8_t* gb = a.bloom + row * a.w + 16 * wlo;
+    unsigned char* sb = st + l.bl + r * l.b_stride;
+    if (vec_bloom) {
+      for (int x = lane; x < words; x += 32) cp_async16(sb + 16 * x, gb + 16 * x);
+    } else {  // rows not 16-byte aligned: bytes through registers, those past W left as
+              // they are (their keyword weights are zero)
+      const int bytes = min(16 * words, a.w - 16 * wlo);
+      for (int x = lane; x < bytes; x += 32) sb[x] = __ldg(gb + x);
     }
   }
-  __syncthreads();
+  if (c == a.chunks - 1) {  // the sidecars go with the chunk whose epilogue reads them
+    float* side = reinterpret_cast<float*>(st + l.side);
+    for (int i = 32 * pw + lane; i < kSlabSides * kSlabRows; i += 32 * kSlabProducers) {
+      const int v = i / kSlabRows, r = i - v * kSlabRows;
+      const float* sv = v == 0 ? a.s1 : v == 1 ? a.s2 : v == 2 ? a.ec2 : a.add;
+      if (j0 + r < a.ct) cp_async4(side + i, sv + base + j0 + r);
+    }
+  }
+}
 
-  const int part = tid % kSlabLanes;   // this lane's share of its row
-  const int group = tid / kSlabLanes;  // the row group within the block
-  const int dv = a.d / 16;
-  const int j0 = blockIdx.x * kSlabRowsPerBlock;
-  const int j1 = min(j0 + kSlabRowsPerBlock, a.ct);
-  // every thread takes the same trips (the shuffles need whole warps); a group past the
-  // tile's end scores the block's first row again and writes nothing
-  for (int jb = j0; jb < j1; jb += kSlabGroups) {
-    const int j = jb + group;
-    const bool live = j < j1;
-    const size_t row = (size_t)blockIdx.y * a.ct + (live ? j : j0);
-    int acc[kSlabQg][5];
-#pragma unroll
-    for (int g = 0; g < kSlabQg; ++g)
-#pragma unroll
-      for (int v = 0; v < 5; ++v) acc[g][v] = 0;
+// the producer warps: the queries' int8 planes with the first stage, then each stage once
+// its slot is empty, marked full when its copies are in (cp.async completes by thread)
+__device__ void slab_produce(const SlabArgs& a, const SlabLayout& l, unsigned char* smem,
+                             int q0, int rb_end, int pw, int lane) {
+  const int dv = a.d / 16;  // 16-byte pieces of a plane row
+  for (int g = pw; g < a.qg; g += kSlabProducers) {
+    const int8_t* g1 = a.q1 + (size_t)(q0 + g) * a.d;
+    const int8_t* g2 = a.q2 + (size_t)(q0 + g) * a.d;
+    unsigned char* s1 = smem + l.a1 + g * l.a_stride;
+    unsigned char* s2 = smem + l.a2 + g * l.a_stride;
+    for (int x = lane; x < dv; x += 32) {
+      cp_async16(s1 + 16 * x, g1 + 16 * x);
+      cp_async16(s2 + 16 * x, g2 + 16 * x);
+    }
+    if (lane == 0 && (dv & 1)) {  // K's zero padding to a whole k-step
+      *reinterpret_cast<int4*>(s1 + a.d) = make_int4(0, 0, 0, 0);
+      *reinterpret_cast<int4*>(s2 + a.d) = make_int4(0, 0, 0, 0);
+    }
+  }
+  const int iters = rb_end * a.chunks, ahead = a.stages - 1;
+  for (int it = 0; it < iters; ++it) {
+    if (it >= a.stages) bar_sync(kBarEmpty + it % a.stages, kSlabThreads);
+    slab_issue(a, l, smem, it, rb_end, pw, lane);
+    cp_async_commit();
+    if (it >= ahead) {  // stage it - ahead is in
+      if (ahead == 2) cp_async_wait<2>(); else cp_async_wait<1>();
+      bar_arrive(kBarFull + (it - ahead) % a.stages, kSlabThreads);
+    }
+  }
+  cp_async_wait<0>();
+  for (int it = max(0, iters - ahead); it < iters; ++it)
+    bar_arrive(kBarFull + it % a.stages, kSlabThreads);
+}
 
-    const int4* r1 = reinterpret_cast<const int4*>(a.c1 + row * a.d);
-    const int4* r2 = reinterpret_cast<const int4*>(a.c2 + row * a.d);
-    for (int k = part; k < dv; k += kSlabLanes) {
-      const int4 x1 = r1[k], x2 = r2[k];
+__global__ void __launch_bounds__(kSlabThreads, 1) refine_slab_kernel(SlabArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const SlabLayout l = slab_layout(a.d, a.w, a.qg, a.kp, a.kb);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int q0 = blockIdx.y * a.qg;
+  const int rb_first = blockIdx.x * a.rb_per_block;
+  const int rb_end = min(a.rb_per_block, (a.ct + kSlabRows - 1) / kSlabRows - rb_first);
+  const int iters = rb_end * a.chunks;
+
+  if (warp >= kSlabWarps) {
+    slab_produce(a, l, smem, q0, rb_end, warp - kSlabWarps, lane);
+    return;
+  }
+
+  float(*sterm)[kSlabQg] = reinterpret_cast<float(*)[kSlabQg]>(smem);
+  if (tid < kSlabQg) {
+    const bool q = tid < a.qg;
+    sterm[0][tid] = q ? a.t1[q0 + tid] : 0.0f;
+    sterm[1][tid] = q ? a.t2[q0 + tid] : 0.0f;
+    sterm[2][tid] = q ? a.eq2[q0 + tid] : 0.0f;
+    sterm[3][tid] = q ? a.qn[q0 + tid] : 0.0f;
+    sterm[4][tid] = q ? a.kwb[q0 + tid] : 0.0f;
+  }
+  if (tid == 0) *reinterpret_cast<int4*>(smem + l.zero) = make_int4(0, 0, 0, 0);
+  // the keyword weights, a 32-bit word of A a thread: bit b of bloom bytes x .. x + 3, JAX
+  // columns b * W + x .. b * W + x + 3 (zero past W)
+  const int kw_words = 32 * l.nw;  // of a query's row
+#pragma unroll 4
+  for (int i = tid; i < a.qg * kw_words; i += kSlabConsumerThreads) {
+    const int g = i / kw_words, p = i - g * kw_words;
+    const int b = p / (4 * l.nw), x = 4 * (p - b * 4 * l.nw);
+    const uint8_t* kw =
+        reinterpret_cast<const uint8_t*>(a.kw_w8) + (size_t)(q0 + g) * 8 * a.w + b * a.w + x;
+    uint32_t word = 0;
 #pragma unroll
-      for (int g = 0; g < kSlabQg; ++g) {
-        if (g < a.qg) {
-          const int4 y1 = reinterpret_cast<const int4*>(sq1 + g * a.d)[k];
-          const int4 y2 = reinterpret_cast<const int4*>(sq2 + g * a.d)[k];
-          acc[g][0] = dot16(y1, x1, acc[g][0]);  // d11
-          acc[g][1] = dot16(y1, x2, acc[g][1]);  // d12
-          acc[g][2] = dot16(y2, x1, acc[g][2]);  // d21
-          acc[g][3] = dot16(y2, x2, acc[g][3]);  // d22
-        }
+    for (int e = 0; e < 4; ++e)
+      if (x + e < a.w) word |= (uint32_t)__ldg(kw + e) << (8 * e);
+    *reinterpret_cast<uint32_t*>(smem + l.akw + g * l.kw_stride + slab_kw_pos(x, b)) = word;
+  }
+
+  // ldmatrix addresses: lane L reads row L % 8 of matrix L / 8. A's matrices are query
+  // rows 0-7 and 8-15 at k 0-15, then at k 16-31; a query row past qg reads the zero
+  // segment at every k-step. B's are c1's eight rows at k 0-15 and 16-31, then c2's.
+  const int mat = lane >> 3, mrow = lane & 7;
+  const int qrow = mrow + 8 * (mat & 1);
+  const bool qlive = qrow < a.qg;
+  const unsigned zero = smem_addr(smem + l.zero);
+  const unsigned a1_base = qlive ? smem_addr(smem + l.a1 + qrow * l.a_stride + 16 * (mat >> 1)) : zero;
+  const unsigned a2_base = qlive ? smem_addr(smem + l.a2 + qrow * l.a_stride + 16 * (mat >> 1)) : zero;
+  const unsigned kw_base = qlive ? smem_addr(smem + l.akw + qrow * l.kw_stride + 16 * (mat >> 1)) : zero;
+  const int a_step = qlive ? 32 : 0;
+  const int b_off = (mat >> 1) * l.c2 + (8 * warp + mrow) * l.c_stride + 16 * (mat & 1);
+  const int grp = lane >> 2, quad = lane & 3;  // the fragments' row (query, slab row) and pair
+
+  bar_sync(kBarConsumers, kSlabConsumerThreads);  // the keyword weights and terms are in
+
+  int acc[4][4], kwacc[2][4];
+  for (int it = 0; it < iters; ++it) {
+    bar_sync(kBarFull + it % a.stages, kSlabThreads);
+    const int rb = it / a.chunks, c = it - rb * a.chunks;
+    const unsigned char* st = smem + l.ring + (size_t)(it % a.stages) * l.stage;
+    if (c == 0) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[v][e] = kwacc[v & 1][e] = 0;
+    }
+    // planes: d11 = q1.c1, d12 = q1.c2, d21 = q2.c1, d22 = q2.c2
+    const int s0 = a.kp * c, ns = min(a.kp, l.sd - s0);
+    const unsigned b_base = smem_addr(st) + b_off;
+#pragma unroll 2
+    for (int s = 0; s < ns; ++s) {
+      uint32_t qa[4], qb[4], cb[4];
+      ldmatrix_x4(a1_base + a_step * (s0 + s), qa);
+      ldmatrix_x4(a2_base + a_step * (s0 + s), qb);
+      ldmatrix_x4(b_base + 32 * s, cb);
+      mma_s8(acc[0], qa, cb[0], cb[1]);
+      mma_s8(acc[1], qa, cb[2], cb[3]);
+      mma_s8(acc[2], qb, cb[0], cb[1]);
+      mma_s8(acc[3], qb, cb[2], cb[3]);
+    }
+    // keyword: four k-steps a 16-byte bloom chunk, whose bit planes 2r and 2r + 1 of this
+    // thread's word are B's registers in k-step 4u + r
+    const int w0 = a.kb * c, nwc = min(a.kb, l.nw - w0);
+    const unsigned char* bl = st + l.bl + (8 * warp + grp) * l.b_stride + 4 * quad;
+#pragma unroll 2
+    for (int u = 0; u < nwc; ++u) {
+      const uint32_t word = *reinterpret_cast<const uint32_t*>(bl + 16 * u);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        uint32_t kq[4];
+        ldmatrix_x4(kw_base + a_step * (4 * (w0 + u) + r), kq);
+        mma_s8(kwacc[r & 1], kq, (word >> (2 * r)) & 0x01010101u,
+               (word >> (2 * r + 1)) & 0x01010101u);
       }
     }
-    const uint8_t* bl = a.bloom + row * a.w;
-    for (int wd = part; wd < a.w; wd += kSlabLanes) {
-      const uint32_t byte = bl[wd];
-      const int lo = (int)expand4(byte & 15u), hi = (int)expand4(byte >> 4);
+    if (c != a.chunks - 1) {
+      if (it + a.stages < iters) bar_arrive(kBarEmpty + it % a.stages, kSlabThreads);
+      continue;
+    }
+
+    // epilogue: C element e holds query grp + 8 * (e / 2) against slab row 2 * quad + e % 2
+    // of this warp's eight
+    const float* side = reinterpret_cast<const float*>(st + l.side);
+    const int n0 = 8 * warp + 2 * quad;
+    const int j = (rb_first + rb) * kSlabRows + n0;
+    float res[4];
 #pragma unroll
-      for (int g = 0; g < kSlabQg; ++g) {
-        if (g < a.qg) {
-          const int* kw2 = reinterpret_cast<const int*>(skw + g * kk + wd * 8);
-          acc[g][4] = __dp4a(lo, kw2[0], acc[g][4]);
-          acc[g][4] = __dp4a(hi, kw2[1], acc[g][4]);
-        }
-      }
+    for (int e = 0; e < 4; ++e) {
+      const int g = grp + 8 * (e >> 1), n = n0 + (e & 1);
+      const float s1 = side[n], s2 = side[kSlabRows + n];
+      const float ec2 = side[2 * kSlabRows + n], add = side[3 * kSlabRows + n];
+      const float t1 = sterm[0][g], t2 = sterm[1][g];
+      const float pa = __fmaf_rn(t1, (float)acc[0][e], __fmul_rn(t2, (float)acc[2][e]));
+      const float pb = __fmaf_rn(t1, (float)acc[1][e], __fmul_rn(t2, (float)acc[3][e]));
+      const float cos = __fmaf_rn(s1, pa, __fmul_rn(s2, pb));
+      const float delta =
+          __fmaf_rn(sterm[3][g], ec2, __fmul_rn(sterm[2][g], __fadd_rn(1.0f, ec2)));
+      const float kw =
+          fminf(__fmaf_rn((float)(kwacc[0][e] + kwacc[1][e]), kInv127, sterm[4][g]), 1.0f);
+      res[e] = __fadd_rn(__fmaf_rn(kKwW, kw, __fmul_rn(kCosW, __fadd_rn(cos, delta))), add);
     }
 #pragma unroll
-    for (int g = 0; g < kSlabQg; ++g) {
-      if (g < a.qg) {
-#pragma unroll
-        for (int v = 0; v < 5; ++v)
-#pragma unroll
-          for (int o = kSlabLanes / 2; o > 0; o >>= 1)
-            acc[g][v] += __shfl_xor_sync(0xffffffffu, acc[g][v], o);
+    for (int h = 0; h < 2; ++h) {
+      const int g = grp + 8 * h;
+      if (g >= a.qg || j >= a.ct) continue;
+      float* o = a.out + (size_t)(q0 + g) * a.ct + j;
+      if ((a.ct & 1) == 0) {  // j and ct even: an aligned pair, both in the tile
+        *reinterpret_cast<float2*>(o) = make_float2(res[2 * h], res[2 * h + 1]);
+      } else {
+        o[0] = res[2 * h];
+        if (j + 1 < a.ct) o[1] = res[2 * h + 1];
       }
     }
-    if (live) {
-      const float s1 = a.s1[row], s2 = a.s2[row], ec2 = a.ec2[row], add = a.add[row];
-      const float ec2p1 = __fadd_rn(1.0f, ec2);
-#pragma unroll
-      for (int g = 0; g < kSlabQg; ++g) {
-        if (g < a.qg && g % kSlabLanes == part) {
-          const float t1 = sterm[0][g], t2 = sterm[1][g];
-          const float pa = __fmaf_rn(t1, (float)acc[g][0], __fmul_rn(t2, (float)acc[g][2]));
-          const float pb = __fmaf_rn(t1, (float)acc[g][1], __fmul_rn(t2, (float)acc[g][3]));
-          const float cos = __fmaf_rn(s1, pa, __fmul_rn(s2, pb));
-          const float delta = __fmaf_rn(sterm[3][g], ec2, __fmul_rn(sterm[2][g], ec2p1));
-          const float kw = fminf(__fmaf_rn((float)acc[g][4], kInv127, sterm[4][g]), 1.0f);
-          a.out[(size_t)(q0 + g) * a.ct + j] =
-              __fadd_rn(__fmaf_rn(kKwW, kw, __fmul_rn(kCosW, __fadd_rn(cos, delta))), add);
-        }
-      }
-    }
+    if (it + a.stages < iters) bar_arrive(kBarEmpty + it % a.stages, kSlabThreads);
   }
 }
 
@@ -666,7 +886,8 @@ extern "C" int omni_recency(const void* created, void* out, float now, int n, in
 }
 
 // T3. q1/q2 i8[b, d], t1/t2/eq2/qn/kwb f32[b], kw_w8 i8[b, 8w], c1/c2 i8[b*m, d],
-// bloom u8[b*m, w], s1/s2/ec2/add f32[b*m] -> out f32[b, qg*m]; b % qg == 0
+// bloom u8[b*m, w], s1/s2/ec2/add f32[b*m] -> out f32[b, qg*m]; b % qg == 0, every
+// pointer 16-byte aligned
 extern "C" int omni_refine_slab(const void* q1, const void* q2, const void* t1, const void* t2,
                                 const void* eq2, const void* qn, const void* kwb,
                                 const void* kw_w8, const void* c1, const void* c2,
@@ -674,10 +895,22 @@ extern "C" int omni_refine_slab(const void* q1, const void* q2, const void* t1, 
                                 const void* ec2, const void* add, void* out, int b, int d,
                                 int w, int m, int qg, void* stream) {
   if (b <= 0 || d <= 0 || d % 16 != 0 || w <= 0 || m <= 0 || qg < 1 || qg > kSlabQg ||
-      b % qg != 0 || b / qg > 65535)
+      b % qg != 0 || b / qg > 65535 || d > (1 << 20) || w > (1 << 20) ||
+      (long long)qg * m > (1 << 30))
     return -1;
-  const size_t smem = (size_t)qg * (2 * d + 8 * w);
-  if (smem > (size_t)kMaxSmem) return -1;
+  // the whole of K in one chunk where three (else two) stages fit beside the queries,
+  // else as few chunks as let two fit
+  const int sd = (d + 31) / 32, nw = (w + 15) / 16;
+  int kp = sd, kb = nw, stages = 0;
+  for (int chunks = 1; !stages; ++chunks) {
+    kp = (sd + chunks - 1) / chunks;
+    kb = (nw + chunks - 1) / chunks;
+    const SlabLayout l = slab_layout(d, w, qg, kp, kb);
+    stages = l.ring + 3 * l.stage <= kMaxSmem ? 3 : l.ring + 2 * l.stage <= kMaxSmem ? 2 : 0;
+    if (!stages && kp == 1 && kb == 1) return -1;
+  }
+  const SlabLayout l = slab_layout(d, w, qg, kp, kb);
+  const int smem = l.ring + stages * l.stage;
   SlabArgs a;
   a.q1 = static_cast<const int8_t*>(q1);
   a.q2 = static_cast<const int8_t*>(q2);
@@ -696,13 +929,34 @@ extern "C" int omni_refine_slab(const void* q1, const void* q2, const void* t1, 
   a.add = static_cast<const float*>(add);
   a.out = static_cast<float*>(out);
   a.d = d; a.w = w; a.qg = qg; a.ct = qg * m;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(refine_slab_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+  a.kp = kp; a.kb = kb; a.stages = stages;
+  a.chunks = std::max((sd + kp - 1) / kp, (nw + kb - 1) / kb);
+  cudaError_t err = cudaFuncSetAttribute(refine_slab_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, refine_slab_kernel,
+                                                        kSlabThreads, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return -1;
+  // the row blocks a block takes: the fewest waves of blocks times the row blocks of each,
+  // a block's staging of its queries counted as kSlabSetup row blocks
+  constexpr long long kSlabSetup = 2;
+  const int tiles = b / qg, nrb = (a.ct + kSlabRows - 1) / kSlabRows;
+  const long long slots = (long long)sms * per_sm;
+  long long best = -1;
+  for (int per = 1; per <= std::min(nrb, 4096); ++per) {
+    const long long blocks = (long long)tiles * ((nrb + per - 1) / per);
+    const long long cost = (blocks + slots - 1) / slots * (per + kSlabSetup);
+    if (best < 0 || cost < best) {
+      best = cost;
+      a.rb_per_block = per;
+    }
   }
-  dim3 grid((a.ct + kSlabRowsPerBlock - 1) / kSlabRowsPerBlock, b / qg);
-  refine_slab_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  dim3 grid((nrb + a.rb_per_block - 1) / a.rb_per_block, tiles);
+  refine_slab_kernel<<<grid, kSlabThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

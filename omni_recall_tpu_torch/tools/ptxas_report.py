@@ -13,7 +13,8 @@ too) and lists the instantiations whose numbers differ and those found on
 one side only (the other checkout's with their numbers).
 Each line also counts the source's SASS opcodes of interest
 (``sass_counts``: ``HGMMA`` and ``IGMMA``, the tensor-core warpgroup
-products in bf16 and in int8, and ``UTMALDG``, the TMA loads), in all and
+products in bf16 and in int8, ``IMMA``, the warp-level int8 product of
+``mma.sync``, and ``UTMALDG``, the TMA loads), in all and
 for each kernel of this checkout (``sass_by_kernel``), read with
 ``cuobjdump -sass``. It needs ``nvcc``; it runs no kernel.
 """
@@ -53,7 +54,7 @@ def parse(log: str) -> dict[str, dict[str, int]]:
     return kernels
 
 
-SASS_OPCODES = ("HGMMA", "IGMMA", "UTMALDG")
+SASS_OPCODES = ("HGMMA", "IGMMA", "IMMA", "UTMALDG")
 
 
 _FUNCTION = re.compile(r"^\s*Function : (\S+)", re.M)

@@ -575,22 +575,40 @@ def test_kernel_recency_exp_is_torch_exp_on_every_argument(dev):
         assert _same(refine.kernel_recency(x), torch.exp(x)), start
 
 
-@pytest.mark.parametrize("m", [16, 64, 128, 512])
-@pytest.mark.parametrize("b", [16, 48, 448])
-def test_probe_serve_t3(dev, b, m):
-    """T3 over K3's candidates (8192-row planes, d = 768, 1024 bloom bits) at
-    qg 16 (m <= 128) and qg 4 (m = 512): three launches, each bitwise
-    against its plain version, and its block diagonal against K3's kernel."""
-    args = _refine_inputs(dev, 8192, 768, b, m, 128, seed=b + m)
+# (B, m, d, W): qg 16 (m <= 128) and qg 4 (m = 512) at d = 768, 1024 bloom
+# bits; qg 15 with ct = 1935 (not a multiple of 8), d = 16 x 65 (not a
+# multiple of 32) and W = 125 (bloom rows not 16-byte aligned); d = 4096,
+# whose rows the ring takes in chunks of K
+T3_CASES = [(b, m, 768, 128) for m in (16, 64, 128, 512) for b in (16, 48, 448)] + [
+    (15, 129, 1040, 125), (450, 129, 1040, 125), (16, 128, 4096, 128)]
+
+
+@pytest.mark.parametrize("b, m, d, w", T3_CASES)
+def test_probe_serve_t3(dev, b, m, d, w):
+    """T3 over K3's candidates (8192-row planes) at each case of T3_CASES:
+    three launches, each bitwise against its plain version, and its block
+    diagonal against K3's kernel."""
+    args = _refine_inputs(dev, 8192, d, b, m, w, seed=b + m + d + w)
     ops, qg = probe_serve.k3_slab_operands(*args)
     before = cuda.LAUNCHES["probe_serve"]
     got = [refine.refine_slab_tile(*ops, qg) for _ in range(3)]
     assert cuda.LAUNCHES["probe_serve"] == before + 3
     want = refine.refine_slab_tile_plain(*ops, qg)
-    assert want.shape == (b, qg * m) and qg == (4 if m == 512 else 16)
+    assert want.shape == (b, qg * m) and qg == refine.slab_tile_queries(m)
     for out in got:
         assert _same(out, want)
     assert _same(probe_serve.block_diagonal(got[0], m, qg), refine._refine_dispatch(*args))
+
+
+def test_refine_sass_holds_imma(dev):
+    """T3's products run on the tensor cores (IMMA, the SASS of an int8
+    mma.sync) in the built library; K3's stay on the CUDA cores."""
+    cuda.library("refine")
+    by_kernel = ptxas_report.sass_counts_by_function(cuda.BUILD_DIR / "librefine.so")
+    t3 = [v for k, v in by_kernel.items() if "refine_slab_kernel" in k]
+    k3 = [v for k, v in by_kernel.items() if "refine_kernel" in k]
+    assert len(t3) == 1 and t3[0]["IMMA"] > 0, by_kernel
+    assert len(k3) == 1 and k3[0]["IMMA"] == 0, by_kernel
 
 
 def test_probe_serve_t3_rejects_what_the_kernel_does_not_take(dev):

@@ -33,8 +33,10 @@ from omni_recall_tpu_torch.tools import probe_serve as t3
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 TOOL_PATH = ROOT / "tools" / "probe_serve.py"
 # (B, m, d, bits): qg 16 at the tool's m; qg 4; another width; qg 2 with a
-# tile of 2000 slab rows and 64 bloom bits
-CASES = [(32, 128, 768, 1024), (8, 512, 768, 512), (32, 64, 384, 256), (6, 1000, 256, 64)]
+# tile of 2000 slab rows and 64 bloom bits; qg 15 with a tile of 1935 slab
+# rows (not a multiple of 8), d = 16 x 49 (not a multiple of 32) and W = 5
+CASES = [(32, 128, 768, 1024), (8, 512, 768, 512), (32, 64, 384, 256), (6, 1000, 256, 64),
+         (15, 129, 784, 40)]
 
 
 @pytest.fixture(autouse=True)
