@@ -174,6 +174,16 @@ def _host_tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+# Optional per-slab tick of ``upload_slabbed`` when its caller passes none
+# (no arguments): a deadline-aware caller sets it to its checkpoint, so the
+# full uploads that ``device_arrays()`` makes can abort at a slab boundary
+# instead of overrunning a budget. The exception propagates to the caller of
+# ``device_arrays()``; the host mirrors stay intact and the index stays
+# device-dirty (the next ``device_arrays()`` re-derives the planes). The
+# single-slab fast path does not tick.
+UPLOAD_TICK = None
+
+
 def upload_slabbed(host, device, slab_bytes: int = 64 << 20, tick=None) -> torch.Tensor:
     """Upload a large host array (numpy, copy-on-write memmaps included, or
     a CPU tensor) in ~64 MiB slabs assembled in one device tensor.
@@ -184,9 +194,12 @@ def upload_slabbed(host, device, slab_bytes: int = 64 << 20, tick=None) -> torch
     the transfer of the last. Page faults and pinned memory cost O(slab)
     instead of O(total): a memmap pages in one slab at a time. ``tick`` (no
     arguments) is called before each slab, so a deadline-aware caller can
-    abort at a slab boundary by raising; the host arrays stay intact. On a
-    CPU device the slabs are copied into one CPU tensor."""
+    abort at a slab boundary by raising; the host arrays stay intact.
+    Without one, the module's ``UPLOAD_TICK`` (if set) is called instead. On
+    a CPU device the slabs are copied into one CPU tensor."""
     device = torch.device(device)
+    if tick is None:
+        tick = UPLOAD_TICK
     rows = host.shape[0]
     row_bytes = max(1, int(np.prod(host.shape[1:], dtype=np.int64)) * host.itemsize)
     slab = max(1 if slab_bytes < (64 << 20) else 1024, slab_bytes // row_bytes)
@@ -901,6 +914,29 @@ class DeviceIndex:
             # (capacity matches, no dirty blocks)
             self._device = device
             self._device_cap = n
+            self._dirty_blocks.clear()
+
+    def install_device_planes(self, dev: DeviceArrays) -> None:
+        """Adopt device planes built elsewhere for a bulk-loaded index.
+
+        CONTRACT: the planes must be bit-identical to what the standard
+        upload plus ``device_quantize`` would give from this index's host
+        mirrors (raw = the same f32 rows, the int8 planes by
+        ``device_quantize``, bloom = the same signatures, created and valid
+        the same columns, pad rows past the last one dead). Callers generate
+        them on the device from a deterministic integer recipe
+        (tools/e2e_engine.py ``build_e2e_engine``) to skip a multi-GB
+        host-to-device transfer, and check the equality on a sample. A
+        mismatch would silently break the exactness certificate (device
+        bounds against the host rescore), which is why this is not a
+        general setter."""
+        with self._lock:
+            if dev.emb.shape[0] != self._cap:
+                raise ValueError(
+                    f"device planes rows {dev.emb.shape[0]} != capacity {self._cap}"
+                )
+            self._device = dev
+            self._device_cap = self._cap
             self._dirty_blocks.clear()
 
     def materialize_raw_rows(self, rows: np.ndarray) -> np.ndarray:

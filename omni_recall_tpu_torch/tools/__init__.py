@@ -21,6 +21,12 @@ Host-only tools (no kernel of their own), each beside the module it drives:
 - ``sweep_10m``: K1 over the compact 10M store at several batches and
   layouts.
 - ``bench_ingest``: the index append pipeline in chunks/s.
+- ``e2e_engine``: the end-to-end bench's 2^20-row corpus and engine
+  (``build_e2e_engine``: the integer recipe, its planes made on the card).
+- ``sweep_serving_layout``: the coarse scan's (sub, t) layouts, alone and
+  through the engine on that corpus.
+- ``probe_tunnel``: PCIe transfers, launch latency and the refine
+  selection's time (the TPU tool's name; no tunnel on the card).
 
 The tools of row sharding (parallel/):
 
