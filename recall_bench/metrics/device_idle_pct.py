@@ -1,0 +1,10 @@
+"""Percent of the traced span in which no kernel, copy or set ran on the
+card (``torch.profiler``'s device intervals, merged)."""
+
+from recall_bench import measure
+
+
+def read(run):
+    if run.trace is None or not run.trace.device:
+        return None
+    return measure.idle_share(run.trace.busy_s(), run.trace.window_s)
