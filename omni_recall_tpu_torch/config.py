@@ -27,6 +27,9 @@ needs ``Engine:Backend=pallas``, ``Engine:ScanDtype=int8``,
 ``Engine:DirectSelect=true`` and ``Engine:DeviceExactCos=true``.
 ``Engine:Shards`` = N > 0 row-shards the index over the first N cards
 (parallel/mesh.py shards_mesh; one card gives a one-shard mesh).
+``Engine:Tracing`` (``OMNI__Engine__Tracing=true``), the port's one key
+beyond the JAX package's, records the served path's spans
+(utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -309,6 +312,10 @@ class EngineOptions:
     # exactness is never at risk, only throughput).
     coarse_sub: int = 0
     coarse_t: int = 0
+    # port-only operator switch (no JAX counterpart): record the served
+    # path's spans (utils/tracing.py) and export their totals on /metrics.
+    # Off, every span site costs one flag check
+    tracing: bool = False
 
 
 @dataclass

@@ -64,6 +64,7 @@ from omni_recall_tpu_torch.ops.oracle import (
     RECENCY_HALF_LIFE_DAYS,
     RECENCY_WEIGHT,
 )
+from omni_recall_tpu_torch.utils import tracing
 
 _NEG_INF = -1e30  # finite mask value inside the scans; mapped to -inf outside
 _INT_MIN = -(2**31)
@@ -589,18 +590,21 @@ def block_topt_int8_coarse_plain(emb8, q8, add_row, scale_row, q_scale, q_bias,
 def block_topt_int8_coarse(emb8, q8, add_row, scale_row, q_scale, q_bias,
                            t: int, sub: int = 512, block: int | None = None):
     """Coarse (keyword-capped) int8 scan, K1. add_row/scale_row f32[1, N],
-    q_scale/q_bias f32[B, 1]."""
-    if not emb8.is_cuda:
-        _require_cpu(emb8)
-        return block_topt_int8_coarse_plain(
-            emb8, q8, add_row, scale_row, q_scale, q_bias, t, sub, block)
-    n, b = emb8.shape[0], q8.shape[0]
-    sub, t1 = _coarse_shape(n, b, t, sub, block)
-    return _int8_cuda(
-        n, b, sub, t1, emb8=emb8, q8=q8,
-        add_row=add_row.reshape(-1), scale_row=scale_row.reshape(-1),
-        q_scale=(COSINE_WEIGHT * q_scale).reshape(-1), q_bias=q_bias.reshape(-1),
-    )
+    q_scale/q_bias f32[B, 1]. The ``scan.k1`` span (the host's launch)."""
+    with tracing.span(tracing.SCAN_K1) as sp:
+        if sp:
+            sp.set(emb8.shape[0], emb8.shape[1], q8.shape[0], sub, t)
+        if not emb8.is_cuda:
+            _require_cpu(emb8)
+            return block_topt_int8_coarse_plain(
+                emb8, q8, add_row, scale_row, q_scale, q_bias, t, sub, block)
+        n, b = emb8.shape[0], q8.shape[0]
+        sub, t1 = _coarse_shape(n, b, t, sub, block)
+        return _int8_cuda(
+            n, b, sub, t1, emb8=emb8, q8=q8,
+            add_row=add_row.reshape(-1), scale_row=scale_row.reshape(-1),
+            q_scale=(COSINE_WEIGHT * q_scale).reshape(-1), q_bias=q_bias.reshape(-1),
+        )
 
 
 # ---- K4: full fused int8 scan ----

@@ -45,6 +45,7 @@ from omni_recall_tpu_torch.ops.oracle import (
     RECENCY_HALF_LIFE_DAYS,
     RECENCY_WEIGHT,
 )
+from omni_recall_tpu_torch.utils import tracing
 
 CERT_EPS = 1e-4  # certificate float-divergence margin (scores round to 4dp
 #                  at the DTO edge, RecallSearchService.cs:51)
@@ -155,15 +156,19 @@ def score_topm(emb, bloom, created, valid, q, kw_weights, kw_bias, now_days,
     top-k; the result is the one-shot top-k of ``ub_scores``, bit for bit
     (``slab_rows`` is rounded up to a multiple of ROW_ATOM). ``row_offset``
     is the global row of local row 0 (a shard of a row-sharded index): the
-    window mask compares global rows, the returned indices are local."""
-    n = emb.shape[0]
-    k = min(m + 1, n)
-    slab_rows = -(-max(1, slab_rows) // ROW_ATOM) * ROW_ATOM
-    best = None
-    for lo in range(0, n, slab_rows):
-        hi = min(lo + slab_rows, n)
-        ub = ub_scores(emb[lo:hi], bloom[lo:hi], created[lo:hi], valid[lo:hi], q,
-                       kw_weights, kw_bias, now_days, window_start, row_offset + lo)
-        keys = _keys(ub, lo) if best is None else torch.cat([best, _keys(ub, lo)], dim=1)
-        best = torch.topk(keys, min(k, keys.shape[1]), dim=1).values
-    return _decode(best)
+    window mask compares global rows, the returned indices are local. The
+    ``scan.xla`` span (the host's launches)."""
+    with tracing.span(tracing.SCAN_XLA) as sp:
+        n = emb.shape[0]
+        if sp:
+            sp.set(n, emb.shape[1], q.shape[0], bloom.shape[1])
+        k = min(m + 1, n)
+        slab_rows = -(-max(1, slab_rows) // ROW_ATOM) * ROW_ATOM
+        best = None
+        for lo in range(0, n, slab_rows):
+            hi = min(lo + slab_rows, n)
+            ub = ub_scores(emb[lo:hi], bloom[lo:hi], created[lo:hi], valid[lo:hi], q,
+                           kw_weights, kw_bias, now_days, window_start, row_offset + lo)
+            keys = _keys(ub, lo) if best is None else torch.cat([best, _keys(ub, lo)], dim=1)
+            best = torch.topk(keys, min(k, keys.shape[1]), dim=1).values
+        return _decode(best)

@@ -18,14 +18,25 @@ finalize worker completes the host rescore and resolves the futures. Under
 load, batch i's host rescore overlaps batch i+1's coalescing window and
 device scan; a small in-flight bound keeps a host-rescore backlog from
 queueing unbounded device work.
+
+With tracing on (utils/tracing.py) each batch records ``coalesce.collect``
+(fill, max_batch and the backlog left queued when it closed),
+``coalesce.inflight_wait`` (the dispatcher waiting for a pipeline slot),
+``coalesce.finalize_queue`` (the dispatched batch waiting for the finalize
+worker, from its submission) and ``coalesce.resolve`` (the callers'
+futures and callbacks), under one batch number with the engine's spans.
+The engine counts the searches (``RecallEngine.stats``).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from datetime import datetime, timezone
+
+from omni_recall_tpu_torch.utils import tracing
 
 
 class CoalescingSearchExecutor:
@@ -86,24 +97,23 @@ class CoalescingSearchExecutor:
             if item is None:
                 return
             batch = [item]
-            deadline = None
-            while len(batch) < self.max_batch:
-                if deadline is None:
-                    import time
-
-                    deadline = time.monotonic() + self.window_s
-                try:
-                    import time
-
-                    timeout = deadline - time.monotonic()
-                    nxt = self._queue.get(timeout=max(0.0, timeout))
-                except queue.Empty:
-                    break
-                if nxt is None:
-                    self._flush(batch)
-                    return
-                batch.append(nxt)
+            closing = False
+            with tracing.span(tracing.COLLECT, tracing.new_batch()) as sp:
+                deadline = time.monotonic() + self.window_s
+                while len(batch) < self.max_batch:
+                    try:
+                        nxt = self._queue.get(timeout=max(0.0, deadline - time.monotonic()))
+                    except queue.Empty:
+                        break
+                    if nxt is None:
+                        closing = True
+                        break
+                    batch.append(nxt)
+                if sp:
+                    sp.set(len(batch), self.max_batch, self._queue.qsize())
             self._flush(batch)
+            if closing:
+                return
 
     def _flush(self, batch) -> None:
         # Partition by explicit 'now': recency scores depend on it, so one
@@ -113,7 +123,9 @@ class CoalescingSearchExecutor:
         groups: dict[object, list] = {}
         for item in batch:
             groups.setdefault(item[1], []).append(item)
-        for now, group in groups.items():
+        for gi, (now, group) in enumerate(groups.items()):
+            if gi:
+                tracing.new_batch()  # one batch number a device pass
             requests = [req for req, _, _ in group]
             eng = self.engine
             if eng.options.backend == "oracle" or eng.device_index is None:
@@ -136,9 +148,9 @@ class CoalescingSearchExecutor:
             # asynchronously), finalize on the worker. The semaphore bounds
             # dispatched-but-unfinalized batches; acquiring it BEFORE the
             # dispatch applies backpressure to the dispatcher, not callers.
-            self._inflight.acquire()
+            with tracing.span(tracing.INFLIGHT_WAIT):
+                self._inflight.acquire()
             try:
-                eng.stats["searches_total"] += len(requests)
                 ctx = eng._dispatch_device_batch(
                     requests, eng.options.recent_window,
                     now or datetime.now(timezone.utc),
@@ -148,6 +160,7 @@ class CoalescingSearchExecutor:
                 for _, _, future in group:
                     future.set_exception(exc)
                 continue
+            ctx["submitted"] = time.perf_counter()
             try:
                 self._finalize_pool.submit(self._finalize_group, ctx, group)
             except RuntimeError:
@@ -162,7 +175,9 @@ class CoalescingSearchExecutor:
         # every future resolves exactly once; an exception must never
         # escape (it would silently kill the finalize worker's task while
         # callers block forever)
+        batch = ctx.get("batch")
         try:
+            tracing.add(tracing.FINALIZE_QUEUE, ctx["submitted"], batch)
             results = self.engine._finalize_device_batch(ctx)
             if len(results) != len(group):
                 raise RuntimeError(
@@ -175,5 +190,6 @@ class CoalescingSearchExecutor:
             return
         finally:
             self._inflight.release()
-        for (_, _, future), hits in zip(group, results):
-            future.set_result(hits)
+        with tracing.span(tracing.RESOLVE, batch):
+            for (_, _, future), hits in zip(group, results):
+                future.set_result(hits)

@@ -121,6 +121,7 @@ from omni_recall_tpu_torch.ops import (
     scorer,
     xla_scorer,
 )
+from omni_recall_tpu_torch.utils import tracing
 
 
 class _HostCopy:
@@ -143,8 +144,9 @@ class _HostCopy:
             self.event.record()
 
     def get(self) -> list[np.ndarray]:
-        if self.event is not None:
-            self.event.synchronize()
+        with tracing.span(tracing.WAIT):
+            if self.event is not None:
+                self.event.synchronize()
         return [h.numpy() for h in self.host]
 
 
@@ -321,8 +323,7 @@ class RecallEngine:
         # arriving without an embedding are embedded on the card and their
         # raw query rows cross to the host only for escalations
         self._device_embedder = None
-        self.last_escalations = 0
-        self.last_coarse_resolved = 0
+        # written only under _stats_lock, once a batch (_add_stats)
         self.stats = {
             "searches_total": 0,          # queries served
             "coarse_resolved_total": 0,   # resolved by the coarse prepass
@@ -336,6 +337,7 @@ class RecallEngine:
             "rescue_sliced_total": 0,       # rescue scans run at sliced width
             "rescue_wide_total": 0,         # wide re-reads of dispatch scans
         }
+        self._stats_lock = threading.Lock()
         # adaptive prepass gate (search/engine.py): disable the coarse
         # prepass while its certificate keeps failing, re-probe later
         self._coarse_outcomes: list[int] = []
@@ -355,6 +357,14 @@ class RecallEngine:
         # serializes index mutation (append/update/delete); searches never
         # take it
         self.mutation_lock = threading.RLock()
+
+    def _add_stats(self, tally: dict) -> None:
+        """Add a batch's counts (keys of ``stats``) to the totals: the
+        dispatcher, the finalize worker and direct callers share them."""
+        with self._stats_lock:
+            for key, n in tally.items():
+                if n:
+                    self.stats[key] += n
 
     def attach_device_embedder(self, embedder) -> None:
         """Enable the device-resident query pipeline (search/engine.py:408-434):
@@ -532,12 +542,14 @@ class RecallEngine:
         window = self.options.recent_window
         if not requests:
             return []
-        self.stats["searches_total"] += len(requests)
         if self.options.backend == "oracle" or self.device_index is None:
+            self._add_stats({"searches_total": len(requests)})
             return [
                 self._search_oracle(q, emb, max(1, k), window, now)
                 for q, emb, k in requests
             ]
+        # the finalize counts the device path's searches
+        tracing.new_batch()
         return self._finalize_device_batch(
             self._dispatch_device_batch(requests, window, now)
         )
@@ -558,7 +570,7 @@ class RecallEngine:
         if len(batches) <= 1:
             ctxs = []
             for reqs in batches:
-                self.stats["searches_total"] += len(reqs)
+                tracing.new_batch()
                 ctxs.append(self._dispatch_device_batch(reqs, window, now))
             return [self._finalize_device_batch(ctx) for ctx in ctxs]
         from concurrent.futures import ThreadPoolExecutor
@@ -566,7 +578,7 @@ class RecallEngine:
         futures = []
         with ThreadPoolExecutor(max_workers=1) as pool:
             for reqs in batches:
-                self.stats["searches_total"] += len(reqs)
+                tracing.new_batch()
                 ctx = self._dispatch_device_batch(reqs, window, now)
                 futures.append(pool.submit(self._finalize_device_batch, ctx))
             return [f.result() for f in futures]
@@ -917,6 +929,7 @@ class RecallEngine:
         q_matrix: np.ndarray | None = None,
         q_norms: np.ndarray | None = None,
         term_lists: list[list[str]] | None = None,
+        tally: dict | None = None,
     ) -> list[tuple[np.ndarray, np.ndarray]]:
         """Vectorized exact rescore over device-index ROW indices: per query
         (rows_sorted, scores_sorted) by the full ranking key, bit-identical
@@ -925,9 +938,14 @@ class RecallEngine:
         keyword). ``dix`` must be the caller's index snapshot. With
         ``ub_lists`` (sound, descending) and ``ks``, the two-phase prune
         rescores only the top candidates first and the tail only where its
-        upper bound reaches the provisional kth (search/engine.py)."""
+        upper bound reaches the provisional kth (search/engine.py).
+        ``tally``: the calling batch's counts (keys of ``stats``), which
+        ``_finalize_device_batch`` adds to ``stats``; a direct call's are
+        not counted."""
         if dix is None:
             dix = self.device_index
+        if tally is None:
+            tally = dict.fromkeys(self.stats, 0)
         if ub_lists is not None and ks is not None:
             if phase1 is None:
                 phase1 = self.options.rescore_phase1
@@ -939,12 +957,13 @@ class RecallEngine:
                 return self._exact_rescore_rows_pruned(
                     queries, row_lists, now, dix, ub_lists, ks, p1s,
                     q_matrix=q_matrix, q_norms=q_norms, term_lists=term_lists,
+                    tally=tally,
                 )
         nq = len(queries)
         lens = [len(r) for r in row_lists]
         total = int(sum(lens))
         empty = (np.empty(0, dtype=np.int64), np.empty(0, dtype=np.float64))
-        self.stats["rescore_pairs_total"] += total
+        tally["rescore_pairs_total"] += total
         if total == 0:
             return [empty] * nq
         rows = np.concatenate([np.asarray(r, dtype=np.int64) for r in row_lists])
@@ -1071,7 +1090,7 @@ class RecallEngine:
     def _exact_rescore_rows_pruned(
         self,
         queries, row_lists, now, dix, ub_lists, ks, p1s,
-        q_matrix=None, q_norms=None, term_lists=None,
+        q_matrix=None, q_norms=None, term_lists=None, *, tally,
     ) -> list[tuple[np.ndarray, np.ndarray]]:
         """Two-phase body of _exact_rescore_rows: phase 1 rescores the
         top-p1 candidates by upper bound; phase 2 only tail candidates whose
@@ -1079,7 +1098,7 @@ class RecallEngine:
         phase1 = [rows[:p1] for rows, p1 in zip(row_lists, p1s)]
         ranked1 = self._exact_rescore_rows(
             queries, phase1, now, dix=dix, q_matrix=q_matrix, q_norms=q_norms,
-            term_lists=term_lists,
+            term_lists=term_lists, tally=tally,
         )
         phase2 = []
         for qi, rows in enumerate(row_lists):
@@ -1092,10 +1111,10 @@ class RecallEngine:
         saved = sum(len(r) - p for r, p in zip(row_lists, p1s)) - sum(
             len(p) for p in phase2
         )
-        self.stats["rescore_pairs_saved_total"] += int(saved)
+        tally["rescore_pairs_saved_total"] += int(saved)
         ranked2 = self._exact_rescore_rows(
             queries, phase2, now, dix=dix, q_matrix=q_matrix, q_norms=q_norms,
-            term_lists=term_lists,
+            term_lists=term_lists, tally=tally,
         )
         out: list[tuple[np.ndarray, np.ndarray]] = []
         for qi in range(len(queries)):
@@ -1131,11 +1150,12 @@ class RecallEngine:
         k: int,
         window: int,
         now: datetime,
+        tally: dict | None = None,
     ) -> list[SearchHit]:
         """Exact host scan over the device index's own row list (the
         certificate-exhausted fallback, and the f64 oracle of the chip
         check): rows are in (created, seq) order, so the window is the row
-        tail."""
+        tail. ``tally`` as ``_exact_rescore_rows``'."""
         dix = self.device_index
         if dix is None:
             return self._search_oracle(query, query_embedding, k, window, now)
@@ -1148,7 +1168,7 @@ class RecallEngine:
             return hits[:k]
         rows = r0 + np.nonzero(dix.valid[r0 : dix.n_rows])[0].astype(np.int64)
         (rows_sorted, scores_sorted), = self._exact_rescore_rows(
-            [(query, query_embedding)], [rows], now, dix=dix,
+            [(query, query_embedding)], [rows], now, dix=dix, tally=tally,
         )
         return [
             SearchHit(meta[int(r)], float(s))
@@ -1166,7 +1186,20 @@ class RecallEngine:
     ) -> dict:
         """Phase 1 of a device-batch search: snapshot the index, build the
         query operands, queue the prepass scans on the device and start the
-        host copies of their compact results. No host sync happens here."""
+        host copies of their compact results. No host sync happens here.
+        The ``engine.dispatch`` span, whose batch number the context
+        carries to the finalize."""
+        with tracing.span(tracing.DISPATCH) as sp:
+            ctx = self._dispatch_body(sp, requests, window, now)
+            ctx["batch"] = sp.batch
+            if sp and not ctx["empty"]:
+                de = ctx["dev_embedded"]
+                sp.set(len(requests), len(ctx["host_only"]),
+                       int(de.sum()) if de is not None else 0)
+            return ctx
+
+    def _dispatch_body(self, sp, requests, window: int, now: datetime) -> dict:
+        """``_dispatch_device_batch``'s work, its parts as steps of ``sp``."""
         dix = self.device_index
         assert dix is not None
         b = len(requests)
@@ -1177,6 +1210,7 @@ class RecallEngine:
         ctx["empty"] = False
         device = dix.device
 
+        sp.step(tracing.PREP)
         ks = [max(1, k) for _, _, k in requests]
         q_raw = np.zeros((b, dix.dim), dtype=np.float32)
         host_only: list[int] = []
@@ -1240,6 +1274,7 @@ class RecallEngine:
         r0 = dix.window_start_row(window)
         window_rows = dix.n_valid if window <= 0 else min(window, dix.n_valid)
 
+        sp.step(tracing.UPLOAD)
         upd_seq0 = dix.update_seq  # read BEFORE the snapshot (reindex race)
         dev = dix.device_arrays()
         qn_dd_dev = None
@@ -1310,6 +1345,7 @@ class RecallEngine:
         )
         if not self.options.exact:
             return ctx
+        sp.step(tracing.LAUNCH)
         host_set = set(host_only)
         # embedding-backed queries: a nonzero host vector, or device-embedded
         q_live = ok | dev_embedded
@@ -1383,6 +1419,23 @@ class RecallEngine:
     # -- device batch: finalize --
 
     def _finalize_device_batch(self, ctx: dict) -> list[list[SearchHit]]:
+        """Phase 2: wait for the batch's device results, certify them on the
+        host, and rescue what the certificate leaves open. The
+        ``engine.finalize`` span; the batch's counts go to ``stats`` once,
+        at its end, and onto the span."""
+        tally = dict.fromkeys(self.stats, 0)
+        with tracing.span(tracing.FINALIZE, ctx.get("batch")) as sp:
+            try:
+                return self._finalize_body(ctx, tally)
+            finally:
+                tally["searches_total"] = len(ctx["requests"])
+                self._add_stats(tally)
+                sp.set(tally["escalation_rounds_total"], tally["host_fallbacks_total"],
+                       tally["dd_escalations_total"], tally["rescue_wide_total"],
+                       tally["rescue_sliced_total"], tally["rescore_pairs_total"])
+
+    def _finalize_body(self, ctx: dict, tally: dict) -> list[list[SearchHit]]:
+        """``_finalize_device_batch``'s work; its counts go to ``tally``."""
         requests = ctx["requests"]
         if ctx["empty"]:
             return [[] for _ in requests]
@@ -1396,7 +1449,6 @@ class RecallEngine:
         device = dix.device
 
         results: list[list[SearchHit] | None] = [None] * b
-        self.last_escalations = 0
 
         # device-resident query pipeline: the raw query rows live on the
         # card; only their double-float self-norms come back eagerly. Exact
@@ -1428,7 +1480,8 @@ class RecallEngine:
             if not need:
                 return
             idx = torch.as_tensor(need, dtype=torch.long, device=device)
-            rows = ctx["q_raw_dev"].index_select(0, idx).cpu().numpy()
+            with tracing.span(tracing.WAIT):
+                rows = ctx["q_raw_dev"].index_select(0, idx).cpu().numpy()
             ctx["q_raw"][need] = rows
             ctx["q_norms"][need] = np.sum(rows * rows, axis=1, dtype=np.float64)
             q_ready[need] = True
@@ -1443,11 +1496,12 @@ class RecallEngine:
             return requests[i][1]
 
         def oracle_fill(indices):
-            self.stats["host_fallbacks_total"] += len(indices)
-            ensure_host_q(indices)
-            for i in indices:
-                results[i] = self._search_full_host(requests[i][0], emb_for(i), ks[i],
-                                                    window, now)
+            with tracing.span(tracing.HOST_SCAN):
+                tally["host_fallbacks_total"] += len(indices)
+                ensure_host_q(indices)
+                for i in indices:
+                    results[i] = self._search_full_host(requests[i][0], emb_for(i), ks[i],
+                                                        window, now, tally=tally)
 
         if host_only:
             oracle_fill(host_only)
@@ -1467,35 +1521,38 @@ class RecallEngine:
                 oracle_fill(pending)
                 return []
             unresolved = []
-            for pi, i in enumerate(pending):
-                k = ks[i]
-                boundary = boundary_of(i)
-                rows_sorted, scores_sorted = ranked[pi]
-                if boundary != -np.inf:
-                    kth = scores_sorted[k - 1] if len(scores_sorted) >= k else -np.inf
-                    if not kth > boundary:
-                        unresolved.append(i)
-                        continue
-                results[i] = [
-                    SearchHit(meta[int(r)], float(s))
-                    for r, s in zip(rows_sorted[:k], scores_sorted[:k])
-                    if meta[int(r)] is not None
-                ]
+            with tracing.span(tracing.CERTIFY):
+                for pi, i in enumerate(pending):
+                    k = ks[i]
+                    boundary = boundary_of(i)
+                    rows_sorted, scores_sorted = ranked[pi]
+                    if boundary != -np.inf:
+                        kth = scores_sorted[k - 1] if len(scores_sorted) >= k else -np.inf
+                        if not kth > boundary:
+                            unresolved.append(i)
+                            continue
+                    results[i] = [
+                        SearchHit(meta[int(r)], float(s))
+                        for r, s in zip(rows_sorted[:k], scores_sorted[:k])
+                        if meta[int(r)] is not None
+                    ]
             return unresolved
 
         def rescore(pending, row_lists, ub_lists, phase1):
             ensure_host_q(pending)  # exact query bits for the f64 rescore
             prune = self.options.rescore_prune
-            return self._exact_rescore_rows(
-                [(requests[i][0], requests[i][1]) for i in pending],
-                row_lists, now, dix=dix,
-                ub_lists=ub_lists if prune else None,
-                ks=[ks[i] for i in pending] if prune else None,
-                phase1=phase1,
-                q_matrix=ctx["q_raw"][pending],
-                q_norms=ctx["q_norms"][pending],
-                term_lists=[ctx["terms"][i] for i in pending],
-            )
+            with tracing.span(tracing.RESCORE):
+                return self._exact_rescore_rows(
+                    [(requests[i][0], requests[i][1]) for i in pending],
+                    row_lists, now, dix=dix,
+                    ub_lists=ub_lists if prune else None,
+                    ks=[ks[i] for i in pending] if prune else None,
+                    phase1=phase1,
+                    q_matrix=ctx["q_raw"][pending],
+                    q_norms=ctx["q_norms"][pending],
+                    term_lists=[ctx["terms"][i] for i in pending],
+                    tally=tally,
+                )
 
         def rescore_and_certify(pending, all_vals, all_idxs, m, all_ref=None):
             """Exact-rescore pending queries' [B, m+1] scan candidates and
@@ -1572,59 +1629,61 @@ class RecallEngine:
             rows_flat = rows_p[live].astype(np.int64)
             owner = np.repeat(np.arange(len(pending)), lens)
             own_q = pend[owner]
-            cos, m_cos = exact_cos.finish_cosines(
-                hi_a[pend][live], lo_a[pend][live], sabs_a[pend][live],
-                ctx["q_norms"][own_q], dix.raw_norm_sq[rows_flat],
-                qn_rel=qn_rel[own_q] if qn_rel is not None else None,
-            )
-            kw_term = self._kw_scores_flat(
-                rows_flat, owner, [ctx["terms"][i] for i in pending], dix
-            )
-            age = np.maximum(
-                0.0,
-                ((to_micros(now) - dix.created_us[rows_flat]).astype(np.float64) / 1e6)
-                / 86400.0,
-            )
-            rec = np.exp(-age / oracle.RECENCY_HALF_LIFE_DAYS)
-            # exactly the oracle expression order
-            scores = (oracle.COSINE_WEIGHT * cos + kw_term) + oracle.RECENCY_WEIGHT * rec
-            margins = np.where(
-                m_cos > 0.0,
-                oracle.COSINE_WEIGHT * m_cos + 4e-16 * (np.abs(scores) + 1.0),
-                0.0,
-            )
+            with tracing.span(tracing.RESCORE):
+                cos, m_cos = exact_cos.finish_cosines(
+                    hi_a[pend][live], lo_a[pend][live], sabs_a[pend][live],
+                    ctx["q_norms"][own_q], dix.raw_norm_sq[rows_flat],
+                    qn_rel=qn_rel[own_q] if qn_rel is not None else None,
+                )
+                kw_term = self._kw_scores_flat(
+                    rows_flat, owner, [ctx["terms"][i] for i in pending], dix
+                )
+                age = np.maximum(
+                    0.0,
+                    ((to_micros(now) - dix.created_us[rows_flat]).astype(np.float64) / 1e6)
+                    / 86400.0,
+                )
+                rec = np.exp(-age / oracle.RECENCY_HALF_LIFE_DAYS)
+                # exactly the oracle expression order
+                scores = (oracle.COSINE_WEIGHT * cos + kw_term) + oracle.RECENCY_WEIGHT * rec
+                margins = np.where(
+                    m_cos > 0.0,
+                    oracle.COSINE_WEIGHT * m_cos + 4e-16 * (np.abs(scores) + 1.0),
+                    0.0,
+                )
             if dix.update_seq != upd_seq0:
                 oracle_fill(pending)  # reindex race: same as the host path
                 return []
-            order = np.lexsort(
-                (-dix.seqs[rows_flat], -dix.created_ts[rows_flat], -scores, owner)
-            )
-            rows_s, scores_s, margins_s = rows_flat[order], scores[order], margins[order]
-            seg = np.zeros(len(pending) + 1, dtype=np.int64)
-            np.cumsum(lens, out=seg[1:])
-            k_arr = np.asarray([ks[i] for i in pending], dtype=np.int64)
-            bnd = np.asarray([bounds_a[i] for i in pending], dtype=np.float64)
-            resolved, provable, kk_arr = _dd_certify_batch(
-                scores_s, margins_s, seg, lens, k_arr, bnd,
-            )
-            unresolved = [pending[pi] for pi in np.nonzero(provable)[0]]
-            esc_mask = ~provable & ~resolved
-            escalate = [pending[pi] for pi in np.nonzero(esc_mask)[0]]
-            # both sets need exact host query bits next: one gather
-            ensure_host_q(escalate + unresolved)
-            self.stats["rescore_pairs_total"] += total - int(lens[esc_mask].sum())
-            self.stats["dd_resolved_total"] += int(resolved.sum())
-            for pi in np.nonzero(resolved)[0]:
-                i = pending[pi]
-                kk = int(kk_arr[pi])
-                lo = seg[pi]
-                results[i] = [
-                    SearchHit(meta[int(row)], float(sc))
-                    for row, sc in zip(rows_s[lo: lo + kk], scores_s[lo: lo + kk])
-                    if meta[int(row)] is not None
-                ]
+            with tracing.span(tracing.CERTIFY):
+                order = np.lexsort(
+                    (-dix.seqs[rows_flat], -dix.created_ts[rows_flat], -scores, owner)
+                )
+                rows_s, scores_s, margins_s = rows_flat[order], scores[order], margins[order]
+                seg = np.zeros(len(pending) + 1, dtype=np.int64)
+                np.cumsum(lens, out=seg[1:])
+                k_arr = np.asarray([ks[i] for i in pending], dtype=np.int64)
+                bnd = np.asarray([bounds_a[i] for i in pending], dtype=np.float64)
+                resolved, provable, kk_arr = _dd_certify_batch(
+                    scores_s, margins_s, seg, lens, k_arr, bnd,
+                )
+                unresolved = [pending[pi] for pi in np.nonzero(provable)[0]]
+                esc_mask = ~provable & ~resolved
+                escalate = [pending[pi] for pi in np.nonzero(esc_mask)[0]]
+                # both sets need exact host query bits next: one gather
+                ensure_host_q(escalate + unresolved)
+                tally["rescore_pairs_total"] += total - int(lens[esc_mask].sum())
+                tally["dd_resolved_total"] += int(resolved.sum())
+                for pi in np.nonzero(resolved)[0]:
+                    i = pending[pi]
+                    kk = int(kk_arr[pi])
+                    lo = seg[pi]
+                    results[i] = [
+                        SearchHit(meta[int(row)], float(sc))
+                        for row, sc in zip(rows_s[lo: lo + kk], scores_s[lo: lo + kk])
+                        if meta[int(row)] is not None
+                    ]
             if escalate:
-                self.stats["dd_escalations_total"] += len(escalate)
+                tally["dd_escalations_total"] += len(escalate)
                 unresolved.extend(
                     rescore_and_certify_compact(escalate, rows_a, ubs_a, bounds_a)
                 )
@@ -1654,7 +1713,7 @@ class RecallEngine:
 
         if ctx["kw_scan"] is not None:
             kw_only, unresolved = consume_prepass(ctx["kw_scan"], ctx.get("kw_dd"))
-            self.stats["kw_only_resolved_total"] += len(kw_only) - len(unresolved)
+            tally["kw_only_resolved_total"] += len(kw_only) - len(unresolved)
             # keyword-batch compact outcomes feed the direct gate (never the
             # coarse gate: these queries did not run the coarse scan)
             if ctx.get("kw_select_direct"):
@@ -1662,21 +1721,20 @@ class RecallEngine:
             elif ctx.get("kw_select_direct") is False:
                 self._direct_gate_advance(len(kw_only))
 
-        self.last_coarse_resolved = 0
         if ctx["coarse_scan"] is not None:
             prepass, unresolved = consume_prepass(
                 ctx["coarse_scan"], ctx.get("coarse_dd")
             )
-            self.last_coarse_resolved = len(prepass) - len(unresolved)
-            self.stats["coarse_resolved_total"] += self.last_coarse_resolved
+            coarse_resolved = len(prepass) - len(unresolved)
+            tally["coarse_resolved_total"] += coarse_resolved
             if ctx.get("select_direct"):
                 # direct-selection misses must not poison the coarse gate
                 # (the looser (t_out+1)-th bound missed, not the scan): they
                 # feed the direct gate instead
                 self._coarse_gate_advance(len(prepass))
-                self._direct_gate_record(self.last_coarse_resolved, len(prepass))
+                self._direct_gate_record(coarse_resolved, len(prepass))
             else:
-                self._coarse_gate_record(self.last_coarse_resolved, len(prepass))
+                self._coarse_gate_record(coarse_resolved, len(prepass))
                 if ctx.get("select_direct") is False:
                     # refine selection while the direct gate is closed:
                     # advance its clock toward the re-probe horizon
@@ -1695,82 +1753,88 @@ class RecallEngine:
             # broadly — let the rescue scan's tighter fused bounds run
             if not pending or len(pending) > max(8, b // 2):
                 return
-            self.stats["rescue_wide_total"] += 1
+            tally["rescue_wide_total"] += 1
             vals_d, idxs_d = ctx[full_key]
             sel_dev = torch.as_tensor(pending, dtype=torch.long, device=device)
-            vals_p = vals_d.index_select(0, sel_dev).cpu().numpy()
-            idxs_p = idxs_d.index_select(0, sel_dev).cpu().numpy()
+            with tracing.span(tracing.WAIT):
+                vals_p = vals_d.index_select(0, sel_dev).cpu().numpy()
+                idxs_p = idxs_d.index_select(0, sel_dev).cpu().numpy()
             vf, xf = _rehome_rows(b, pending, ((vals_p, -np.inf), (idxs_p, -1)))
             rescore_and_certify(pending, vf, xf, m)
 
-        if self.options.exact and any(r is None for r in results):
-            wide_rescue("kw_full", "kw_scan")
-            wide_rescue("coarse_full", "coarse_scan")
+        if all(r is not None for r in results):
+            return results  # type: ignore[return-value]
+        # the wide rescue and the rescan loop, for what the prepass left
+        # open (on an index with no prepass, the loop's first scan)
+        with tracing.span(tracing.RESCUE):
+            if self.options.exact:
+                wide_rescue("kw_full", "kw_scan")
+                wide_rescue("coarse_full", "coarse_scan")
 
-        while any(r is None for r in results):
-            pending = [i for i, r in enumerate(results) if r is None]
-            scan, full_coverage = self._select_scorer(m, int(dev.emb.shape[0]))
-            if scan is None:
-                # no scan layout covers m: exact host scan
-                oracle_fill(pending)
-                break
-            # slice the rescue scan to the PENDING queries (pow2 bucket,
-            # duplicate-of-first pads): index bytes are streamed either way,
-            # but readback and host rescore scale with the width
-            sliced = self.options.exact and len(pending) <= b // 2
-            if sliced:
-                self.stats["rescue_sliced_total"] += 1
-                pb = 1 << (len(pending) - 1).bit_length()
-                sel = np.zeros(pb, dtype=np.int64)
-                sel[: len(pending)] = pending
-                sel_dev = torch.from_numpy(sel).to(device)
-                q_s = q_dev.index_select(0, sel_dev)
-                w_s = w_dev.index_select(0, sel_dev)
-                bias_s = bias_dev.index_select(0, sel_dev)
-            else:
-                q_s, w_s, bias_s = q_dev, w_dev, bias_dev
-            all_vals, all_idxs = scan(dev, q_s, w_s, bias_s, now_dev, r0, m)
-            # refine-assisted rescue: K3 re-bounds the scan's candidates
-            all_ref = (
-                self._refine_call(dev, q_s, w_s, bias_s, now_dev, all_vals, all_idxs, m)
-                if self.options.exact else None
-            )
-            all_vals = all_vals.cpu().numpy()
-            all_idxs = all_idxs.cpu().numpy()
-            if all_ref is not None:
-                all_ref = all_ref.cpu().numpy()
-            if sliced:
-                all_vals, all_idxs = _rehome_rows(
-                    b, pending, ((all_vals, -np.inf), (all_idxs, -1))
-                )
-                if all_ref is not None:
-                    (all_ref,) = _rehome_rows(b, pending, ((all_ref, -np.inf),))
-
-            if not self.options.exact:
-                # approximate profile: rank by the device upper bound
-                for i in pending:
-                    vals, idxs = all_vals[i], all_idxs[i]
-                    live = vals[:m] > -np.inf
-                    hits = []
-                    for row, ub in zip(idxs[:m][live], vals[:m][live]):
-                        chunk = dix.meta[int(row)]
-                        if chunk is not None:
-                            hits.append(SearchHit(chunk, float(ub)))
-                    results[i] = hits[: ks[i]]
-                break
-
-            unresolved = rescore_and_certify(pending, all_vals, all_idxs, m, all_ref)
-            if m >= window_rows and not full_coverage:
-                # partial-coverage scan exhausted: exact host scan
-                oracle_fill(unresolved)
-                unresolved = []
-
-            if any(r is None for r in results):
-                if m >= window_rows or m >= self._ESCALATION_MAX_M:
-                    oracle_fill([i for i, r in enumerate(results) if r is None])
+            while any(r is None for r in results):
+                pending = [i for i, r in enumerate(results) if r is None]
+                scan, full_coverage = self._select_scorer(m, int(dev.emb.shape[0]))
+                if scan is None:
+                    # no scan layout covers m: exact host scan
+                    oracle_fill(pending)
                     break
-                m = min(m * 4, window_rows)
-                self.last_escalations += 1
-                self.stats["escalation_rounds_total"] += 1
+                # slice the rescue scan to the PENDING queries (pow2 bucket,
+                # duplicate-of-first pads): index bytes are streamed either way,
+                # but readback and host rescore scale with the width
+                sliced = self.options.exact and len(pending) <= b // 2
+                if sliced:
+                    tally["rescue_sliced_total"] += 1
+                    pb = 1 << (len(pending) - 1).bit_length()
+                    sel = np.zeros(pb, dtype=np.int64)
+                    sel[: len(pending)] = pending
+                    sel_dev = torch.from_numpy(sel).to(device)
+                    q_s = q_dev.index_select(0, sel_dev)
+                    w_s = w_dev.index_select(0, sel_dev)
+                    bias_s = bias_dev.index_select(0, sel_dev)
+                else:
+                    q_s, w_s, bias_s = q_dev, w_dev, bias_dev
+                all_vals, all_idxs = scan(dev, q_s, w_s, bias_s, now_dev, r0, m)
+                # refine-assisted rescue: K3 re-bounds the scan's candidates
+                all_ref = (
+                    self._refine_call(dev, q_s, w_s, bias_s, now_dev, all_vals, all_idxs, m)
+                    if self.options.exact else None
+                )
+                with tracing.span(tracing.WAIT):
+                    all_vals = all_vals.cpu().numpy()
+                    all_idxs = all_idxs.cpu().numpy()
+                    if all_ref is not None:
+                        all_ref = all_ref.cpu().numpy()
+                if sliced:
+                    all_vals, all_idxs = _rehome_rows(
+                        b, pending, ((all_vals, -np.inf), (all_idxs, -1))
+                    )
+                    if all_ref is not None:
+                        (all_ref,) = _rehome_rows(b, pending, ((all_ref, -np.inf),))
+
+                if not self.options.exact:
+                    # approximate profile: rank by the device upper bound
+                    for i in pending:
+                        vals, idxs = all_vals[i], all_idxs[i]
+                        live = vals[:m] > -np.inf
+                        hits = []
+                        for row, ub in zip(idxs[:m][live], vals[:m][live]):
+                            chunk = dix.meta[int(row)]
+                            if chunk is not None:
+                                hits.append(SearchHit(chunk, float(ub)))
+                        results[i] = hits[: ks[i]]
+                    break
+
+                unresolved = rescore_and_certify(pending, all_vals, all_idxs, m, all_ref)
+                if m >= window_rows and not full_coverage:
+                    # partial-coverage scan exhausted: exact host scan
+                    oracle_fill(unresolved)
+                    unresolved = []
+
+                if any(r is None for r in results):
+                    if m >= window_rows or m >= self._ESCALATION_MAX_M:
+                        oracle_fill([i for i, r in enumerate(results) if r is None])
+                        break
+                    m = min(m * 4, window_rows)
+                    tally["escalation_rounds_total"] += 1
 
         return results  # type: ignore[return-value]

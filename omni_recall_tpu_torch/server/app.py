@@ -53,6 +53,7 @@ from omni_recall_tpu_torch.search.service import RecallSearchService
 from omni_recall_tpu_torch.server.health import HealthProbeService
 from omni_recall_tpu_torch.server.http import Request, Response, Router, WsgiApp
 from omni_recall_tpu_torch.server.openapi import build_openapi_document
+from omni_recall_tpu_torch.utils import tracing
 
 ALLOWED_EXTENSIONS = {".pdf", ".txt", ".md", ".markdown"}  # DocumentEndpoints.cs:8-14
 
@@ -89,6 +90,8 @@ class OmniRecallApp(WsgiApp):
         device: str = "cuda",
     ) -> None:
         self.config = config
+        if config.engine.tracing:
+            tracing.enable(0)   # the span totals alone, for /metrics
         self.store = store if store is not None else InMemoryIngestionStore()
 
         if raw_store is not None:
@@ -484,18 +487,15 @@ class OmniRecallApp(WsgiApp):
     def _metrics(self, request: Request) -> Response:
         """Prometheus text exposition of the engine/index counters (new
         scope: the reference exports no metrics, SURVEY.md §5; this is the
-        observability surface a production serving deployment needs)."""
+        observability surface a production serving deployment needs): every
+        ``RecallEngine.stats`` counter, and with ``Engine:Tracing`` each
+        span's count, wall seconds and thread CPU seconds (utils/tracing.py)."""
         engine = self.engine
         dix = engine.device_index
-        lines = [
-            "# TYPE omni_searches_total counter",
-            f"omni_searches_total {engine.stats['searches_total']}",
-            "# TYPE omni_coarse_resolved_total counter",
-            f"omni_coarse_resolved_total {engine.stats['coarse_resolved_total']}",
-            "# TYPE omni_escalation_rounds_total counter",
-            f"omni_escalation_rounds_total {engine.stats['escalation_rounds_total']}",
-            "# TYPE omni_host_fallbacks_total counter",
-            f"omni_host_fallbacks_total {engine.stats['host_fallbacks_total']}",
+        lines = []
+        for key, value in dict(engine.stats).items():
+            lines += [f"# TYPE omni_{key} counter", f"omni_{key} {value}"]
+        lines += [
             "# TYPE omni_index_rows gauge",
             f"omni_index_rows {dix.n_rows if dix is not None else 0}",
             "# TYPE omni_index_valid_rows gauge",
@@ -503,6 +503,14 @@ class OmniRecallApp(WsgiApp):
             "# TYPE omni_index_capacity_rows gauge",
             f"omni_index_capacity_rows {dix._cap if dix is not None else 0}",
         ]
+        if tracing.enabled():
+            spans = tracing.totals()
+            for metric, col in (("omni_span_count_total", 0),
+                                ("omni_span_wall_seconds_total", 1),
+                                ("omni_span_cpu_seconds_total", 2)):
+                lines.append(f"# TYPE {metric} counter")
+                lines += [f'{metric}{{span="{name}"}} {spans[name][col]!r}'
+                          for name in sorted(spans)]
         return Response(
             200, ("\n".join(lines) + "\n").encode("utf-8"),
             {"Content-Type": "text/plain; version=0.0.4; charset=utf-8"},

@@ -229,14 +229,15 @@ def device_planes(dix, n: int, center8: np.ndarray, noise8: np.ndarray, scale: n
 def build_e2e_engine(n: int, d: int, bits: int, checkpoint=None, *, device="cuda",
                      dd: bool = True, direct_select: bool = True,
                      coarse_sub: int | None = None, coarse_t: int | None = None,
-                     select_t_out: int = 0, timings: dict | None = None):
+                     select_t_out: int = 0, timings: dict | None = None, options=None):
     """Build the bench's corpus and a certified-exact engine over it.
     Returns (engine, make_requests(seed, nb), now, opts); the engine carries
     ``bench_n_clusters`` and ``bench_corpus`` (meta, contents, assign, emb:
     references, not copies). ``checkpoint`` (no arguments) is called after
     each slab of the host build and of the device fill. ``timings`` (if
     given) receives the host build's, the records' and the device planes'
-    seconds."""
+    seconds. ``options`` (``EngineOptions``) replaces the bench's; an index
+    stored other than in int8 takes the standard upload of the host rows."""
     from omni_recall_tpu_torch.device import resolve_device
     from omni_recall_tpu_torch.index.device_index import EPOCH
     from omni_recall_tpu_torch.index.store import InMemoryIngestionStore
@@ -259,8 +260,9 @@ def build_e2e_engine(n: int, d: int, bits: int, checkpoint=None, *, device="cuda
     meta = records(n, emb, assign, contents, created_days)
     timings["records_s"] = time.perf_counter() - t1
     aux = aux_columns(n, assign, contents, created_days)
-    opts = bench_options(n, d, bits, dd=dd, direct_select=direct_select,
-                         coarse_sub=coarse_sub, coarse_t=coarse_t, select_t_out=select_t_out)
+    opts = options if options is not None else bench_options(
+        n, d, bits, dd=dd, direct_select=direct_select, coarse_sub=coarse_sub,
+        coarse_t=coarse_t, select_t_out=select_t_out)
     engine = RecallEngine(InMemoryIngestionStore(), options=opts, device=dev)
     dix = engine.device_index
     sigs = cluster_signatures(contents, dix)
@@ -269,15 +271,18 @@ def build_e2e_engine(n: int, d: int, bits: int, checkpoint=None, *, device="cuda
     timings["host_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    planes = device_planes(dix, n, center8, noise8, scale, sigs, assign, slab_rows, dd,
-                           checkpoint)
-    if checkpoint is not None:
-        checkpoint()
-    dix.install_device_planes(planes)
-    if dd:
-        probe = min(PROBE_ROWS, n)
-        if not np.array_equal(planes.raw[:probe].cpu().numpy(), emb[:probe]):
-            raise AssertionError("device-generated raw plane diverges from the host mirror")
+    if dix.scan_dtype != "int8":
+        dix.device_arrays()
+    else:
+        planes = device_planes(dix, n, center8, noise8, scale, sigs, assign, slab_rows,
+                               dix.exact_cos, checkpoint)
+        if checkpoint is not None:
+            checkpoint()
+        dix.install_device_planes(planes)
+        if dix.exact_cos:
+            probe = min(PROBE_ROWS, n)
+            if not np.array_equal(planes.raw[:probe].cpu().numpy(), emb[:probe]):
+                raise AssertionError("device-generated raw plane diverges from the host mirror")
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     timings["device_s"] = time.perf_counter() - t0

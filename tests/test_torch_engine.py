@@ -432,10 +432,12 @@ def test_coalesced_concurrent_searches_equal_serial(clustered):
 def test_engine_options_default_to_the_reference():
     """F2: every field of the two EngineOptions() is equal (the reference's
     defaults: backend xla over f32 storage, no device-exact cosine, the
-    refine selection)."""
+    refine selection). The port adds one field, the operator's tracing
+    switch (utils/tracing.py), off by default."""
     t, j = TOptions(), JOptions()
-    names = {f.name for f in dataclasses.fields(TOptions)}
-    assert names == {f.name for f in dataclasses.fields(JOptions)}
+    names = {f.name for f in dataclasses.fields(JOptions)}
+    assert {f.name for f in dataclasses.fields(TOptions)} == names | {"tracing"}
+    assert t.tracing is False
     assert {n: getattr(t, n) for n in names} == {n: getattr(j, n) for n in names}
     assert (t.backend, t.scan_dtype, t.device_exact_cos, t.direct_select) == (
         "xla", "f32", False, False)

@@ -153,9 +153,50 @@ def test_searches_return_citations_and_metrics(transcripts):
     client = TClient(tapp)
     metrics = client.get("/metrics")
     assert metrics.status == 200
-    assert f"omni_searches_total {len(QUERIES) + 3}" in metrics.body.decode()
+    text = metrics.body.decode()
+    assert f"omni_searches_total {len(QUERIES) + 3}" in text
+    # every engine counter, and no span totals with tracing off
+    for key, value in tapp.engine.stats.items():
+        assert f"# TYPE omni_{key} counter\nomni_{key} {value}\n" in text
+    assert "omni_span" not in text
     health = client.get("/health").json()
     assert any(d["name"] == "tpu-engine" for d in health["dependencies"])
+
+
+def test_tracing_exports_span_totals_on_metrics():
+    """``Engine:Tracing`` turns the recorder on: /metrics adds each span's
+    count, wall and CPU seconds as counters, over the coalescer's path."""
+    from omni_recall_tpu_torch.utils import tracing
+
+    tracing.disable()
+    overrides = {**OVERRIDES, "Engine:Tracing": "true", "Engine:CoalesceWindowMs": 1}
+    tapp = None
+    try:
+        tapp = tbuild(tload(settings_file=None, env={}, overrides=overrides), device="cpu")
+        assert tracing.enabled()
+        client = TClient(tapp)
+        for name, data in DOCS:
+            assert client.upload("/api/documents/upload", filename=name, data=data).status == 201
+        for q in QUERIES:
+            assert client.post("/api/recall/search",
+                               json_body={"query": q, "topK": 4}).status == 200
+        text = client.get("/metrics").body.decode()
+        totals = tracing.totals()
+        kept = tracing.records()
+    finally:
+        tracing.disable()
+        if tapp is not None and tapp.search_executor is not None:
+            tapp.search_executor.close()
+    lines = dict(line.rsplit(" ", 1) for line in text.splitlines() if not line.startswith("#"))
+    assert int(lines["omni_searches_total"]) == len(QUERIES)
+    for name in ("coalesce.collect", "engine.dispatch", "engine.finalize", "finalize.wait"):
+        count, wall, cpu = totals[name]
+        assert int(lines[f'omni_span_count_total{{span="{name}"}}']) == count > 0
+        assert float(lines[f'omni_span_wall_seconds_total{{span="{name}"}}']) == wall > 0
+        assert float(lines[f'omni_span_cpu_seconds_total{{span="{name}"}}']) == cpu
+    # the server keeps the totals alone: no rows, so nothing to drop
+    assert "omni_span_dropped_total" not in lines
+    assert kept["name"].size == 0 and kept["dropped"] == 0 and kept["threads"] == {}
 
 
 @pytest.mark.parametrize("direct", ["true", "false"])
