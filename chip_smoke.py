@@ -30,9 +30,15 @@ Phases, one JSON line each:
                 CUDA-event timed runs of each (K6's plain version, which
                 takes seconds, timed by the host clock over its one
                 comparison call), beside the least time the card could
-                take. K1, K7a and K4 (csrc/int8_scan.cu, int8 wgmma) carry
+                take. K1, K7a (csrc/int8_coarse.cu) and K4
+                (csrc/int8_scan.cu), int8 wgmma, carry
                 the int8 cosine product alone (``torch._int_mm``) as their
-                yardstick, K5 (int8_scan.cu too) the keyword product alone
+                yardstick; K1's and K7a's lines also name the kernel that
+                ran, its query tile, the bytes its row tiles move from L2
+                (ceil(B / QT) N d), and K1's first design
+                (csrc/int8_scan.cu, scores staged in shared memory) on the
+                same operands, bitwise and timed beside it, here and at the
+                compact shape; K5 (int8_scan.cu too) the keyword product alone
                 over the pre-expanded bit matrix, and K5's line also times
                 it at slices of 512, where it takes its 64-query tile. Then
                 the plain-torch xla scorer (no kernel of the
@@ -522,7 +528,8 @@ def kernel_phase(seed: int, parent=None) -> dict:
     q_bias = rf((b, 1), 0.01)
     results = {}
 
-    def scan_line(name, replaces, kern, plain, bytes_moved, ops, library=(None, None)):
+    def scan_line(name, replaces, kern, plain, bytes_moved, ops, library=(None, None),
+                  extra=None):
         kv, ki = kern()
         pv, pi = plain()
         torch.cuda.synchronize()
@@ -533,10 +540,13 @@ def kernel_phase(seed: int, parent=None) -> dict:
         bms, by = bound_ms(bytes_moved, ops, INT8_OPS_PER_S)
         line = dict(name=name, replaces=replaces, shape=list(kv.shape),
                     parity=bitwise_parity(ok), max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bms, bound_by=by, library_ms=library[0], library=library[1])
+                    bound_ms=bms, bound_by=by, library_ms=library[0], library=library[1],
+                    **(extra() if extra else {}))
         emit({"phase": "kernel", **line})
         if not ok:
             raise AssertionError(f"{name}: kernel disagrees with its plain version")
+        if line.get("first_design_bitwise") is False:
+            raise AssertionError(f"{name}: K1 disagrees with its first design")
         return line
 
     out_bytes = lambda t1, sub: b * (n // sub) * t1 * 8  # noqa: E731
@@ -554,6 +564,7 @@ def kernel_phase(seed: int, parent=None) -> dict:
                 emb8, q8, add_row, scale_row, q_scale, q_bias, t=t, sub=sub),
             n * d + b * d + 8 * n + 8 * b + out_bytes(t1, sub),
             2.0 * n * d * b, int_mm,
+            lambda: k1_design((emb8, q8, add_row, scale_row, q_scale, q_bias), t, sub),  # noqa: B023
         )
     # K4 at the rescue layout (_select_scorer: sub 512, t 4)
     results["fused"] = scan_line(
@@ -624,6 +635,34 @@ def kernel_phase(seed: int, parent=None) -> dict:
     del raw, q_raw
     torch.cuda.empty_cache()
     return results
+
+
+def k1_design(args, t: int, sub: int) -> dict:
+    """Which K1 ran at this shape and what its design implies: the kernel
+    (``int8_coarse.cu``, or ``int8_scan.cu``'s first design for the shapes
+    int8_coarse.cu does not take) by its launch count, its query tile, the
+    bytes its row tiles move from L2 to the SMs (ceil(B / QT) x N x d: each
+    query tile reads every row once), and the first design (the K1 of
+    csrc/int8_scan.cu, the port's K1 before int8_coarse.cu) on the same
+    operands: bitwise against it, and its time beside it (parent, kernel,
+    kernel, parent)."""
+    from omni_recall_tpu_torch.ops import cuda, scorer
+
+    (n, d), b = args[0].shape, args[1].shape[0]
+    sub_k, t1 = scorer._coarse_shape(n, b, t, sub, None)
+    kern = lambda: scorer.block_topt_int8_coarse(*args, t=t, sub=sub)  # noqa: E731
+    first = lambda: scorer.block_topt_int8_coarse_staged(*args, t=t, sub=sub)  # noqa: E731
+    before = dict(cuda.LAUNCHES)
+    got = kern()
+    (key,) = [k for k, v in cuda.LAUNCHES.items() if v != before[k]]
+    qt = scorer.coarse_query_tile(sub_k, d, t1)
+    ms, ab = timed_ab(kern, first, pair_bitwise)
+    return {"design": "int8_coarse.cu" if key != "coarse_staged" else "int8_scan.cu",
+            "launch_key": key, "query_tile": qt, "l2_bytes": -(-b // qt) * n * d,
+            "first_design_l2_bytes": -(-b // scorer.int8_query_tile(sub_k, d)) * n * d,
+            "first_design_bitwise": pair_bitwise(got, first()),
+            "first_design_ms": ab["parent_ms"], "first_design_ms_after": ab["parent_ms_after"],
+            "design_ms": ms, "design_ms_after": ab["ms_after"]}
 
 
 def dd_gathered_line(raw, rows, q_raw, by_index) -> dict:
@@ -3680,7 +3719,7 @@ def eval_trace(engine, reqs, now, check) -> dict:
         ops = device_ops(trace.path)
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
-    names = {"coarse_scan": [o["name"] for o in ops if "int8_scan_kernel" in o["name"]],
+    names = {"coarse_scan": [o["name"] for o in ops if "CoarseArgs" in o["name"]],
              "dd_rows": [o["name"] for o in ops if "dd_rows_kernel" in o["name"]]}
     line = {"trace_bytes": size, "device_ops": len(ops),
             "device_us": sum(o["total_us"] for o in ops),
@@ -4035,10 +4074,14 @@ def compact_kernel_lines(planes, seed: int) -> dict:
             parity=bitwise_parity(ok), parity_by=f"slabs of {s} rows", max_abs_err=err,
             ms=time_ms(lambda: call(kern, 0, n, *layout), device_only=True),  # noqa: B023
             plain_ms=plain_s * 1e3, plain_runs=1, bound_ms=bms, bound_by=by,
-            library_ms=library.get(name, (None,))[0], library=library.get(name, (None, "none"))[1])
+            library_ms=library.get(name, (None,))[0], library=library.get(name, (None, "none"))[1],
+            **(k1_design((emb, q8, add_row, scale_row, q_scale, q_bias), layout[1], layout[0])
+               if name == "coarse_scan" else {}))
         emit({"phase": "kernel", **lines[name]})
         if not ok:
             raise AssertionError(f"{name}[compact]: kernel disagrees with its plain version")
+        if lines[name].get("first_design_bitwise") is False:
+            raise AssertionError(f"{name}[compact]: K1 disagrees with its first design")
         torch.cuda.empty_cache()
     return lines
 
@@ -4265,6 +4308,7 @@ def main() -> int:
                          "sum_port_design_ms": stages["sum_port_design_ms"]})
 
     int8_src = "omni_recall_tpu_torch/csrc/int8_scan.cu"
+    coarse_src = "omni_recall_tpu_torch/csrc/int8_coarse.cu"
     fp_src = "omni_recall_tpu_torch/csrc/fp_scan.cu"
     rescue = k["refine_rescue"]
     ab_keys = ("library", *PARENT_KEYS)
@@ -4274,16 +4318,24 @@ def main() -> int:
                      {**{key: line[key] for key in ab_keys + keys if key in line},
                       **(extra or {})})
 
+    # K1's L2 traffic is derived from its design, not measured: it stays in
+    # the kernel's own ``phase: kernel`` line and out of the kernels line
+    k1_derived = ("l2_bytes", "first_design_l2_bytes")
+
     def compact_extra(route_key):
         """A kernel's line at the compact shape, with its launches there."""
-        return {"compact": {**compact["kernels"][route_key],
+        return {"compact": {**{key: v for key, v in compact["kernels"][route_key].items()
+                               if key not in k1_derived},
                             "launches": paths["compact"]["launches"][route_key],
                             "launches_per_batch": compact["launches_per_batch"][route_key]}}
 
+    k1_keys = ("design", "launch_key", "query_tile", "first_design_bitwise", "first_design_ms",
+               "first_design_ms_after", "design_ms", "design_ms_after")
     kernels = [
-        int8_entry("K1 coarse_scan", "coarse_scan", k["coarse_packed"],
-                   extra=compact_extra("coarse_scan")),
-        int8_entry("K7a coarse_scan pair mode", "coarse_pair", k["coarse_two_reduce"]),
+        int8_entry("K1 coarse_scan", "coarse_scan", k["coarse_packed"], k1_keys,
+                   extra={**compact_extra("coarse_scan"), "source": coarse_src}),
+        int8_entry("K7a coarse_scan pair mode", "coarse_pair", k["coarse_two_reduce"], k1_keys,
+                   extra={"source": coarse_src}),
         entry("K2 dd_rows", "dd_rows", "omni_recall_tpu_torch/csrc/dd_rows.cu", k["dd"],
               {**{key: k["dd"][key] for key in ("sabs_rel_err", "layout", "l2_rows_ms",
                                                 "gather_ms", *PARENT_KEYS) if key in k["dd"]},

@@ -1,6 +1,10 @@
-// Hand-written Hopper (sm_90a) kernels for the int8 hybrid scans K1 (with its
-// pair mode K7a), K4 and K5, and the profiling probes T2, T4 and T5, on the
-// tensor cores (wgmma, s8 in, s32 accumulators).
+// Hand-written Hopper (sm_90a) kernels for the int8 hybrid scans K4 and K5,
+// K1's first design (with its pair mode K7a), and the profiling probes T2, T4
+// and T5, on the tensor cores (wgmma, s8 in, s32 accumulators). K1 itself
+// runs in csrc/int8_coarse.cu, its extraction in registers; this first
+// design, its scores staged in shared memory, takes the shapes that kernel
+// does not (slices under 128 rows, t1 > 9, d > 1280), and T2 and T4 are
+// built on its tiles.
 //
 // Replaces omni_recall_tpu/ops/pallas_scorer.py:
 //
@@ -62,8 +66,10 @@
 // over 940 MB (0.851 ms), K5 2*N*B*8W = 9.6e11 over 134 MB (0.486 ms): all
 // operation-bound. K1, K4 and T5 stream every row once per query tile of QT
 // queries, so their own floor is the L2-to-SM traffic: B / QT tiles x the rows'
-// bytes (K1: 14 x 0.805 GB at QT = 32; K4 adds the bloom bytes). K5 reads only
-// the bloom bytes, B / QT times each; its floor is the tensor cores' own rate.
+// bytes (K1 here: 14 x 0.805 GB at QT = 32, 1.85 ms at B 448, where
+// csrc/int8_coarse.cu's 128-query tile moves 3.2 GB; K4 adds the bloom
+// bytes). K5 reads only the bloom bytes, B / QT times each; its floor is the
+// tensor cores' own rate.
 //
 // Design (the shape of fp_scan.cu's K6, with int8 operands):
 // - Rows are wgmma operand A (m64nQTk32.s32.s8.s8: 64 rows a consumer
@@ -1123,7 +1129,8 @@ int launch_pipe(PipeArgs a, const Operands& o, int groups, cudaStream_t stream) 
 
 }  // namespace
 
-// K1 (packed = 1) and K7a (packed = 0): emb8 i8 [n, d], q8 i8 [b, d], add_row,
+// K1's first design (packed = 1) and K7a's (packed = 0), for the shapes
+// csrc/int8_coarse.cu does not take: emb8 i8 [n, d], q8 i8 [b, d], add_row,
 // scale_row f32 [n], q_scale (0.7 folded in), q_bias f32 [b] -> vals f32, idxs
 // i32 [b, n / sub, t1]. n % 128 == 0, d % 16 == 0, sub % 128 == 0 or
 // 128 % sub == 0.
@@ -1269,8 +1276,8 @@ extern "C" int omni_int8_kw_query_tile(int sub, int w) {
   return pick_kw_tile((w + 15) / 16, sub > kTileRows ? sub : kTileRows);
 }
 
-// the query tile K1 (w = 0) or K4 takes at extraction slices of `sub` rows,
-// width d and W bloom bytes; 0 if none fits
+// the query tile K1's first design (w = 0) or K4 takes at extraction slices
+// of `sub` rows, width d and W bloom bytes; 0 if none fits
 extern "C" int omni_int8_scan_query_tile(int sub, int d, int w) {
   const int kchunks = (d + kChunk - 1) / kChunk + (w > 0 ? (w + 15) / 16 : 0);
   return pick_tile(kchunks, sub > kTileRows ? sub : kTileRows);

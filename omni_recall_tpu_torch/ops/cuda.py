@@ -32,8 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel library name -> source file
-SOURCES = {"int8_scan": "int8_scan.cu", "fp_scan": "fp_scan.cu", "dd_rows": "dd_rows.cu",
-           "refine": "refine.cu"}
+SOURCES = {"int8_coarse": "int8_coarse.cu", "int8_scan": "int8_scan.cu",
+           "fp_scan": "fp_scan.cu", "dd_rows": "dd_rows.cu", "refine": "refine.cu"}
 
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,8 +43,10 @@ NVCC_FLAGS = [
 # launches per kernel (see module docstring); keys are the kernel names
 # chip_smoke.py reports
 LAUNCHES: dict[str, int] = {
-    "coarse_scan": 0,   # K1: coarse int8 scan, packed-key extraction
-    "coarse_pair": 0,   # K7a: the same scan in its value/index pair mode
+    "coarse_scan": 0,   # K1: coarse int8 scan, packed-key extraction (int8_coarse.cu)
+    "coarse_pair": 0,   # K7a: the same scan in its value/index pair mode (int8_coarse.cu)
+    "coarse_staged": 0,  # K1 / K7a in the first design, scores staged in shared memory
+                         # (int8_scan.cu): the shapes int8_coarse.cu does not take
     "fused_scan": 0,    # K4: full fused int8 + keyword scan
     "kw_scan": 0,       # K5: keyword-only bloom scan
     "fp_scan": 0,       # K6: fused f32/bf16 scan
@@ -53,8 +55,8 @@ LAUNCHES: dict[str, int] = {
     "recency": 0,       # K3's recency term alone, a check of its expf (no path)
     "profile_kernel": 0,  # T1: K6's body split three ways (tools/profile_kernel.py)
     "profile_bloomT": 0,  # T5: K4's body over row or transposed bloom (tools/)
-    "probe_pipe": 0,      # T2: K1 with its extraction one group behind (int8_pipe_kernel)
-    "probe_keys_emit": 0,  # T4: K1's tiles with three emit layouts (KeysArgs)
+    "probe_pipe": 0,      # T2: K1's first design, extraction a group behind (int8_pipe_kernel)
+    "probe_keys_emit": 0,  # T4: K1's first design's tiles, three emit layouts (KeysArgs)
     "probe_serve": 0,     # T3: K3's body over pre-gathered slabs (tools/probe_serve.py)
 }
 
@@ -139,6 +141,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # library -> {exported function: its argument types}
 _ARGTYPES = {
+    "int8_coarse": {
+        "omni_int8_coarse": [
+            _P, _P, _P, _P, _P, _P,               # emb8 q8 add scale qs qb
+            _P, _P,                               # out vals, out idxs
+            _I, _I, _I, _I, _I, _I,               # n d b sub t1 packed
+            _P,                                   # stream
+        ],
+        "omni_int8_coarse_query_tile": [_I, _I, _I, _I],  # d sub t1 packed
+    },
     "int8_scan": {
         "omni_int8_coarse_topt": [
             _P, _P, _P, _P, _P, _P,               # emb8 q8 add scale qs qb

@@ -1,9 +1,9 @@
 """Hybrid upper-bound scans: CUDA kernels and their plain versions.
 
 Counterpart of omni_recall_tpu/ops/pallas_scorer.py (the fused Pallas TPU
-kernels). Four scans, each a hand-written CUDA kernel (csrc/int8_scan.cu,
-csrc/fp_scan.cu) with a plain PyTorch version of the same function beside
-it, written from the JAX graph:
+kernels). Four scans, each a hand-written CUDA kernel (csrc/int8_coarse.cu,
+csrc/int8_scan.cu, csrc/fp_scan.cu) with a plain PyTorch version of the
+same function beside it, written from the JAX graph:
 
 - K1 ``block_topt_int8_coarse`` — cosine-only scan, keyword capped per query
   (pallas_scorer.py _make_topt_kernel_int8_coarse_keys_t, and the pair emit
@@ -16,9 +16,12 @@ it, written from the JAX graph:
   (_make_topt_kernel_int8), the certificate-miss rescue scan.
 - K5 ``block_topt_kw_only`` — bloom-only scan for queries without an
   embedding (_make_topt_kernel_kw_only).
-  K1, K4 and K5 run on the tensor cores (csrc/int8_scan.cu, int8 ``wgmma``;
-  the keyword weights in ``int8_kw_columns`` order); their int32 sums are
-  exact in any order, so they match their plain versions bit for bit.
+  K1, K4 and K5 run on the tensor cores (int8 ``wgmma``; K1 in
+  csrc/int8_coarse.cu, its extraction in registers, and for the shapes that
+  kernel does not take in its first design in csrc/int8_scan.cu beside K4
+  and K5, the keyword weights in ``int8_kw_columns`` order); their int32
+  sums are exact in any order, so they match their plain versions bit for
+  bit.
 - K6 ``block_topt`` — the fused scan over f32 or bf16 scan storage
   (_make_topt_kernel / _ub_block): bf16 operands, f32 sums, eps
   PALLAS_CERT_EPS. The TPU sums its dot products in the MXU's order and the
@@ -488,19 +491,24 @@ def int8_kw_operand(kw_w8: torch.Tensor, w: int) -> torch.Tensor:
 
 
 def int8_query_tile(sub: int, d: int, w: int = 0) -> int:
-    """Queries one block of csrc/int8_scan.cu scores (its wgmma N): K1 at
-    ``w`` = 0, else K4 over W bloom bytes, at extraction slices of ``sub``.
-    Needs the built library (the card)."""
+    """Queries one block of csrc/int8_scan.cu scores (its wgmma N): K4 over
+    W bloom bytes, or at ``w`` = 0 K1's first design (scores staged in
+    shared memory; the tile T2 and T4 take too), at extraction slices of
+    ``sub``. Needs the built library (the card)."""
     return cuda.library("int8_scan").omni_int8_scan_query_tile(sub, d, w)
 
 
-def _int8_cuda(n: int, b: int, sub: int, t1: int, *, emb8, q8, add_row, scale_row, q_scale,
-               q_bias, bloom=None, kw_w8=None, kw_b=None):
-    """Launch csrc/int8_scan.cu: K1 (K7a in the two-reduce mode) without
-    ``bloom``, K4 with it; returns (vals, idxs) [B, N/sub, t1]."""
-    dev = emb8.device
-    f32, i8 = torch.float32, torch.int8
-    d = emb8.shape[1]
+def coarse_query_tile(sub: int, d: int, t1: int) -> int:
+    """Queries one block of K1 scores at extraction slices of ``sub``, t1
+    entries a slice and width d: 128 where csrc/int8_coarse.cu takes the
+    shape, else the staged design's tile (``int8_query_tile``). Needs the
+    built libraries (the card)."""
+    qt = cuda.library("int8_coarse").omni_int8_coarse_query_tile(
+        d, sub, t1, int(_packed_mode(sub, t1)))
+    return qt or int8_query_tile(sub, d)
+
+
+def _check_int8_shape(n: int, d: int, sub: int) -> None:
     if d % 16:
         raise ValueError(f"the CUDA scan needs d % 16 == 0, got d={d}")
     if sub % INT8_TILE_ROWS and INT8_TILE_ROWS % sub:
@@ -508,32 +516,63 @@ def _int8_cuda(n: int, b: int, sub: int, t1: int, *, emb8, q8, add_row, scale_ro
                          f"{INT8_TILE_ROWS} % sub == 0, got {sub}")
     if n % max(sub, INT8_TILE_ROWS):
         raise ValueError(f"the CUDA scan needs N % max(sub, {INT8_TILE_ROWS}) == 0, got N={n}")
-    ops = dict(emb8=(emb8, i8, (n, d)), q8=(q8, i8, (b, d)), add_row=(add_row, f32, (n,)),
-               scale_row=(scale_row, f32, (n,)), q_scale=(q_scale, f32, (b,)),
-               q_bias=(q_bias, f32, (b,)))
-    if bloom is not None:
-        w = bloom.shape[1]
-        ops.update(bloom=(bloom, torch.uint8, (n, w)), kw_w8=(kw_w8, i8, (b, 8 * w)),
-                   kw_b=(kw_b, f32, (b,)))
-    _check_cuda_operands(dev, **ops)
+
+
+def _coarse_cuda(emb8, q8, add_row, scale_row, q_scale, q_bias, t: int, sub: int,
+                 block: int | None, staged: bool):
+    """Launch K1 (K7a in the two-reduce mode) at the layout ``_coarse_shape``
+    gives: csrc/int8_coarse.cu where it takes the shape, else (or given
+    ``staged``) the first design in csrc/int8_scan.cu. Returns (vals, idxs)
+    [B, N/sub, t1] and the query tile of the kernel that ran."""
+    dev = emb8.device
+    f32, i8 = torch.float32, torch.int8
+    (n, d), b = emb8.shape, q8.shape[0]
+    sub, t1 = _coarse_shape(n, b, t, sub, block)
+    _check_int8_shape(n, d, sub)
+    add_row, scale_row = add_row.reshape(-1), scale_row.reshape(-1)
+    q_scale, q_bias = (COSINE_WEIGHT * q_scale).reshape(-1), q_bias.reshape(-1)
+    _check_cuda_operands(
+        dev, emb8=(emb8, i8, (n, d)), q8=(q8, i8, (b, d)), add_row=(add_row, f32, (n,)),
+        scale_row=(scale_row, f32, (n,)), q_scale=(q_scale, f32, (b,)), q_bias=(q_bias, f32, (b,)))
     vals, idxs = _outputs(b, n, sub, t1, dev)
-    packed = _packed_mode(sub, t1)
-    lib = cuda.library("int8_scan")
-    stream = cuda.stream_ptr(dev)
-    if bloom is None:
+    packed = int(_packed_mode(sub, t1))
+    lib = cuda.library("int8_coarse")
+    qt = 0 if staged else lib.omni_int8_coarse_query_tile(d, sub, t1, packed)
+    ptrs = (_ptr(emb8), _ptr(q8), _ptr(add_row), _ptr(scale_row), _ptr(q_scale), _ptr(q_bias),
+            _ptr(vals), _ptr(idxs), n, d, b, sub, t1, packed, cuda.stream_ptr(dev))
+    if qt:
         name = "coarse_scan" if packed else "coarse_pair"
-        rc = lib.omni_int8_coarse_topt(
-            _ptr(emb8), _ptr(q8), _ptr(add_row), _ptr(scale_row), _ptr(q_scale), _ptr(q_bias),
-            _ptr(vals), _ptr(idxs), n, d, b, sub, t1, int(packed), stream)
+        rc = lib.omni_int8_coarse(*ptrs)
     else:
-        name = "fused_scan"
-        kw8 = int8_kw_operand(kw_w8, w)
-        rc = lib.omni_int8_fused_topt(
-            _ptr(emb8), _ptr(bloom), _ptr(q8), _ptr(kw8), _ptr(kw_b), _ptr(add_row),
-            _ptr(scale_row), _ptr(q_scale), _ptr(q_bias), _ptr(vals), _ptr(idxs),
-            n, d, w, b, sub, t1, int(packed), stream)
+        name = "coarse_staged"
+        lib = cuda.library("int8_scan")
+        qt = lib.omni_int8_scan_query_tile(sub, d, 0)
+        rc = lib.omni_int8_coarse_topt(*ptrs)
     cuda.check(lib, rc, name)
     cuda.count_launch(name)
+    return vals, idxs, qt
+
+
+def _int8_cuda(n: int, b: int, sub: int, t1: int, *, emb8, q8, add_row, scale_row, q_scale,
+               q_bias, bloom, kw_w8, kw_b):
+    """Launch csrc/int8_scan.cu's K4; returns (vals, idxs) [B, N/sub, t1]."""
+    dev = emb8.device
+    f32, i8 = torch.float32, torch.int8
+    d, w = emb8.shape[1], bloom.shape[1]
+    _check_int8_shape(n, d, sub)
+    _check_cuda_operands(
+        dev, emb8=(emb8, i8, (n, d)), q8=(q8, i8, (b, d)), add_row=(add_row, f32, (n,)),
+        scale_row=(scale_row, f32, (n,)), q_scale=(q_scale, f32, (b,)), q_bias=(q_bias, f32, (b,)),
+        bloom=(bloom, torch.uint8, (n, w)), kw_w8=(kw_w8, i8, (b, 8 * w)), kw_b=(kw_b, f32, (b,)))
+    vals, idxs = _outputs(b, n, sub, t1, dev)
+    kw8 = int8_kw_operand(kw_w8, w)
+    lib = cuda.library("int8_scan")
+    rc = lib.omni_int8_fused_topt(
+        _ptr(emb8), _ptr(bloom), _ptr(q8), _ptr(kw8), _ptr(kw_b), _ptr(add_row),
+        _ptr(scale_row), _ptr(q_scale), _ptr(q_bias), _ptr(vals), _ptr(idxs),
+        n, d, w, b, sub, t1, int(_packed_mode(sub, t1)), cuda.stream_ptr(dev))
+    cuda.check(lib, rc, "fused_scan")
+    cuda.count_launch("fused_scan")
     return vals, idxs
 
 
@@ -590,21 +629,33 @@ def block_topt_int8_coarse_plain(emb8, q8, add_row, scale_row, q_scale, q_bias,
 def block_topt_int8_coarse(emb8, q8, add_row, scale_row, q_scale, q_bias,
                            t: int, sub: int = 512, block: int | None = None):
     """Coarse (keyword-capped) int8 scan, K1. add_row/scale_row f32[1, N],
-    q_scale/q_bias f32[B, 1]. The ``scan.k1`` span (the host's launch)."""
+    q_scale/q_bias f32[B, 1]. On the card csrc/int8_coarse.cu, or the first
+    design in csrc/int8_scan.cu for the shapes it does not take. The
+    ``scan.k1`` span (the host's launch) carries the query tile of the
+    kernel that ran (0 on the CPU)."""
     with tracing.span(tracing.SCAN_K1) as sp:
-        if sp:
-            sp.set(emb8.shape[0], emb8.shape[1], q8.shape[0], sub, t)
+        n, d, b = emb8.shape[0], emb8.shape[1], q8.shape[0]
         if not emb8.is_cuda:
             _require_cpu(emb8)
+            if sp:
+                sp.set(n, d, b, sub, t, 0)
             return block_topt_int8_coarse_plain(
                 emb8, q8, add_row, scale_row, q_scale, q_bias, t, sub, block)
-        n, b = emb8.shape[0], q8.shape[0]
-        sub, t1 = _coarse_shape(n, b, t, sub, block)
-        return _int8_cuda(
-            n, b, sub, t1, emb8=emb8, q8=q8,
-            add_row=add_row.reshape(-1), scale_row=scale_row.reshape(-1),
-            q_scale=(COSINE_WEIGHT * q_scale).reshape(-1), q_bias=q_bias.reshape(-1),
-        )
+        vals, idxs, qt = _coarse_cuda(emb8, q8, add_row, scale_row, q_scale, q_bias, t, sub,
+                                      block, staged=False)
+        if sp:
+            sp.set(n, d, b, sub, t, qt)
+        return vals, idxs
+
+
+def block_topt_int8_coarse_staged(emb8, q8, add_row, scale_row, q_scale, q_bias,
+                                  t: int, sub: int = 512, block: int | None = None):
+    """K1's first design on the card (csrc/int8_scan.cu, scores staged in
+    shared memory) at any shape it takes: the yardstick the card's checks
+    hold csrc/int8_coarse.cu to, bitwise and in time."""
+    vals, idxs, _ = _coarse_cuda(emb8, q8, add_row, scale_row, q_scale, q_bias, t, sub, block,
+                                 staged=True)
+    return vals, idxs
 
 
 # ---- K4: full fused int8 scan ----

@@ -21,9 +21,10 @@ then the largest left (the bound). Three emits, with nb = N/c and n_sub = c/sub:
 - ``p3``: the raw packed keys i32 in the same layout;
 - ``pf``: the raw packed keys i32 flat, [B, nb·n_sub·t1].
 
-The kernel is K1's own (``csrc/int8_scan.cu``: ``int8_scan_kernel`` with
-``KeysArgs``, int8 ``wgmma`` over rows streamed by TMA, K1's register
-extraction) with the bare epilogue and the emit as its argument; it writes
+The kernel is K1's first design (``csrc/int8_scan.cu``: ``int8_scan_kernel``
+with ``KeysArgs``, int8 ``wgmma`` over rows streamed by TMA, the register
+extraction of its shared-memory scores; K1 itself now runs in
+``csrc/int8_coarse.cu``) with the bare epilogue and the emit as its argument; it writes
 each layout itself, since the layout is what the probe measures. It takes
 K1's shapes: N % 128 == 0 and d % 16 == 0 beside the tool's rules. A CUDA
 tensor launches the kernel or raises; a CPU tensor takes the plain version.

@@ -16,10 +16,11 @@ two-reduce), returned in the tool's layout: (vals f32, idxs i32)
 
 The tool defers the extraction of each block by one grid step, so that the
 scoring of the next block can overlap it. The kernel (``csrc/int8_scan.cu``
-``int8_pipe_kernel``: K1's tiles, int8 ``wgmma`` over rows streamed by TMA)
-makes that overlap real inside one block of five warpgroups: K1's producer
-and two consumer warpgroups score a group of max(sub, 128) rows into one of
-two shared-memory score slots while two extraction warpgroups run the
+``int8_pipe_kernel``: the tiles of K1's first design, int8 ``wgmma`` over
+rows streamed by TMA) makes that overlap real inside one block of five
+warpgroups: its producer and two consumer warpgroups score a group of
+max(sub, 128) rows into one of two shared-memory score slots while two
+extraction warpgroups run the
 rounds of the group before it from the other; named barriers hand the slots
 over. A block walks ``groups`` groups of one query tile (by default K1's
 choice); the fill and the drain cost one group each. It writes K1's

@@ -177,7 +177,7 @@ def _one_batch() -> None:
         sp.step(tr.LAUNCH)
         with tr.span(tr.SCAN_K1) as k:
             if k:
-                k.set(1 << 20, 768, 448, 1024, 2)
+                k.set(1 << 20, 768, 448, 1024, 2, 128)
         if sp:
             sp.set(448, 0, 0)
     tr.add(tr.FINALIZE_QUEUE, time.perf_counter(), -1)

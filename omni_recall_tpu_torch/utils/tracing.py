@@ -77,7 +77,7 @@ ATTRS = {
     "engine.dispatch": ("b", "host_only", "device_embedded"),
     "engine.finalize": ("escalation_rounds", "host_fallbacks", "dd_escalations",
                         "rescue_wide", "rescue_sliced", "rescore_pairs"),
-    "scan.k1": ("n", "d", "b", "sub", "t"),
+    "scan.k1": ("n", "d", "b", "sub", "t", "qt"),
     "scan.xla": ("n", "d", "b", "w"),
     "runtime.gc": ("generation", "collected"),
 }

@@ -17,6 +17,7 @@ import torch
 from omni_recall_tpu_torch.index.device_index import device_quantize
 from omni_recall_tpu_torch.ops import cuda, exact_cos, refine, scorer
 from omni_recall_tpu_torch.ops.oracle import COSINE_WEIGHT
+from omni_recall_tpu_torch.utils import tracing
 from omni_recall_tpu_torch.tools import (
     probe_keys_emit,
     probe_pipe,
@@ -72,41 +73,93 @@ def _operands(dev, n, d, b, w, seed=0, kw_nonzero=0):
     return o
 
 
-# K1's query tile at sub (d = 768): its [QT][sub] f32 scores bind
-K1_TILE = {32: 32, 64: 32, 512: 32, 1024: 32, 2048: 16}
+# K1's query tile at sub (d = 768): 128 queries in csrc/int8_coarse.cu; the
+# first design's (csrc/int8_scan.cu) below 128-row slices, which
+# int8_coarse.cu does not take
+K1_TILE = {32: 32, 64: 32, 512: 128, 1024: 128, 2048: 128}
+
+
+def _k1_key(sub: int, t1: int) -> str:
+    """The launch count K1 adds to at (sub, t1): the first design below
+    128-row slices (and past t1 = 9), else K1 (packed keys) or K7a."""
+    if sub % 128 or t1 > 9:
+        return "coarse_staged"
+    return "coarse_scan" if scorer._packed_mode(sub, t1) else "coarse_pair"
 
 
 @pytest.mark.parametrize("sub, t, d", [(512, 2, 768), (512, 1, 768), (1024, 2, 768),
                                        (64, 3, 768), (32, 2, 768), (1024, 4, 1024),
                                        (512, 2, 384), (2048, 2, 768), (1024, 1, 768)])
 def test_coarse_scan_kernel(dev, sub, t, d):
-    """sub=2048 needs the 16-query shared-memory tile; (1024, t 1) is the
-    two-reduce (pair) mode at the serving slice."""
+    """sub=2048: a slice across sixteen 128-row tiles; (1024, t 1) is the
+    two-reduce (pair) mode at the serving slice; sub 64 and 32 take the
+    first design, whose 32-query tile its [32][sub] f32 scores bind."""
     o = _operands(dev, 8192, d, 40, 128)
     args = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
     # the two-reduce (pair) extraction mode counts as K7a
-    key = ("coarse_scan" if scorer._packed_mode(*scorer._coarse_shape(8192, 40, t, sub, None))
-           else "coarse_pair")
+    sub_k, t1 = scorer._coarse_shape(8192, 40, t, sub, None)
+    key = _k1_key(sub_k, t1)
     before = cuda.LAUNCHES[key]
     kv, ki = scorer.block_topt_int8_coarse(*args, t=t, sub=sub)
     pv, pi = scorer.block_topt_int8_coarse_plain(*args, t=t, sub=sub)
     assert cuda.LAUNCHES[key] == before + 1
     assert _same(kv, pv) and _same(ki, pi)
     if d == 768:
-        assert scorer.int8_query_tile(sub, d) == K1_TILE[sub]
+        assert scorer.coarse_query_tile(sub_k, d, t1) == K1_TILE[sub]
 
 
 @pytest.mark.parametrize("sub, t", [(1024, 2), (1024, 1)])
 @pytest.mark.parametrize("b", [1, 45, 448])
 def test_coarse_scan_batches(dev, sub, t, b):
     """K1 in both modes at the serving slice over one query, a partial query
-    tile and the serving batch (448 = 14 tiles of 32; 1 and 45 leave rows of
-    the last tile past the batch)."""
+    tile and the serving batch (448 = three tiles of 128 queries and a half;
+    1 and 45 leave the last tile's second warpgroup no query of the batch)."""
     o = _operands(dev, 16384, 768, b, 128, seed=3)
     args = [o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")]
     kv, ki = scorer.block_topt_int8_coarse(*args, t=t, sub=sub)
     pv, pi = scorer.block_topt_int8_coarse_plain(*args, t=t, sub=sub)
     assert _same(kv, pv) and _same(ki, pi)
+
+
+@pytest.fixture(scope="module")
+def k1_serving():
+    """K1's operands at the serving shape: 2^20 x 768 int8 rows, 896
+    queries (the batch takes the first B)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    o = _operands(torch.device("cuda"), 1 << 20, 768, 896, 1, seed=27)
+    yield {k: o[k] for k in ("emb8", "q8", "add_row", "scale_row", "q_scale", "q_bias")}
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("sub, t, b", [(1024, 2, b) for b in (1, 64, 65, 414, 448, 896)]
+                         + [(1024, 1, 65), (1024, 1, 448), (512, 4, 65), (512, 4, 448)])
+def test_coarse_scan_at_the_serving_shape(k1_serving, sub, t, b):
+    """K1 over 2^20 x 768 rows at the serving layout (1024, t 2), K7a at
+    t 1 and the tool layout (512, t 4), over one query, whole and ragged
+    64-query halves of a tile (64, 65), the served batches (414, 448) and
+    the compact path's (896): bitwise against its plain version and against
+    the first design, through csrc/int8_coarse.cu (its launch count, and
+    query tile 128 on the scan.k1 span)."""
+    o = k1_serving
+    args = [o["emb8"], o["q8"][:b], o["add_row"], o["scale_row"], o["q_scale"][:b],
+            o["q_bias"][:b]]
+    key = _k1_key(sub, t + 1)
+    before = dict(cuda.LAUNCHES)
+    tracing.enable(64)
+    try:
+        kv, ki = scorer.block_topt_int8_coarse(*args, t=t, sub=sub)
+        rec = tracing.records()
+    finally:
+        tracing.disable()
+    assert key in ("coarse_scan", "coarse_pair")
+    assert {k: v - before[k] for k, v in cuda.LAUNCHES.items() if v != before[k]} == {key: 1}
+    (row,) = [i for i, name in enumerate(rec["name"]) if name == tracing.SCAN_K1]
+    assert tuple(rec["attrs"][row]) == (1 << 20, 768, b, sub, t, 128)
+    pv, pi = scorer.block_topt_int8_coarse_plain(*args, t=t, sub=sub)
+    assert _same(kv, pv) and _same(ki, pi)
+    sv, si = scorer.block_topt_int8_coarse_staged(*args, t=t, sub=sub)
+    assert _same(kv, sv) and _same(ki, si)
 
 
 @pytest.mark.parametrize("sub, t, w", [(512, 4, 128), (512, 1, 128), (256, 2, 128),
@@ -159,6 +212,18 @@ def test_int8_scan_sass_holds_igmma(dev):
         mine = {k: v for k, v in by_kernel.items() if part in k}
         assert len(mine) == instantiations, (part, sorted(mine))
         assert all(v["IGMMA"] > 0 and v["UTMALDG"] > 0 for v in mine.values()), (part, mine)
+
+
+def test_int8_coarse_sass_holds_igmma(dev):
+    """Every instantiation of csrc/int8_coarse.cu (packed keys at list
+    lengths 3, 5, 9; the two-reduce mode at 2, 9) runs its dot on the tensor
+    cores (IGMMA) over rows loaded by TMA (UTMALDG), and its name holds
+    CoarseArgs, which the benchmark's K1 metric finds K1 by."""
+    cuda.library("int8_coarse")
+    by_kernel = ptxas_report.sass_counts_by_function(cuda.BUILD_DIR / "libint8_coarse.so")
+    mine = {k: v for k, v in by_kernel.items() if "int8_coarse_kernel" in k}
+    assert len(mine) == 5 and all("CoarseArgs" in k for k in mine), sorted(mine)
+    assert all(v["IGMMA"] > 0 and v["UTMALDG"] > 0 for v in mine.values()), mine
 
 
 def test_scan_library_holds_only_the_probes(dev):

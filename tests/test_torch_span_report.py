@@ -40,7 +40,7 @@ def test_summarize_reads_every_column():
         (tr.COLLECT, A, 0, -1, 0.0, 0.1, 0.1, (4, 8, 2)),
         (tr.INFLIGHT_WAIT, A, 0, -1, 0.1, 0.3, 0.0, ()),
         (tr.DISPATCH, A, 0, -1, 0.3, 0.5, 0.1, (4, 1, 0)),
-        (tr.SCAN_K1, A, 0, 2, 0.35, 0.45, 0.05, (100, 8, 4, 16, 2)),
+        (tr.SCAN_K1, A, 0, 2, 0.35, 0.45, 0.05, (100, 8, 4, 16, 2, 128)),
         (tr.FINALIZE_QUEUE, B, 0, -1, 0.5, 0.6, 0.0, ()),
         (tr.FINALIZE, B, 0, -1, 0.6, 1.0, 0.1, (1, 0, 0, 0, 0, 50)),
         (tr.WAIT, B, 0, 5, 0.6, 0.8, 0.0, ()),
@@ -67,7 +67,7 @@ def test_summarize_reads_every_column():
     assert got["finalize"]["rescore_pairs"] == {"total": 50, "batches": 1}
     assert got["finalize"]["host_fallbacks"] == {"total": 0, "batches": 0}
     (label, scan), = got["scans"].items()
-    assert label == "scan.k1:n=100,d=8,sub=16,t=2"
+    assert label == "scan.k1:n=100,d=8,sub=16,t=2,qt=128"
     assert scan == {"count": 1, "b_mean": 4.0, "wall_ms": pytest.approx(100.0)}
     spans = got["spans"]
     assert spans["engine.dispatch"]["count"] == 1 and spans["engine.finalize"]["count"] == 1

@@ -208,6 +208,8 @@ def test_pipelined_batches_record_every_span(served):
     assert (names[rec["parent"][k1]] == "dispatch.launch").all()
     n, d = rec["attrs"][k1[0], :2]
     assert n >= 600 and d == DIM
+    # the query tile of the kernel that ran: none on the CPU (the plain version)
+    assert (rec["attrs"][k1, 5] == 0).all()
     # the finalize spans carry their batch's own counts; the engine's totals
     # grew by their sums
     f_rows = by_name["engine.finalize"]
